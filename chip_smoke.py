@@ -7,18 +7,27 @@ clusters, 16384 queries; the corpus is ``synthetic_gaussian`` from a
 seed, as bench.py makes it when the wiki file is absent):
 
   1. exact ground truth with ``FlatIndex`` (kernel A),
-  2. ``IVFFlatIndex.build_index(2048, 2, 10, ...)``,
-  3. ``search_batch`` over nprobe 1, 2, 4, 8 until recall@10 >= 0.95
+  2. the flat approximate engines, each through ``search_batch``:
+     ``FlatIndex(engine="bucket")`` without and with
+     ``bucket_rescore`` (kernel D, the bucket-min scan, then kernel C,
+     the values top-k) and ``FlatIndex(engine="approx")``, recall@10
+     against the ground truth,
+  3. ``IVFFlatIndex.build_index(2048, 2, 10, ...)``,
+  4. ``search_batch`` over nprobe 1, 2, 4, 8 until recall@10 >= 0.95
      (kernel B), then the adaptive nprobe=0, ``search_approximate``,
      ``add`` + search for the added row, and a save/load round trip.
 
-Both kernel launch counters are zeroed just before that run and must
-have moved by its end. The packed-scan inputs of the main path's own
-searches (each nprobe of the sweep, and the adaptive nprobe=0) are
-captured as they pass. Then each kernel is held against its plain torch
-version on the card at the main path's shapes (kernel A: all 16384
-queries over the whole corpus, k = 10; kernel B: the captured scans),
-tie-aware, distances within 1e-4, and both are timed with CUDA events.
+The launch counters of kernels C and D are zeroed just before phase 2
+and must have moved by its end; those of A and B likewise around phases
+1-4. The packed-scan inputs of the main path's own searches (each
+nprobe of the sweep, and the adaptive nprobe=0) are captured as they
+pass. Then each kernel is held against its plain torch version on the
+card at the main path's shapes and timed with CUDA events: kernel A on
+all 16384 queries over the whole corpus, k = 10, tie-aware, distances
+within 1e-4; kernel B on the captured scans, the same; kernel D's full
+bucket table of the phase-2 search, distances within 1e-4 and rows
+equal except at near-ties (counted); kernel C on that table at the
+shortlist widths 10 and 32, bit-identical (it only selects).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and builds the kernels from ``vers_tpu_torch/csrc``
@@ -40,6 +49,8 @@ N, DIM, N_QUERIES, TOP_K = 1_000_000, 300, 16384, 10
 K_CLUSTERS = 2048
 DEVICE = "cuda:0"
 TARGET_RECALL = 0.95
+# recall@10 floors of the flat approximate engines against the exact scan
+ENGINE_RECALL = {"bucket": 0.95, "bucket+rescore": 0.99, "approx": 0.999}
 TOL = 1e-4  # distances: f32 sums in other orders, TF32 off
 ROOT = Path(__file__).resolve().parent
 
@@ -89,7 +100,7 @@ def main():
               file=sys.stderr)
         return 2
     import vers_tpu_torch as vt
-    from vers_tpu_torch.ops import _build, binned, cuda_binned, cuda_topk
+    from vers_tpu_torch.ops import _build, binned, cuda_binned, cuda_bucket, cuda_topk
     from vers_tpu_torch.ops.topk import fused_scan_topk
     from vers_tpu_torch.utils.data import synthetic_gaussian
     from vers_tpu_torch.utils.harness import search_exhaustive
@@ -139,6 +150,38 @@ def main():
                           np.array([[j for j, _ in want]]), rtol=0.0, atol=TOL)
     log(f"flat exact: {flat_ms:.2f} ms / {N_QUERIES} queries = "
         f"{N_QUERIES / flat_ms * 1e3:.0f} qps")
+
+    # -- the flat approximate engines, counted -----------------------
+    cuda_bucket.LAUNCHES = 0
+    cuda_topk.LAUNCHES_VALUES = 0
+    engines = {}
+    for name, cfg in (
+        ("bucket", vt.FlatConfig(engine="bucket")),
+        ("bucket+rescore", vt.FlatConfig(engine="bucket", bucket_rescore=True)),
+        ("approx", vt.FlatConfig(engine="approx")),
+    ):
+        idx = vt.FlatIndex(x, config=cfg, device=dev)
+        res = idx.search_batch(qd, TOP_K)
+        assert res.ids.shape == (N_QUERIES, TOP_K) and (res.ids >= 0).all()
+        assert np.isfinite(res.distances).all()
+        assert (np.diff(res.distances, axis=1) >= 0).all()
+        rec = vt.recall_at_k(res.ids, truth.ids)
+        if name != "bucket":  # exact f32 distances: equal to the truth's
+            same = res.ids == truth.ids
+            assert np.allclose(res.distances[same], truth.distances[same],
+                               rtol=0.0, atol=TOL)
+        ms = cuda_ms(torch, lambda: idx.search_batch_device(qd, TOP_K),
+                     reps=1 if name == "approx" else 3)
+        log(f"flat {name}: recall@10 {rec:.4f}, {ms:.2f} ms / {N_QUERIES} "
+            f"queries = {N_QUERIES / ms * 1e3:.0f} qps")
+        assert rec >= ENGINE_RECALL[name], (name, rec)
+        engines[name] = dict(recall=rec, ms=ms, qps=N_QUERIES / ms * 1e3)
+        del idx, res  # the engine's own copy of the corpus
+    engine_launches = {"bucket_scan": cuda_bucket.LAUNCHES,
+                       "topk_values": cuda_topk.LAUNCHES_VALUES}
+    log(f"kernel launches of the flat engines: {engine_launches}")
+    assert all(n > 0 for n in engine_launches.values()), engine_launches
+    torch.cuda.empty_cache()
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -238,6 +281,40 @@ def main():
     log(f"kernel A vs plain, Q={N_QUERIES} over {N}: max |d| {err_a:g}, "
         f"{ms_a:.2f} ms vs {plain_a:.2f} ms")
 
+    # kernel D: the bucket table of the engine's stage 1 (same call)
+    chunk, superchunk, n_super = cuda_bucket.bucket_geometry(xd.shape[0])
+    span = chunk * superchunk
+    kd = cuda_bucket.cuda_bucket_table(qd, xd, N, span)
+    pd = cuda_bucket.bucket_table_plain(qd, xd, N, span)
+    err_d, ties_d = cuda_bucket.compare_bucket_tables(kd, pd, qd, xd, N, span,
+                                                      atol=TOL)
+    del pd
+    ms_d = cuda_ms(torch, lambda: cuda_bucket.cuda_bucket_table(qd, xd, N, span))
+    plain_d = cuda_ms(torch, lambda: cuda_bucket.bucket_table_plain(
+        qd, xd, N, span), reps=1)
+    width = kd[0].shape[1]
+    log(f"kernel D vs plain, Q={N_QUERIES} over {xd.shape[0]} rows (chunk "
+        f"{chunk}, superchunk {superchunk}, {n_super} x 128 = {width} buckets): "
+        f"max |d| {err_d:g}, {ties_d} near-tie rows, {ms_d:.2f} ms vs "
+        f"{plain_d:.2f} ms")
+
+    # kernel C on that table, at the engine's widths: selection only
+    c_rows = {}
+    for s in (TOP_K, 32):
+        kc = cuda_topk.cuda_topk_values(kd[0], kd[1], s)
+        pc = cuda_topk.topk_values_plain(kd[0], kd[1], s)
+        assert torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1]), s
+        del kc, pc
+        ms_c = cuda_ms(torch, lambda: cuda_topk.cuda_topk_values(kd[0], kd[1], s),
+                       reps=5)
+        plain_c = cuda_ms(torch, lambda: cuda_topk.topk_values_plain(
+            kd[0], kd[1], s), reps=2)
+        log(f"kernel C vs plain, ({N_QUERIES}, {width}) table, s={s}: "
+            f"identical, {ms_c:.3f} ms vs {plain_c:.2f} ms")
+        c_rows[s] = dict(max_abs_err=0.0, ms=ms_c, plain_ms=plain_c)
+    del kd
+    torch.cuda.empty_cache()
+
     b_rows = {}
     for nprobe, calls in scans.items():
         assert len(calls) == 1, (nprobe, len(calls))
@@ -278,7 +355,22 @@ def main():
          "shape": f"Q={N_QUERIES} nprobe={operating} k={TOP_K} of the "
                   f"{K_CLUSTERS}-cluster layout",
          "by_nprobe": b_rows},
+        {"name": "topk_values", "route": "cuda",
+         "source": "vers_tpu_torch/csrc/topk_values.cu",
+         "replaces": "vers_tpu/ops/pallas_topk.py:230",
+         "launches": engine_launches["topk_values"], "max_abs_err": 0.0,
+         "ms": c_rows[TOP_K]["ms"], "plain_ms": c_rows[TOP_K]["plain_ms"],
+         "shape": f"({N_QUERIES}, {width}) bucket table, s={TOP_K}",
+         "by_s": c_rows},
+        {"name": "bucket_scan", "route": "cuda",
+         "source": "vers_tpu_torch/csrc/bucket_scan.cu",
+         "replaces": "vers_tpu/ops/pallas_bucket.py:109",
+         "launches": engine_launches["bucket_scan"], "max_abs_err": err_d,
+         "near_tie_rows": ties_d, "ms": ms_d, "plain_ms": plain_d,
+         "shape": f"Q={N_QUERIES} N={xd.shape[0]} d={DIM} span={span} "
+                  f"W={width}"},
     ]
+    log(f"flat engines: {json.dumps(engines)}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

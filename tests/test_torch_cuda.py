@@ -1,6 +1,7 @@
-"""Kernels A and B on the card against their plain versions, at small
-edge shapes (ragged query tiles and corpus chunks, k = 1 and k = MAX_K,
-cosine, gated probe ranks, exact ties).
+"""Kernels A, B, C and D on the card against their plain versions, at
+small edge shapes (ragged query tiles and corpus chunks, k = 1 and
+k = MAX_K, cosine, gated probe ranks, exact ties, superchunks of one and
+several chunks, rows past n_valid, all-inf rows).
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips without one. This file imports neither jax nor vers_tpu, so it
@@ -9,14 +10,16 @@ also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Distances are held to rtol 1e-4 / atol 1e-4 (f32 sums in other orders;
-TF32 off); ids tie-aware.
+TF32 off); ids tie-aware. Kernel D's table: distances within 1e-4, rows
+equal except at near-ties (``compare_bucket_tables``). Kernel C only
+selects, so it must equal its plain version bit for bit.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vers_tpu_torch.ops import binned, cuda_binned, cuda_topk
+from vers_tpu_torch.ops import binned, cuda_binned, cuda_bucket, cuda_topk
 from vers_tpu_torch.ops.topk import fused_scan_topk
 from vers_tpu_torch.utils.parity import assert_topk_match
 
@@ -178,4 +181,107 @@ def test_ivf_plain_engine_matches_auto(cuda):
     assert cuda_binned.LAUNCHES == before + 1
     b = plain.search_batch(q, 10, nprobe=2)
     assert cuda_binned.LAUNCHES == before + 1
+    _check((a.distances, a.ids), (b.distances, b.ids))
+
+
+@pytest.mark.parametrize("metric", ["sq_euclidean", "cosine"])
+@pytest.mark.parametrize("q_n,n,n_valid,d,span", [
+    (100, 3000, 2999, 37, 1024),   # 3 superchunks, the last one short
+    (7, 512, 300, 16, 512),        # one superchunk, rows past n_valid
+    (130, 5000, 5000, 300, 128),   # one row per bucket, 40 superchunks
+    (65, 4096, 4000, 8, 2048),     # 16 groups per superchunk
+    (64, 300, 0, 24, 128),         # nothing valid: (+inf, -1) everywhere
+])
+def test_bucket_table_kernel_matches_plain(cuda, metric, q_n, n, n_valid, d,
+                                           span):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32)).to(cuda)
+    x = torch.nn.functional.normalize(x, dim=1)
+    q = torch.nn.functional.normalize(q, dim=1)
+    before = cuda_bucket.LAUNCHES
+    got = cuda_bucket.cuda_bucket_table(q, x, n_valid, span, metric)
+    torch.cuda.synchronize()
+    assert cuda_bucket.LAUNCHES == before + 1
+    assert got[0].shape == (q_n, -(-n // span) * 128)
+    want = cuda_bucket.bucket_table_plain(q, x, n_valid, span, metric)
+    cuda_bucket.compare_bucket_tables(got, want, q, x, n_valid, span, metric)
+    if n_valid == 0:
+        assert torch.isinf(got[0]).all() and (got[1] == -1).all()
+
+
+def test_bucket_table_kernel_tie_order(cuda):
+    """Duplicated rows in one bucket tie exactly; the lower row wins."""
+    rng = np.random.default_rng(5)
+    base = rng.normal(size=(256, 20)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([base, base])).to(cuda)
+    q = torch.from_numpy(base[:50] + 0.01).to(cuda)
+    d, i = cuda_bucket.cuda_bucket_table(q, x, 512, 512)
+    assert ((i >= 0) & (i < 256)).all()
+    cuda_bucket.compare_bucket_tables(
+        (d, i), cuda_bucket.bucket_table_plain(q, x, 512, 512), q, x, 512, 512)
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("q_n,w,k", [
+    (37, 700, 1),
+    (64, 33, 8),
+    (5, 8960, cuda_topk.MAX_K),
+    (130, 1000, 10),
+    (3, 100, cuda_topk.MAX_K),  # k > W: (+inf, -1) tail
+])
+def test_topk_values_kernel_matches_plain(cuda, kind, q_n, w, k):
+    rng = np.random.default_rng(6)
+    if kind == "ties":  # few distinct values: the lowest column wins
+        vals = rng.integers(0, 5, size=(q_n, w)).astype(np.float32)
+    else:
+        vals = rng.normal(size=(q_n, w)).astype(np.float32)
+    vals[0, w // 2:] = np.inf
+    vals[1, :] = np.inf
+    ids = rng.integers(0, 1 << 30, size=(q_n, w)).astype(np.int32)
+    v, i = torch.from_numpy(vals).to(cuda), torch.from_numpy(ids).to(cuda)
+    before = cuda_topk.LAUNCHES_VALUES
+    got = cuda_topk.cuda_topk_values(v, i, k)
+    torch.cuda.synchronize()
+    assert cuda_topk.LAUNCHES_VALUES == before + 1
+    want = cuda_topk.topk_values_plain(v, i, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_bucket_and_values_wrappers_reject_bad_inputs(cuda):
+    x = torch.zeros((256, 8), device=cuda)
+    with pytest.raises(TypeError):
+        cuda_bucket.cuda_bucket_table(x.double(), x.double(), 256, 256)
+    with pytest.raises(ValueError):
+        cuda_bucket.cuda_bucket_table(x.cpu(), x, 256, 256)
+    with pytest.raises(ValueError):
+        cuda_bucket.cuda_bucket_table(x, x, 256, 100)  # span off the lanes
+    with pytest.raises(ValueError):
+        cuda_bucket.cuda_bucket_table(x, x[:, :4].contiguous(), 256, 256)
+    with pytest.raises(ValueError):
+        cuda_bucket.cuda_bucket_table(x.t(), x, 256, 256)
+    v = torch.zeros((4, 50), device=cuda)
+    i = torch.zeros((4, 50), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        cuda_topk.cuda_topk_values(v, i.long(), 4)
+    with pytest.raises(ValueError):
+        cuda_topk.cuda_topk_values(v, i[:2], 4)
+    with pytest.raises(ValueError):
+        cuda_topk.cuda_topk_values(v, i, cuda_topk.MAX_K + 1)
+    with pytest.raises(ValueError):
+        cuda_topk.cuda_topk_values(v.t(), i.t(), 4)
+
+
+@pytest.mark.parametrize("engine,rescore", [("bucket", False), ("bucket", True),
+                                            ("approx", False)])
+def test_flat_engines_on_cuda_match_cpu(cuda, engine, rescore):
+    import vers_tpu_torch as vt
+
+    x, q = _clustered()
+    cfg = vt.FlatConfig(engine=engine, bucket_rescore=rescore)
+    before = (cuda_bucket.LAUNCHES, cuda_topk.LAUNCHES_VALUES)
+    a = vt.FlatIndex(x, config=cfg, device=cuda).search_batch(q, 10)
+    launched = (cuda_bucket.LAUNCHES, cuda_topk.LAUNCHES_VALUES) != before
+    assert launched == (engine == "bucket")
+    b = vt.FlatIndex(x, config=cfg).search_batch(q, 10)
     _check((a.distances, a.ids), (b.distances, b.ids))

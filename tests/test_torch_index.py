@@ -152,11 +152,16 @@ def test_flat_matches_jax(data, metric):
 
 
 def test_flat_unported_engines_raise(data):
+    """Every engine of the JAX package is ported; an unknown one and the
+    unported bf16 store raise."""
     x, q = data
     idx = vers_tpu_torch.FlatIndex(
-        x[:100], config=vers_tpu_torch.FlatConfig(engine="bucket"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        x[:100], config=vers_tpu_torch.FlatConfig(engine="nope"))
+    with pytest.raises(ValueError, match="engine"):
         idx.search_batch(q, 5)
+    with pytest.raises(ValueError, match="float32"):
+        vers_tpu_torch.FlatIndex(
+            x[:100], config=vers_tpu_torch.FlatConfig(dtype="bfloat16"))
 
 
 def test_recall_and_exhaustive_match_jax(data):

@@ -98,10 +98,11 @@ def test_distance_topk_large_k_routes_plain_and_counts():
 
 
 def test_distance_topk_unported_engines_raise():
+    """"approx" and "bucket" are ported (tests/test_torch_bucket.py); an
+    unknown engine and the unported bf16 precision raise."""
     x = torch.zeros((8, 4))
-    for force in ("approx", "bucket"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cuda_topk.distance_topk(x, x, 8, 2, force=force)
+    with pytest.raises(ValueError, match="force"):
+        cuda_topk.distance_topk(x, x, 8, 2, force="nope")
     with pytest.raises(ValueError):
         cuda_topk.distance_topk(x, x, 8, 2, precision="default")
 

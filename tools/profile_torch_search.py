@@ -4,7 +4,8 @@
 Builds the smoke run's configuration (``synthetic_gaussian`` corpus of
 1M x 300 from seed 0, IVF k = 2048 with 2 restarts and 10 Lloyd
 iterations, 16384 queries, top_k = 10), then for each search path --
-IVF at nprobe 1, 2 and the adaptive 0, and the exact flat scan -- it
+IVF at nprobe 1, 2 and the adaptive 0, the exact flat scan, and the flat
+"bucket" (no rescore) and "approx" engines -- it
 times ``--reps`` calls with CUDA events, profiles ``--reps`` more with
 ``torch.profiler``, and prints per call:
 
@@ -142,6 +143,8 @@ def main(argv=None):
                               query_noise=0.5)
     qd = torch.from_numpy(q).to(dev)
     flat = vt.FlatIndex(x, device=dev)
+    bucket = vt.FlatIndex(x, config=vt.FlatConfig(engine="bucket"), device=dev)
+    approx = vt.FlatIndex(x, config=vt.FlatConfig(engine="approx"), device=dev)
     ivf = vt.IVFFlatIndex.build_index(args.clusters, 2, 10, x, device=dev)
     ivf._ensure_layout()
     torch.cuda.synchronize()
@@ -152,10 +155,12 @@ def main(argv=None):
         "ivf nprobe=2": lambda: ivf.search_batch_device(qd, k, 2),
         "ivf nprobe=0 (adaptive)": lambda: ivf.search_batch_device(qd, k, 0),
         "flat exact": lambda: flat.search_batch_device(qd, k),
+        "flat bucket": lambda: bucket.search_batch_device(qd, k),
+        "flat approx": lambda: approx.search_batch_device(qd, k),
     }
     results = {}
     for name, fn in paths.items():
-        reps = 1 if name.startswith("flat") else args.reps
+        reps = 1 if name in ("flat exact", "flat approx") else args.reps
         t0 = time.perf_counter()
         r = profile_path(torch, fn, reps)
         results[name] = r

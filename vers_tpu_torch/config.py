@@ -25,10 +25,12 @@ class FlatConfig:
     chunk_size: int = 16384  # corpus rows per fused-scan step
     # Search engine: "auto" (alias of "exact"), "exact" (the
     # distance-top-k kernel on a CUDA tensor, its plain torch version
-    # on a CPU tensor). "approx" and "bucket" are the JAX package's
-    # approximate engines; they are not ported yet (ROADMAP queue 1)
-    # and raise NotImplementedError.
+    # on a CPU tensor), "approx" (per-chunk top-k, then a top-k of the
+    # candidates; exact per chunk here, ROADMAP queue 3) or "bucket"
+    # (the bucket-min scan and the values top-k kernels; recall < 1
+    # where two neighbours share a bucket).
     engine: str = "auto"
+    # "bucket" only: rescore a 32-wide shortlist exactly in f32.
     bucket_rescore: bool = False
 
 

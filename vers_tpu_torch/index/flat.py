@@ -4,7 +4,9 @@ promoted to a first-class index. It is the parity anchor and the
 ground truth every approximate index is measured against.
 
 Search runs kernel A (``ops/cuda_topk.py``) on a CUDA index and its
-plain version on a CPU index.
+plain version on a CPU index; the approximate engines are
+``approx_scan_topk`` and the bucket scan (kernels D and C,
+``ops/cuda_bucket.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from vers_tpu_torch.core import VectorStore, as_query_matrix
 from vers_tpu_torch.index.base import Index
 from vers_tpu_torch.io.bincode import Reader, Writer
 from vers_tpu_torch.models.candidates import SearchResult
+from vers_tpu_torch.ops.cuda_bucket import bucket_scan_topk
 from vers_tpu_torch.ops.cuda_topk import distance_topk
 
 
@@ -69,21 +72,28 @@ class FlatIndex(Index):
         """Device-resident search: (dists (Q, top_k) f32, rows (Q, top_k)
         int32) tensors on the index's device, rows being corpus positions.
         Always exactly top_k columns; when the corpus is smaller than
-        top_k the tail is (inf, -1)."""
+        top_k the tail is (inf, -1).
+
+        Engine selected by ``config.engine``: "auto" (= "exact", kernel
+        A), "exact", "approx" (``approx_scan_topk``) or "bucket" (kernels
+        D and C, at the default chunk of 2048 rows, with
+        ``config.bucket_rescore``)."""
         engine = self.config.engine
-        if engine in ("approx", "bucket"):
-            raise NotImplementedError(
-                f"engine={engine!r}: the flat approximate engines are not "
-                "ported yet (ROADMAP queue 1, item 1.9)"
-            )
-        if engine not in ("auto", "exact"):
+        if engine not in ("auto", "exact", "approx", "bucket"):
             raise ValueError(f"unknown engine {engine!r}")
         queries = as_query_matrix(queries, self.device)
         k_eff = max(1, min(top_k, self._store.capacity))
-        dists, rows = distance_topk(
-            queries, self._store.data, self._store.count, k_eff,
-            metric=self.config.metric, chunk_size=self.config.chunk_size,
-        )
+        if engine == "bucket":
+            dists, rows = bucket_scan_topk(
+                queries, self._store.data, self._store.count, k_eff,
+                metric=self.config.metric, rescore=self.config.bucket_rescore,
+            )
+        else:
+            dists, rows = distance_topk(
+                queries, self._store.data, self._store.count, k_eff,
+                metric=self.config.metric, chunk_size=self.config.chunk_size,
+                force="approx" if engine == "approx" else None,
+            )
         if k_eff < top_k:
             pad = top_k - k_eff
             dists = torch.nn.functional.pad(dists, (0, pad), value=float("inf"))

@@ -41,6 +41,12 @@ _SIGNATURES = {
     # out_i, n_rows, d, W, q_blk, r_blk, k, cosine, stream
     "vers_packed_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _P],
+    # vals, ids, out_d, out_i, Q, W, k, stream
+    "vers_topk_values": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # q (bf16), x (bf16), qq, xx, out_d, out_i, Q, n_rows, d_pad, n_valid,
+    # span, n_super, cosine, stream
+    "vers_bucket_scan": [_P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -1,15 +1,19 @@
-"""Kernel A: the fused distance + streaming top-k scan, hand-written in
-CUDA C++ for Hopper (``csrc/distance_topk.cu``).
+"""Kernels A and C, hand-written in CUDA C++ for Hopper.
 
-Replaces ``vers_tpu/ops/pallas_topk.py:pallas_distance_topk``. What
-bounds it on the H100 and how the design answers that is in the source
-note at the top of the ``.cu`` file. Its plain version is
-``ops/topk.fused_scan_topk``.
+Kernel A (``csrc/distance_topk.cu``), the fused distance + streaming
+top-k scan, replaces ``vers_tpu/ops/pallas_topk.py:pallas_distance_topk``;
+its plain version is ``ops/topk.fused_scan_topk``. Kernel C
+(``csrc/topk_values.cu``), the smallest-k of a precomputed value array
+with carried ids, replaces ``pallas_topk.py:pallas_topk_values``; its
+plain version is ``topk_values_plain`` below. What bounds each on the
+H100 and how the design answers that is in the source note at the top
+of its ``.cu`` file.
 
 One dispatch rule, by the input tensor's device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version. The JAX
 package's k > 128 rule stays: such a k takes the plain version on any
-device, counted in ``LARGE_K_PLAIN``.
+device, counted in ``LARGE_K_PLAIN`` (kernel A) and
+``LARGE_K_PLAIN_VALUES`` (kernel C).
 """
 
 from __future__ import annotations
@@ -17,19 +21,30 @@ from __future__ import annotations
 import torch
 
 from vers_tpu_torch.ops import _build
-from vers_tpu_torch.ops.topk import fused_scan_topk
+from vers_tpu_torch.ops.topk import approx_scan_topk, fused_scan_topk, topk_smallest
 
 MAX_K = 128
 
-# Launches of the CUDA kernel (one per successful launch).
+# Launches of kernel A (one per successful launch).
 LAUNCHES = 0
-# Calls routed to the plain version because k > MAX_K.
+# Calls routed to kernel A's plain version because k > MAX_K.
 LARGE_K_PLAIN = 0
+# Launches of kernel C.
+LAUNCHES_VALUES = 0
+# Calls routed to kernel C's plain version because k > MAX_K.
+LARGE_K_PLAIN_VALUES = 0
 
 _METRICS = ("sq_euclidean", "cosine")
 
 
-def _check_inputs(queries: torch.Tensor, corpus: torch.Tensor, k: int) -> None:
+def _check_k(k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"kernel takes 1 <= k <= {MAX_K}, got {k}")
+
+
+def check_query_corpus(queries: torch.Tensor, corpus: torch.Tensor) -> None:
+    """Raise unless queries (Q, d) and corpus (N, d) are contiguous f32
+    CUDA tensors on one device with int32-sized row counts."""
     for name, t in (("queries", queries), ("corpus", corpus)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -47,10 +62,13 @@ def _check_inputs(queries: torch.Tensor, corpus: torch.Tensor, k: int) -> None:
         raise ValueError(
             f"feature dims differ: {queries.shape[1]} vs {corpus.shape[1]}"
         )
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"kernel takes 1 <= k <= {MAX_K}, got {k}")
     if max(queries.shape[0], corpus.shape[0]) >= 2**31:
         raise ValueError("row counts must fit the kernel's int32 sizes")
+
+
+def _check_inputs(queries: torch.Tensor, corpus: torch.Tensor, k: int) -> None:
+    check_query_corpus(queries, corpus)
+    _check_k(k)
 
 
 def cuda_distance_topk(
@@ -93,6 +111,79 @@ def cuda_distance_topk(
     return out_d, out_i
 
 
+def topk_values_plain(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """Kernel C's plain version: the k smallest of each row of ``vals``
+    (Q, W) f32 with the matching entries of ``ids`` (Q, W) int32, as
+    (vals (Q, k) ascending, ids (Q, k)). Equal values keep column order
+    (a stable sort); ids are -1 where the value is inf; k > W pads with
+    (+inf, -1)."""
+    kk = min(k, vals.shape[1])
+    out_d, sel = topk_smallest(vals, kk)
+    out_i = torch.gather(ids, 1, sel)
+    out_i = torch.where(torch.isfinite(out_d), out_i, -1)
+    if kk < k:
+        out_d = torch.nn.functional.pad(out_d, (0, k - kk), value=float("inf"))
+        out_i = torch.nn.functional.pad(out_i, (0, k - kk), value=-1)
+    return out_d, out_i
+
+
+def _check_values(vals: torch.Tensor, ids: torch.Tensor, k: int) -> None:
+    for name, t, dtype in (("vals", vals, torch.float32),
+                           ("ids", ids, torch.int32)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.ndim != 2:
+            raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if vals.device != ids.device:
+        raise ValueError(f"vals on {vals.device} but ids on {ids.device}")
+    if vals.shape != ids.shape:
+        raise ValueError(
+            f"shapes differ: {tuple(vals.shape)} vs {tuple(ids.shape)}"
+        )
+    _check_k(k)
+    if vals.shape[0] >= 2**31 or vals.shape[1] >= 2**31:
+        raise ValueError("sizes must fit the kernel's int32 sizes")
+
+
+def cuda_topk_values(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """The k smallest of each row with carried ids, as
+    ``topk_values_plain``. CUDA tensors launch kernel C; CPU tensors
+    take the plain version."""
+    global LAUNCHES_VALUES
+    if not vals.is_cuda and not ids.is_cuda:
+        return topk_values_plain(vals, ids, k)
+    _check_values(vals, ids, k)
+    q_n, w = vals.shape
+    out_d = torch.full((q_n, k), float("inf"), dtype=torch.float32,
+                       device=vals.device)
+    out_i = torch.full((q_n, k), -1, dtype=torch.int32, device=vals.device)
+    lib = _build.load_library()
+    with torch.cuda.device(vals.device):
+        rc = lib.vers_topk_values(
+            vals.data_ptr(), ids.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), q_n, w, k,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "vers_topk_values")
+    LAUNCHES_VALUES += 1
+    return out_d, out_i
+
+
+def topk_values(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """Dispatcher with ``vers_tpu.ops.pallas_topk.pallas_topk_values``'s
+    contract: kernel C on CUDA tensors, the plain version on CPU tensors
+    and for k > MAX_K."""
+    global LARGE_K_PLAIN_VALUES
+    if k > MAX_K:
+        LARGE_K_PLAIN_VALUES += 1
+        return topk_values_plain(vals, ids, k)
+    return cuda_topk_values(vals, ids, k)
+
+
 def distance_topk(
     queries,
     corpus,
@@ -104,19 +195,20 @@ def distance_topk(
     precision: str = "highest",
 ):
     """Dispatcher with ``vers_tpu.ops.pallas_topk.distance_topk``'s
-    signature. ``force``: None (kernel on CUDA tensors, plain version on
-    CPU tensors, plain version for k > MAX_K), "pallas" (the kernel
-    route, k <= MAX_K), "xla" (the plain version). The JAX package's
-    "approx" and "bucket" engines are not ported yet (ROADMAP queue 1,
-    item 1.9) and raise."""
+    signature. ``force``: None (kernel A on CUDA tensors, plain version
+    on CPU tensors, plain version for k > MAX_K), "pallas" (the kernel
+    route, k <= MAX_K), "xla" (the plain version), "approx"
+    (``approx_scan_topk``), "bucket" (``cuda_bucket.bucket_scan_topk``,
+    kernels D and C)."""
     global LARGE_K_PLAIN
     if precision != "highest":
         raise ValueError("only precision='highest' (float32) is ported")
-    if force in ("approx", "bucket"):
-        raise NotImplementedError(
-            f"force={force!r}: the flat approximate engines are not ported "
-            "yet (ROADMAP queue 1, item 1.9)"
-        )
+    if force == "approx":
+        return approx_scan_topk(queries, corpus, n_valid, k, metric=metric)
+    if force == "bucket":
+        from vers_tpu_torch.ops.cuda_bucket import bucket_scan_topk
+
+        return bucket_scan_topk(queries, corpus, n_valid, k, metric=metric)
     if force not in (None, "pallas", "xla"):
         raise ValueError(f"unknown force={force!r}")
     if force == "xla":

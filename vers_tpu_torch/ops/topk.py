@@ -4,14 +4,15 @@ torch ops (counterpart of ``vers_tpu.ops.topk``).
 ``fused_scan_topk`` is the plain version of kernel A
 (``ops/cuda_topk.py``): it streams the corpus through the distance
 matmul in chunks and carries a running (Q, k) best set, so the full
-(Q, N) distance matrix is never materialized.
+(Q, N) distance matrix is never materialized. ``approx_scan_topk`` is
+the flat index's ``engine="approx"``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vers_tpu_torch.ops.distance import pairwise_distance
+from vers_tpu_torch.ops.distance import pairwise_distance, pairwise_dot
 
 
 def topk_smallest(dist: torch.Tensor, k: int):
@@ -66,3 +67,65 @@ def fused_scan_topk(
         best_i = torch.gather(cand_i, 1, sel)
         best_i = torch.where(torch.isfinite(best_d), best_i, -1)
     return best_d, best_i
+
+
+def approx_scan_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    n_valid: int,
+    k: int,
+    metric: str = "sq_euclidean",
+    chunk_size: int = 32768,
+):
+    """The flat ``engine="approx"`` scan: top-k per corpus chunk, then
+    one top-k over the collected k-per-chunk candidates. Same arguments
+    and return convention as ``fused_scan_topk``.
+
+    The JAX package takes each chunk's k with ``lax.approx_min_k`` (the
+    TPU's PartialReduce, recall ~0.99) on bf16 products. No such op
+    exists here: each chunk's top-k is exact (``torch.topk``), in
+    float32 with TF32 off, which is what ``approx_min_k`` computes on
+    the CPU. Equal distances come out lowest row first, except that a
+    tie at a chunk's k-th place may keep any of the tied rows. The
+    squared query norm is left out of the scan (it does not change a
+    query's ranking) and added back at the end, as in the JAX package.
+    """
+    if metric not in ("sq_euclidean", "cosine"):
+        raise ValueError(f"unknown metric {metric!r}")
+    n_pad = corpus.shape[0]
+    chunk = max(1, min(chunk_size, n_pad))
+    xx = torch.sum(corpus * corpus, dim=1)
+    cand_d, cand_i = [], []
+    for c0 in range(0, n_pad, chunk):
+        x = corpus[c0 : c0 + chunk]
+        # in place on the (Q, chunk) product: one buffer of that size
+        dist = pairwise_dot(queries, x)
+        if metric == "cosine":
+            dist.neg_().add_(1.0)
+        else:
+            dist.mul_(-2.0).add_(xx[None, c0 : c0 + x.shape[0]])
+        if n_valid < c0 + x.shape[0]:
+            dist[:, max(0, n_valid - c0):] = float("inf")
+        bd, sel = torch.topk(dist, min(k, x.shape[0]), dim=1, largest=False)
+        cand_d.append(bd)
+        cand_i.append(sel.to(torch.int32) + c0)
+        del dist
+    cand_d = torch.cat(cand_d, dim=1)
+    cand_i = torch.cat(cand_i, dim=1)
+    # row order first, so that the stable sort below puts ties lowest row
+    # first whatever order torch.topk left them in
+    order = torch.argsort(cand_i, dim=1, stable=True)
+    cand_d = torch.gather(cand_d, 1, order)
+    cand_i = torch.gather(cand_i, 1, order)
+    kk = min(k, cand_d.shape[1])
+    fin_d, sel = topk_smallest(cand_d, kk)
+    fin_i = torch.gather(cand_i, 1, sel)
+    fin_i = torch.where(torch.isfinite(fin_d), fin_i, -1)
+    if kk < k:
+        fin_d = torch.nn.functional.pad(fin_d, (0, k - kk), value=float("inf"))
+        fin_i = torch.nn.functional.pad(fin_i, (0, k - kk), value=-1)
+    if metric != "cosine":
+        qq = torch.sum(queries * queries, dim=1, keepdim=True)
+        fin_d = torch.clamp_min(fin_d + qq, 0.0)
+        fin_d = torch.where(fin_i >= 0, fin_d, float("inf"))
+    return fin_d, fin_i
