@@ -22,9 +22,13 @@ and must have moved by its end; those of A and B likewise around phases
 1-4. The packed-scan inputs of the main path's own searches (each
 nprobe of the sweep, and the adaptive nprobe=0) are captured as they
 pass. Then each kernel is held against its plain torch version on the
-card at the main path's shapes and timed with CUDA events: kernel A on
-all 16384 queries over the whole corpus, k = 10, tie-aware, distances
-within 1e-4; kernel B on the captured scans, the same; kernel D's full
+card at the main path's shapes and timed with CUDA events: kernel A
+(which splits the corpus across blocks and takes the final k with
+kernel C) on the first 1, 64, 2048 and all 16384 queries over the whole
+corpus, k = 10, tie-aware, distances within 1e-4, a repeat call bit-
+identical, with its split count, grid and second-pass time logged, and
+``FlatIndex.search_approximate`` for one query on the host clock; kernel
+B on the captured scans, the same; kernel D's full
 bucket table of the phase-2 search, distances within 1e-4 and rows
 equal except at near-ties (counted); kernel C on that table at the
 shortlist widths 10 and 32, bit-identical (it only selects).
@@ -46,6 +50,7 @@ from pathlib import Path
 import numpy as np
 
 N, DIM, N_QUERIES, TOP_K = 1_000_000, 300, 16384, 10
+A_QUERIES = (1, 64, 2048, N_QUERIES)  # query counts of the kernel-A phase
 K_CLUSTERS = 2048
 DEVICE = "cuda:0"
 TARGET_RECALL = 0.95
@@ -266,20 +271,56 @@ def main():
 
     # -- each kernel against its plain version, on the card, at the --
     # -- main path's shapes ------------------------------------------
+    # kernel A (with kernel C as its second pass when the corpus is split)
+    # at the flat index's query counts, from one query up
     xd = flat._store.data
-    ka = cuda_topk.cuda_distance_topk(qd, xd, N, TOP_K)
-    # the kernel is deterministic: the same call as the ground truth's
-    assert np.array_equal(ka[1].cpu().numpy(), truth.ids)
-    assert np.array_equal(ka[0].cpu().numpy(), truth.distances)
-    pa = fused_scan_topk(qd, xd, N, TOP_K)
-    assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=TOL)
-    err_a = max_abs_diff(ka[0], pa[0])
-    del ka, pa
-    ms_a = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(qd, xd, N, TOP_K),
-                   reps=2)
-    plain_a = cuda_ms(torch, lambda: fused_scan_topk(qd, xd, N, TOP_K), reps=1)
-    log(f"kernel A vs plain, Q={N_QUERIES} over {N}: max |d| {err_a:g}, "
-        f"{ms_a:.2f} ms vs {plain_a:.2f} ms")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    a_rows = {}
+    for qn in A_QUERIES:
+        qs = qd[:qn]
+        ka = cuda_topk.cuda_distance_topk(qs, xd, N, TOP_K)
+        again = cuda_topk.cuda_distance_topk(qs, xd, N, TOP_K)
+        # deterministic: a repeat call, and the ground truth's own call
+        assert torch.equal(ka[0], again[0]) and torch.equal(ka[1], again[1]), qn
+        assert np.array_equal(ka[1].cpu().numpy(), truth.ids[:qn])
+        assert np.array_equal(ka[0].cpu().numpy(), truth.distances[:qn])
+        pa = fused_scan_topk(qs, xd, N, TOP_K)
+        assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=TOL)
+        err = max_abs_diff(ka[0], pa[0])
+        del ka, again, pa
+        n_split, split_rows = cuda_topk.split_geometry(qn, N, sms)
+        grid = [-(-qn // cuda_topk.QUERY_TILE), n_split]
+        reps = 2 if qn >= 2048 else 20
+        ms = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(qs, xd, N, TOP_K),
+                     reps=reps)
+        plain = cuda_ms(torch, lambda: fused_scan_topk(qs, xd, N, TOP_K),
+                        reps=1 if qn >= 2048 else 5)
+        second = 0.0
+        if n_split > 1:
+            vals, ids, _ = cuda_topk.split_pass(qs, xd, N, TOP_K)
+            second = cuda_ms(torch, lambda: cuda_topk.cuda_topk_values(
+                vals, ids, TOP_K), reps=reps)
+            del vals, ids
+        log(f"kernel A vs plain, Q={qn} over {N}: max |d| {err:g}, {ms:.3f} ms "
+            f"vs {plain:.2f} ms; {n_split} splits of {split_rows} rows, grid "
+            f"{grid}, second pass (kernel C over {n_split * TOP_K} columns) "
+            f"{second:.3f} ms")
+        a_rows[qn] = dict(n_split=n_split, split_rows=split_rows, grid=grid,
+                          max_abs_err=err, ms=ms, plain_ms=plain,
+                          second_pass_ms=second)
+    err_a = max(r["max_abs_err"] for r in a_rows.values())
+    ms_a, plain_a = a_rows[N_QUERIES]["ms"], a_rows[N_QUERIES]["plain_ms"]
+    one = q[7]
+    flat.search_approximate(one, TOP_K)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        pairs = flat.search_approximate(one, TOP_K)
+    single_ms = (time.perf_counter() - t0) / 20 * 1e3
+    want = search_exhaustive(x, one, TOP_K)
+    assert [j for j, _ in pairs] == [j for j, _ in want] or np.allclose(
+        [d for _, d in pairs], [d for _, d in want], rtol=0.0, atol=TOL)
+    log(f"flat search_approximate, one query: {single_ms:.3f} ms (host clock, "
+        f"result on the host)")
 
     # kernel D: the bucket table of the engine's stage 1 (same call)
     chunk, superchunk, n_super = cuda_bucket.bucket_geometry(xd.shape[0])
@@ -345,7 +386,8 @@ def main():
          "replaces": "vers_tpu/ops/pallas_topk.py:294",
          "launches": launches["distance_topk"], "max_abs_err": err_a,
          "ms": ms_a, "plain_ms": plain_a,
-         "shape": f"Q={N_QUERIES} N={N} d={DIM} k={TOP_K}"},
+         "shape": f"Q={N_QUERIES} N={N} d={DIM} k={TOP_K}",
+         "by_q": a_rows, "search_approximate_ms": single_ms},
         {"name": "packed_scan", "route": "cuda",
          "source": "vers_tpu_torch/csrc/packed_scan.cu",
          "replaces": "vers_tpu/ops/pallas_binned.py:235",

@@ -1,7 +1,9 @@
 """Kernels A, B, C and D on the card against their plain versions, at
 small edge shapes (ragged query tiles and corpus chunks, k = 1 and
 k = MAX_K, cosine, gated probe ranks, exact ties, superchunks of one and
-several chunks, rows past n_valid, all-inf rows).
+several chunks, rows past n_valid, all-inf rows), and kernel A's corpus
+split at small Q over 200k rows (ties across split boundaries, n_valid
+mid-split, k = MAX_K, rows of norm ~15, repeat calls bit-identical).
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips without one. This file imports neither jax nor vers_tpu, so it
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from vers_tpu_torch.ops import binned, cuda_binned, cuda_bucket, cuda_topk
-from vers_tpu_torch.ops.topk import fused_scan_topk
+from vers_tpu_torch.ops.topk import fused_scan_topk, split_scan_topk_plain
 from vers_tpu_torch.utils.parity import assert_topk_match
 
 pytestmark = pytest.mark.gpu
@@ -74,6 +76,93 @@ def test_distance_topk_kernel_tie_order(cuda):
     assert same.any()
     assert (i[:, 1:][same] > i[:, :-1][same]).all()
     _check((d, i), fused_scan_topk(q, x, 900, 6))
+
+
+def _corpus(cuda, n, d, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x *= scale / np.linalg.norm(x, axis=1, keepdims=True)
+    return torch.from_numpy(x).to(cuda), rng
+
+
+def _count(fn):
+    """fn()'s result and the launches of kernels A and C it made."""
+    a, c = cuda_topk.LAUNCHES, cuda_topk.LAUNCHES_VALUES
+    out = fn()
+    torch.cuda.synchronize()
+    return out, cuda_topk.LAUNCHES - a, cuda_topk.LAUNCHES_VALUES - c
+
+
+@pytest.mark.parametrize("metric", ["sq_euclidean", "cosine"])
+@pytest.mark.parametrize("q_n,k", [(1, 10), (3, 1), (65, 10), (65, cuda_topk.MAX_K)])
+def test_distance_topk_split_corpus(cuda, metric, q_n, k):
+    """Small Q over 200k x 300 rows: the corpus is split across blocks
+    (kernel A), then kernel C takes the final k; n_valid ends mid-split."""
+    x, rng = _corpus(cuda, 200_000, 300, 7)
+    q = x[rng.integers(0, 200_000, q_n)] + 0.05 * torch.from_numpy(
+        rng.normal(size=(q_n, 300)).astype(np.float32)).to(cuda)
+    if metric == "cosine":
+        q = torch.nn.functional.normalize(q, dim=1)
+    n_valid = 200_000 - 77
+    n_split, split_rows = cuda_topk.split_geometry(
+        q_n, n_valid, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert n_split > 1 and n_valid % split_rows
+    got, a, c = _count(lambda: cuda_topk.cuda_distance_topk(q, x, n_valid, k,
+                                                            metric=metric))
+    assert (a, c) == (1, 1)
+    assert (got[1] < n_valid).all()
+    _check(got, fused_scan_topk(q, x, n_valid, k, metric=metric))
+    again = cuda_topk.cuda_distance_topk(q, x, n_valid, k, metric=metric)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_distance_topk_split_ties_across_boundaries(cuda):
+    """Rows r and r + 100000 are exact duplicates in different splits:
+    they tie exactly and the lower row comes first."""
+    base, rng = _corpus(cuda, 100_000, 64, 8)
+    x = torch.cat([base, base]).contiguous()
+    q = base[:40] + 0.01
+    got, a, c = _count(lambda: cuda_topk.cuda_distance_topk(q, x, 200_000, 6))
+    assert (a, c) == (1, 1)
+    d, i = got[0].cpu().numpy(), got[1].cpu().numpy()
+    same = d[:, 1:] == d[:, :-1]
+    assert same.any()
+    assert (i[:, 1:][same] > i[:, :-1][same]).all()
+    _check(got, fused_scan_topk(q, x, 200_000, 6))
+
+
+def test_distance_topk_splits_past_n_valid(cuda):
+    """Explicit splits, the last ones wholly past n_valid: their columns
+    hold (+inf, -1); kernel C over the table equals the plain split."""
+    x, rng = _corpus(cuda, 4096, 40, 9)
+    q = torch.from_numpy(rng.normal(size=(70, 40)).astype(np.float32)).to(cuda)
+    vals, ids, n_split = cuda_topk.split_pass(q, x, 1000, 5, n_split=8,
+                                              split_rows=512)
+    assert n_split == 8 and vals.shape == (70, 40)
+    assert torch.isinf(vals[:, 10:]).all() and (ids[:, 10:] == -1).all()
+    got = cuda_topk.cuda_topk_values(vals, ids, 5)
+    _check(got, split_scan_topk_plain(q, x, 1000, 5, 512))
+
+
+def test_distance_topk_unnormalized_rows(cuda):
+    """Rows of norm ~15: |q|^2 + |x|^2 - 2 q.x cancels ~eps |x|^2, so
+    the tolerance scales with |x|^2 = 225."""
+    x, rng = _corpus(cuda, 200_000, 300, 10, scale=15.0)
+    q = x[:33] + torch.from_numpy(rng.normal(size=(33, 300)).astype(np.float32)).to(cuda)
+    got = cuda_topk.cuda_distance_topk(q, x, 200_000, 10)
+    want = fused_scan_topk(q, x, 200_000, 10)
+    assert_topk_match(got[0], got[1], want[0], want[1], rtol=0.0, atol=1e-4 * 225)
+
+
+@pytest.mark.parametrize("d,k", [(1000, cuda_topk.MAX_K), (301, 10)])
+def test_distance_topk_wide_rows(cuda, d, k):
+    """d = 1000 with k = 128 leaves no room for the resident query tile
+    (queries read through L1); d = 301 takes the 4-byte staging copies."""
+    x, rng = _corpus(cuda, 20_000, d, 11)
+    q = torch.from_numpy(rng.normal(size=(100, d)).astype(np.float32)).to(cuda)
+    q = torch.nn.functional.normalize(q, dim=1)
+    got = cuda_topk.cuda_distance_topk(q, x, 19_999, k)
+    _check(got, fused_scan_topk(q, x, 19_999, k))
 
 
 def test_kernel_wrappers_reject_bad_inputs(cuda):

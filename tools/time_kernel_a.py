@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Kernel A (exact distance top-k) on one CUDA card, by query count.
+
+On the smoke run's corpus (``synthetic_gaussian`` 1M x 300 from seed 0,
+unit rows) and k = 10, for each query count it times with CUDA events,
+in turns (plain, kernel, kernel, plain):
+
+  * ``cuda_distance_topk`` as the flat index calls it (corpus split by
+    ``split_geometry``, then kernel C over the splits' best sets);
+  * the same kernel with the corpus unsplit (one split), to show what
+    the split buys;
+  * the plain version ``fused_scan_topk``;
+
+and prints one JSON line per query count with the card's name and power
+limit. Usage, from the repository root:
+
+    python3 tools/time_kernel_a.py [--n N] [--queries 1,64,2048,16384]
+        [--reps R]
+
+Needs one CUDA card; exits 2 without one.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+
+def cuda_ms(torch, fn, reps):
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--dim", type=int, default=300)
+    ap.add_argument("--queries", default="1,64,2048,16384")
+    ap.add_argument("--top-k", type=int, default=10)
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    from vers_tpu_torch.ops import cuda_topk
+    from vers_tpu_torch.ops.topk import fused_scan_topk
+    from vers_tpu_torch.utils.data import synthetic_gaussian
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    q_counts = [int(v) for v in args.queries.split(",")]
+    x, q = synthetic_gaussian(args.n, args.dim, n_clusters=1024,
+                              n_queries=max(q_counts), seed=0, normalized=True,
+                              query_noise=0.5)
+    dev = torch.device("cuda")
+    xd, qd = torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev)
+    k = args.top_k
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for qn in q_counts:
+        qs = qd[:qn]
+        reps = max(1, args.reps if qn < 2048 else args.reps // 2)
+        split = lambda: cuda_topk.cuda_distance_topk(qs, xd, args.n, k)  # noqa: E731
+        whole = lambda: cuda_topk.split_pass(  # noqa: E731
+            qs, xd, args.n, k, n_split=1,
+            split_rows=-(-args.n // cuda_topk.TILE_ROWS) * cuda_topk.TILE_ROWS)
+        plain = lambda: fused_scan_topk(qs, xd, args.n, k)  # noqa: E731
+        p0 = cuda_ms(torch, plain, 1)
+        ms = cuda_ms(torch, split, reps)
+        ms_whole = cuda_ms(torch, whole, reps if qn < 2048 else 1)
+        ms2 = cuda_ms(torch, split, reps)
+        p1 = cuda_ms(torch, plain, 1)
+        n_split, split_rows = cuda_topk.split_geometry(qn, args.n, sms)
+        flop = 2.0 * qn * args.n * args.dim
+        print(json.dumps({
+            "card": card, "Q": qn, "N": args.n, "d": args.dim, "k": k,
+            "n_split": n_split, "split_rows": split_rows,
+            "kernel_ms": [ms, ms2], "unsplit_ms": ms_whole, "plain_ms": [p0, p1],
+            "f32_flop_per_s": flop / (min(ms, ms2) * 1e-3)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -35,8 +35,9 @@ _I = ctypes.c_int
 # C entry points: name -> argument types (pointers and the stream as
 # void*, sizes as int). Each returns a cudaError_t as int.
 _SIGNATURES = {
-    # q, x, xx, out_d, out_i, Q, n_rows, d, n_valid, k, cosine, stream
-    "vers_distance_topk": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, x, out_d, out_i, Q, n_rows, d, n_valid, k, cosine, n_split,
+    # split_rows, stream
+    "vers_distance_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q_stack, qbin, qb, gb, corpus, rbin, xx, ids (nullable), out_d,
     # out_i, n_rows, d, W, q_blk, r_blk, k, cosine, stream
     "vers_packed_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -5,9 +5,11 @@ top-k scan, replaces ``vers_tpu/ops/pallas_topk.py:pallas_distance_topk``;
 its plain version is ``ops/topk.fused_scan_topk``. Kernel C
 (``csrc/topk_values.cu``), the smallest-k of a precomputed value array
 with carried ids, replaces ``pallas_topk.py:pallas_topk_values``; its
-plain version is ``topk_values_plain`` below. What bounds each on the
-H100 and how the design answers that is in the source note at the top
-of its ``.cu`` file.
+plain version is ``ops/topk.topk_values_plain``. Kernel A cuts the
+corpus into splits (``split_geometry``) and, when there is more than
+one, takes the final k from the splits' best sets with kernel C. What
+bounds each on the H100 and how the design answers that is in the
+source note at the top of its ``.cu`` file.
 
 One dispatch rule, by the input tensor's device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version. The JAX
@@ -18,14 +20,21 @@ device, counted in ``LARGE_K_PLAIN`` (kernel A) and
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from vers_tpu_torch.ops import _build
-from vers_tpu_torch.ops.topk import approx_scan_topk, fused_scan_topk, topk_smallest
+from vers_tpu_torch.ops.topk import (
+    approx_scan_topk,
+    fused_scan_topk,
+    topk_values_plain,
+)
 
 MAX_K = 128
 
-# Launches of kernel A (one per successful launch).
+# Launches of kernel A (one per successful launch). A call that splits
+# the corpus also launches kernel C, counted in LAUNCHES_VALUES.
 LAUNCHES = 0
 # Calls routed to kernel A's plain version because k > MAX_K.
 LARGE_K_PLAIN = 0
@@ -71,6 +80,91 @@ def _check_inputs(queries: torch.Tensor, corpus: torch.Tensor, k: int) -> None:
     _check_k(k)
 
 
+# Kernel A's tiles (csrc/distance_tile.cuh: QT, CT).
+QUERY_TILE = 64
+TILE_ROWS = 128
+
+
+@functools.lru_cache(maxsize=None)
+def split_geometry(q_n: int, n_valid: int, sm_count: int):
+    """Kernel A's corpus split: (n_split, split_rows), with split_rows a
+    multiple of TILE_ROWS and the splits covering rows [0, n_valid).
+
+    At least two blocks per SM are launched (query tiles x splits >=
+    2 x sm_count) wherever the corpus has tiles enough. Among such
+    splits, up to four times as many, the pick minimizes the block waves
+    times the tiles per block (plus one for each block's set-up and
+    flush), fewer splits on a tie."""
+    tiles = max(1, -(-n_valid // TILE_ROWS))
+    q_tiles = max(1, -(-q_n // QUERY_TILE))
+    lo = min(tiles, -(-2 * sm_count // q_tiles))
+    hi = min(tiles, max(lo, -(-8 * sm_count // q_tiles)), 65535)
+    best = None
+    for per in range(-(-tiles // lo), -(-tiles // hi) - 1, -1):
+        n_split = -(-tiles // per)
+        if n_split < lo:
+            continue
+        cost = -(-(q_tiles * n_split) // sm_count) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, n_split, per)
+    if best is None:  # no split count in range reaches lo exactly
+        per = max(1, tiles // lo)
+        best = (0, -(-tiles // per), per)
+    return best[1], best[2] * TILE_ROWS
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_pass(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    n_valid: int,
+    k: int,
+    metric: str = "sq_euclidean",
+    n_split: int | None = None,
+    split_rows: int | None = None,
+):
+    """Launch kernel A once: (vals, ids, n_split), each table (Q,
+    n_split * k), columns [s * k, s * k + k) the ascending best set of
+    split s. ``n_split`` / ``split_rows`` default to ``split_geometry``
+    (given, they may leave splits wholly past n_valid: those hold (+inf,
+    -1)). With one split the table is the result."""
+    global LAUNCHES
+    if metric not in _METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    _check_inputs(queries, corpus, k)
+    q_n, d = queries.shape
+    n_rows = corpus.shape[0]
+    n_valid = max(0, min(int(n_valid), n_rows))
+    if n_split is None:
+        n_split, split_rows = split_geometry(q_n, n_valid,
+                                             _sm_count(queries.device))
+    width = n_split * k
+    if n_split == 1:  # the result itself: prefilled as the contract says
+        vals = torch.full((q_n, width), float("inf"), dtype=torch.float32,
+                          device=queries.device)
+        ids = torch.full((q_n, width), -1, dtype=torch.int32,
+                         device=queries.device)
+    else:  # every entry is written by the kernel
+        vals = torch.empty((q_n, width), dtype=torch.float32,
+                           device=queries.device)
+        ids = torch.empty((q_n, width), dtype=torch.int32, device=queries.device)
+    lib = _build.load_library()
+    with torch.cuda.device(queries.device):
+        rc = lib.vers_distance_topk(
+            queries.data_ptr(), corpus.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), q_n, n_rows, d, n_valid, k,
+            int(metric == "cosine"), n_split, split_rows,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "vers_distance_topk")
+    LAUNCHES += 1
+    return vals, ids, n_split
+
+
 def cuda_distance_topk(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -82,49 +176,20 @@ def cuda_distance_topk(
     """Exact top-k: (dists (Q, k) f32 ascending, ids (Q, k) int32), id
     -1 where the distance is inf. Corpus rows >= n_valid are ignored.
 
-    CUDA tensors launch kernel A; CPU tensors take ``fused_scan_topk``
-    (whose corpus chunk is ``chunk_size``; the kernel tiles itself)."""
-    global LAUNCHES
+    CUDA tensors launch kernel A (``split_pass``, counted in
+    ``LAUNCHES``) and, when the corpus was split, kernel C over the
+    splits' best sets (counted in ``LAUNCHES_VALUES``). CPU tensors take
+    ``fused_scan_topk`` (whose corpus chunk is ``chunk_size``; the kernel
+    tiles itself)."""
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     if not queries.is_cuda and not corpus.is_cuda:
         return fused_scan_topk(queries, corpus, n_valid, k, metric=metric,
                                chunk_size=chunk_size)
-    _check_inputs(queries, corpus, k)
-    q_n, d = queries.shape
-    n_rows = corpus.shape[0]
-    n_valid = max(0, min(int(n_valid), n_rows))
-    xx = torch.sum(corpus * corpus, dim=1)
-    out_d = torch.full((q_n, k), float("inf"), dtype=torch.float32,
-                       device=queries.device)
-    out_i = torch.full((q_n, k), -1, dtype=torch.int32, device=queries.device)
-    lib = _build.load_library()
-    with torch.cuda.device(queries.device):
-        rc = lib.vers_distance_topk(
-            queries.data_ptr(), corpus.data_ptr(), xx.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
-            q_n, n_rows, d, n_valid, k, int(metric == "cosine"),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(lib, rc, "vers_distance_topk")
-    LAUNCHES += 1
-    return out_d, out_i
-
-
-def topk_values_plain(vals: torch.Tensor, ids: torch.Tensor, k: int):
-    """Kernel C's plain version: the k smallest of each row of ``vals``
-    (Q, W) f32 with the matching entries of ``ids`` (Q, W) int32, as
-    (vals (Q, k) ascending, ids (Q, k)). Equal values keep column order
-    (a stable sort); ids are -1 where the value is inf; k > W pads with
-    (+inf, -1)."""
-    kk = min(k, vals.shape[1])
-    out_d, sel = topk_smallest(vals, kk)
-    out_i = torch.gather(ids, 1, sel)
-    out_i = torch.where(torch.isfinite(out_d), out_i, -1)
-    if kk < k:
-        out_d = torch.nn.functional.pad(out_d, (0, k - kk), value=float("inf"))
-        out_i = torch.nn.functional.pad(out_i, (0, k - kk), value=-1)
-    return out_d, out_i
+    vals, ids, n_split = split_pass(queries, corpus, n_valid, k, metric=metric)
+    if n_split == 1:
+        return vals, ids
+    return cuda_topk_values(vals, ids, k)
 
 
 def _check_values(vals: torch.Tensor, ids: torch.Tensor, k: int) -> None:

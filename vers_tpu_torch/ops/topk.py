@@ -4,8 +4,10 @@ torch ops (counterpart of ``vers_tpu.ops.topk``).
 ``fused_scan_topk`` is the plain version of kernel A
 (``ops/cuda_topk.py``): it streams the corpus through the distance
 matmul in chunks and carries a running (Q, k) best set, so the full
-(Q, N) distance matrix is never materialized. ``approx_scan_topk`` is
-the flat index's ``engine="approx"``.
+(Q, N) distance matrix is never materialized. ``topk_values_plain`` is
+kernel C's plain version. ``split_scan_topk_plain`` (kernel A's split
+design) and ``tf32_split`` (its operand split) serve the tests only.
+``approx_scan_topk`` is the flat index's ``engine="approx"``.
 """
 
 from __future__ import annotations
@@ -67,6 +69,62 @@ def fused_scan_topk(
         best_i = torch.gather(cand_i, 1, sel)
         best_i = torch.where(torch.isfinite(best_d), best_i, -1)
     return best_d, best_i
+
+
+def topk_values_plain(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """Kernel C's plain version: the k smallest of each row of ``vals``
+    (Q, W) f32 with the matching entries of ``ids`` (Q, W) int32, as
+    (vals (Q, k) ascending, ids (Q, k)). Equal values keep column order
+    (a stable sort); ids are -1 where the value is inf; k > W pads with
+    (+inf, -1)."""
+    kk = min(k, vals.shape[1])
+    out_d, sel = topk_smallest(vals, kk)
+    out_i = torch.gather(ids, 1, sel)
+    out_i = torch.where(torch.isfinite(out_d), out_i, -1)
+    if kk < k:
+        out_d = torch.nn.functional.pad(out_d, (0, k - kk), value=float("inf"))
+        out_i = torch.nn.functional.pad(out_i, (0, k - kk), value=-1)
+    return out_d, out_i
+
+
+def split_scan_topk_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    n_valid: int,
+    k: int,
+    split_rows: int,
+    metric: str = "sq_euclidean",
+    chunk_size: int = 16384,
+):
+    """Kernel A's two-pass design in plain torch, for the tests: the
+    corpus rows [0, N) cut into contiguous splits of ``split_rows``,
+    ``fused_scan_topk`` over each (rows >= n_valid ignored), then
+    ``topk_values_plain`` over the (Q, S * k) table of the splits' best
+    sets laid out in ascending row order. Same result as
+    ``fused_scan_topk``, ties included."""
+    n_rows = corpus.shape[0]
+    n_valid = max(0, min(int(n_valid), n_rows))
+    vals, ids = [], []
+    for r0 in range(0, max(n_rows, 1), split_rows):
+        r1 = min(r0 + split_rows, n_rows)
+        d, i = fused_scan_topk(queries, corpus[r0:r1], max(0, n_valid - r0), k,
+                               metric=metric, chunk_size=chunk_size)
+        vals.append(d)
+        ids.append(torch.where(i >= 0, i + r0, i))
+    return topk_values_plain(torch.cat(vals, dim=1), torch.cat(ids, dim=1), k)
+
+
+def tf32_split(x: torch.Tensor):
+    """Kernel A's 3xTF32 operand split, emulated: (hi, lo) f32 as the
+    tensor core reads them. hi is x rounded to tf32 (10 mantissa bits)
+    to nearest, ties away from zero, as PTX's ``cvt.rna.tf32.f32``; lo is
+    x - hi (exact) truncated to tf32. For the tests; finite inputs only."""
+    x = x.to(torch.float32).contiguous()
+    bits = x.view(torch.int32).to(torch.int64)
+    # sign-magnitude: adding half an ulp to the bits rounds the magnitude
+    hi = ((bits + 0x1000) & ~0x1FFF).to(torch.int32).view(torch.float32)
+    lo = (x - hi).view(torch.int32) & ~0x1FFF
+    return hi, lo.view(torch.float32)
 
 
 def approx_scan_topk(
