@@ -4,7 +4,9 @@
 Drives the port's main path once through the entry points a user
 calls, at the reference dataset's shape (1M x 300 f32, k = 2048
 clusters, 16384 queries; the corpus is ``synthetic_gaussian`` from a
-seed, as bench.py makes it when the wiki file is absent):
+seed, as bench.py makes it when the wiki file is absent). Every index is
+built without ``device=``, so the run also shows that the card is the
+port's default device:
 
   1. exact ground truth with ``FlatIndex`` (kernel A),
   2. the flat approximate engines, each through ``search_batch``:
@@ -28,10 +30,16 @@ kernel C) on the first 1, 64, 2048 and all 16384 queries over the whole
 corpus, k = 10, tie-aware, distances within 1e-4, a repeat call bit-
 identical, with its split count, grid and second-pass time logged, and
 ``FlatIndex.search_approximate`` for one query on the host clock; kernel
-B on the captured scans, the same; kernel D's full
-bucket table of the phase-2 search, distances within 1e-4 and rows
-equal except at near-ties (counted); kernel C on that table at the
-shortlist widths 10 and 32, bit-identical (it only selects).
+B on the captured scans, the same; kernel D's bucket table on the
+first 64, 2048 and all 16384 queries (the phase-2 search's own call at
+16384), distances within 1e-4 and rows equal except at near-ties
+(counted), a repeat call and the unprepared-corpus call bit-identical,
+with its grid logged; kernel C on that table at the shortlist widths 10
+and 32, bit-identical (it only selects), beside one ``torch.topk`` call
+on the same table (timed as the yardstick, with its tie order checked;
+the port never calls it). Each kernel's bound, the least time the card
+could take for its work, comes from ``vers_tpu_torch/utils/roofline.py``
+and this run's inputs (kernel B's from the probes it captured).
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and builds the kernels from ``vers_tpu_torch/csrc``
@@ -51,8 +59,8 @@ import numpy as np
 
 N, DIM, N_QUERIES, TOP_K = 1_000_000, 300, 16384, 10
 A_QUERIES = (1, 64, 2048, N_QUERIES)  # query counts of the kernel-A phase
+D_QUERIES = (64, 2048, N_QUERIES)     # ... and of the kernel-D phase
 K_CLUSTERS = 2048
-DEVICE = "cuda:0"
 TARGET_RECALL = 0.95
 # recall@10 floors of the flat approximate engines against the exact scan
 ENGINE_RECALL = {"bucket": 0.95, "bucket+rescore": 0.99, "approx": 0.999}
@@ -109,6 +117,7 @@ def main():
     from vers_tpu_torch.ops.topk import fused_scan_topk
     from vers_tpu_torch.utils.data import synthetic_gaussian
     from vers_tpu_torch.utils.harness import search_exhaustive
+    from vers_tpu_torch.utils import roofline
     from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,7 +127,7 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    dev = torch.device(DEVICE)
+    dev = torch.device("cuda", 0)  # where an index goes unless told
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
@@ -143,7 +152,8 @@ def main():
     cuda_topk.LAUNCHES = 0
     cuda_binned.LAUNCHES = 0
 
-    flat = vt.FlatIndex(x, device=dev)
+    flat = vt.FlatIndex(x)
+    assert flat.device == dev, flat.device
     truth = flat.search_batch(qd, TOP_K)
     flat_ms = cuda_ms(torch, lambda: flat.search_batch_device(qd, TOP_K), reps=2)
     assert truth.ids.shape == (N_QUERIES, TOP_K) and (truth.ids >= 0).all()
@@ -165,7 +175,8 @@ def main():
         ("bucket+rescore", vt.FlatConfig(engine="bucket", bucket_rescore=True)),
         ("approx", vt.FlatConfig(engine="approx")),
     ):
-        idx = vt.FlatIndex(x, config=cfg, device=dev)
+        idx = vt.FlatIndex(x, config=cfg)
+        assert idx.device == dev, idx.device
         res = idx.search_batch(qd, TOP_K)
         assert res.ids.shape == (N_QUERIES, TOP_K) and (res.ids >= 0).all()
         assert np.isfinite(res.distances).all()
@@ -190,7 +201,8 @@ def main():
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ivf = vt.IVFFlatIndex.build_index(K_CLUSTERS, 2, 10, x, device=dev)
+    ivf = vt.IVFFlatIndex.build_index(K_CLUSTERS, 2, 10, x)
+    assert ivf.device == dev, ivf.device
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -252,7 +264,8 @@ def main():
     try:
         t0 = time.perf_counter()
         ivf.save_index(str(path))
-        loaded = vt.IVFFlatIndex.load_index(str(path), device=dev)
+        loaded = vt.IVFFlatIndex.load_index(str(path))
+        assert loaded.device == dev, loaded.device
         io_s = time.perf_counter() - t0
         a = ivf.search_batch(qd, TOP_K, nprobe=operating)
         b = loaded.search_batch(qd, TOP_K, nprobe=operating)
@@ -322,37 +335,71 @@ def main():
     log(f"flat search_approximate, one query: {single_ms:.3f} ms (host clock, "
         f"result on the host)")
 
-    # kernel D: the bucket table of the engine's stage 1 (same call)
+    # kernel D: the bucket table of the engine's stage 1 (the same call,
+    # on the corpus prepared as FlatIndex prepares it), by query count
     chunk, superchunk, n_super = cuda_bucket.bucket_geometry(xd.shape[0])
     span = chunk * superchunk
-    kd = cuda_bucket.cuda_bucket_table(qd, xd, N, span)
-    pd = cuda_bucket.bucket_table_plain(qd, xd, N, span)
-    err_d, ties_d = cuda_bucket.compare_bucket_tables(kd, pd, qd, xd, N, span,
+    prep = cuda_bucket.prepare_bucket_corpus(xd)
+    d_rows = {}
+    for qn in D_QUERIES:
+        qs = qd[:qn]
+        kd = cuda_bucket.cuda_bucket_table(qs, xd, N, span, prepared=prep)
+        again = cuda_bucket.cuda_bucket_table(qs, xd, N, span, prepared=prep)
+        fresh = cuda_bucket.cuda_bucket_table(qs, xd, N, span)
+        for other in (again, fresh):  # deterministic; prepared = unprepared
+            assert torch.equal(kd[0], other[0]) and torch.equal(kd[1], other[1])
+        del again, fresh
+        pd = cuda_bucket.bucket_table_plain(qs, xd, N, span)
+        err, ties = cuda_bucket.compare_bucket_tables(kd, pd, qs, xd, N, span,
                                                       atol=TOL)
-    del pd
-    ms_d = cuda_ms(torch, lambda: cuda_bucket.cuda_bucket_table(qd, xd, N, span))
-    plain_d = cuda_ms(torch, lambda: cuda_bucket.bucket_table_plain(
-        qd, xd, N, span), reps=1)
+        del pd
+        ms = cuda_ms(torch, lambda: cuda_bucket.cuda_bucket_table(
+            qs, xd, N, span, prepared=prep), reps=3 if qn >= 2048 else 20)
+        plain = cuda_ms(torch, lambda: cuda_bucket.bucket_table_plain(
+            qs, xd, N, span), reps=1)
+        geo = cuda_bucket.kernel_d_geometry(qn, xd.shape[0], DIM, span)
+        bound = roofline.bucket_scan_bound(qn, N, DIM, kd[0].shape[1])
+        log(f"kernel D vs plain, Q={qn} over {xd.shape[0]} rows (chunk {chunk}, "
+            f"superchunk {superchunk}, {n_super} x 128 = {kd[0].shape[1]} "
+            f"buckets; grid {list(geo['grid'])}, ring {geo['ring']}, "
+            f"resident {geo['resident']}): max |d| {err:g}, {ties} near-tie "
+            f"rows, {ms:.3f} ms vs {plain:.2f} ms; bound {bound['bound_ms']:.3f} "
+            f"ms ({bound['bound_by']})")
+        d_rows[qn] = dict(grid=list(geo["grid"]), ring=geo["ring"],
+                          max_abs_err=err, near_tie_rows=ties, ms=ms,
+                          plain_ms=plain, bound_ms=bound["bound_ms"],
+                          bound_by=bound["bound_by"])
+        if qn != N_QUERIES:
+            del kd
     width = kd[0].shape[1]
-    log(f"kernel D vs plain, Q={N_QUERIES} over {xd.shape[0]} rows (chunk "
-        f"{chunk}, superchunk {superchunk}, {n_super} x 128 = {width} buckets): "
-        f"max |d| {err_d:g}, {ties_d} near-tie rows, {ms_d:.2f} ms vs "
-        f"{plain_d:.2f} ms")
+    del prep
 
-    # kernel C on that table, at the engine's widths: selection only
+    # kernel C on that table, at the engine's widths: selection only;
+    # one torch.topk call computes the same function (the yardstick)
     c_rows = {}
     for s in (TOP_K, 32):
         kc = cuda_topk.cuda_topk_values(kd[0], kd[1], s)
         pc = cuda_topk.topk_values_plain(kd[0], kd[1], s)
         assert torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1]), s
-        del kc, pc
+        tv, tsel = torch.topk(kd[0], s, dim=1, largest=False, sorted=True)
+        assert torch.equal(tv, kc[0]), s
+        tie_rows = int((torch.gather(kd[1], 1, tsel) != kc[1]).any(dim=1).sum())
+        del pc, tv, tsel
         ms_c = cuda_ms(torch, lambda: cuda_topk.cuda_topk_values(kd[0], kd[1], s),
                        reps=5)
         plain_c = cuda_ms(torch, lambda: cuda_topk.topk_values_plain(
             kd[0], kd[1], s), reps=2)
-        log(f"kernel C vs plain, ({N_QUERIES}, {width}) table, s={s}: "
-            f"identical, {ms_c:.3f} ms vs {plain_c:.2f} ms")
-        c_rows[s] = dict(max_abs_err=0.0, ms=ms_c, plain_ms=plain_c)
+        lib_c = cuda_ms(torch, lambda: torch.topk(kd[0], s, dim=1, largest=False,
+                                                  sorted=True), reps=5)
+        bound = roofline.topk_values_bound(N_QUERIES, width, s)
+        log(f"kernel C vs plain, ({N_QUERIES}, {width}) table, s={s}: identical, "
+            f"{ms_c:.3f} ms vs {plain_c:.2f} ms; torch.topk {lib_c:.3f} ms (same "
+            f"values, {tie_rows} rows in another tie order); bound "
+            f"{bound['bound_ms']:.3f} ms ({bound['bound_by']})")
+        c_rows[s] = dict(max_abs_err=0.0, ms=ms_c, plain_ms=plain_c,
+                         library_ms=lib_c, library_tie_order_rows=tie_rows,
+                         bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+        del kc
     del kd
     torch.cuda.empty_cache()
 
@@ -373,19 +420,34 @@ def main():
         ms_b = cuda_ms(torch, lambda: cuda_binned.cuda_packed_scan(*args, **kw))
         plain_b = cuda_ms(torch, lambda: cuda_binned.packed_scan_plain(*args, **kw),
                           reps=1)
+        # the work these probes ask for: each live stacked row against
+        # the rows of its bin; the probed bins' rows read once
+        qbin, rbin = args[1].reshape(-1), args[5].reshape(-1)
+        sizes = torch.bincount(rbin[rbin >= 0].long(),
+                               minlength=int(qbin.max()) + 1)
+        live = qbin[qbin >= 0].long()
+        bound = roofline.packed_scan_bound(
+            live.numel(), q_stack.shape[0], int(sizes[live].sum()),
+            int(sizes[torch.unique(live)].sum()), q_stack.shape[1], kw["top_k"])
         log(f"kernel B vs plain, main-path scan of nprobe={nprobe} "
             f"({q_stack.shape[0]} query rows, {qb.shape[0]} work items): "
-            f"max |d| {err_b:g}, {ms_b:.3f} ms vs {plain_b:.2f} ms")
+            f"max |d| {err_b:g}, {ms_b:.3f} ms vs {plain_b:.2f} ms; bound "
+            f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, "
+            f"{bound['ops']:.3g} TF32 flop, {bound['bytes']:.3g} bytes)")
         b_rows[nprobe] = dict(rows=q_stack.shape[0], work_items=qb.shape[0],
-                              max_abs_err=err_b, ms=ms_b, plain_ms=plain_b)
+                              max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
+                              bound_ms=bound["bound_ms"],
+                              bound_by=bound["bound_by"])
     del scans
 
+    bound_a = roofline.distance_topk_bound(N_QUERIES, N, DIM, TOP_K)
     kernels = [
         {"name": "distance_topk", "route": "cuda",
          "source": "vers_tpu_torch/csrc/distance_topk.cu",
          "replaces": "vers_tpu/ops/pallas_topk.py:294",
          "launches": launches["distance_topk"], "max_abs_err": err_a,
-         "ms": ms_a, "plain_ms": plain_a,
+         "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a["bound_ms"],
+         "bound_by": bound_a["bound_by"], "library_ms": None,
          "shape": f"Q={N_QUERIES} N={N} d={DIM} k={TOP_K}",
          "by_q": a_rows, "search_approximate_ms": single_ms},
         {"name": "packed_scan", "route": "cuda",
@@ -394,6 +456,8 @@ def main():
          "launches": launches["packed_scan"],
          "max_abs_err": max(r["max_abs_err"] for r in b_rows.values()),
          "ms": b_rows[operating]["ms"], "plain_ms": b_rows[operating]["plain_ms"],
+         "bound_ms": b_rows[operating]["bound_ms"],
+         "bound_by": b_rows[operating]["bound_by"], "library_ms": None,
          "shape": f"Q={N_QUERIES} nprobe={operating} k={TOP_K} of the "
                   f"{K_CLUSTERS}-cluster layout",
          "by_nprobe": b_rows},
@@ -402,15 +466,22 @@ def main():
          "replaces": "vers_tpu/ops/pallas_topk.py:230",
          "launches": engine_launches["topk_values"], "max_abs_err": 0.0,
          "ms": c_rows[TOP_K]["ms"], "plain_ms": c_rows[TOP_K]["plain_ms"],
+         "bound_ms": c_rows[TOP_K]["bound_ms"],
+         "bound_by": c_rows[TOP_K]["bound_by"],
+         "library_ms": c_rows[TOP_K]["library_ms"],
          "shape": f"({N_QUERIES}, {width}) bucket table, s={TOP_K}",
          "by_s": c_rows},
         {"name": "bucket_scan", "route": "cuda",
          "source": "vers_tpu_torch/csrc/bucket_scan.cu",
          "replaces": "vers_tpu/ops/pallas_bucket.py:109",
-         "launches": engine_launches["bucket_scan"], "max_abs_err": err_d,
-         "near_tie_rows": ties_d, "ms": ms_d, "plain_ms": plain_d,
+         "launches": engine_launches["bucket_scan"],
+         "max_abs_err": max(r["max_abs_err"] for r in d_rows.values()),
+         "ms": d_rows[N_QUERIES]["ms"], "plain_ms": d_rows[N_QUERIES]["plain_ms"],
+         "bound_ms": d_rows[N_QUERIES]["bound_ms"],
+         "bound_by": d_rows[N_QUERIES]["bound_by"], "library_ms": None,
          "shape": f"Q={N_QUERIES} N={xd.shape[0]} d={DIM} span={span} "
-                  f"W={width}"},
+                  f"W={width}",
+         "by_q": d_rows},
     ]
     log(f"flat engines: {json.dumps(engines)}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,13 +24,14 @@ def _ivf_state(seed=0, n=600, d=12, k=5):
 def test_ivfflat_files_byte_identical_and_cross_load(tmp_path):
     state = _ivf_state()
     j = vers_tpu.IVFFlatIndex(*state)
-    t = vers_tpu_torch.IVFFlatIndex.from_numpy(*state)
+    t = vers_tpu_torch.IVFFlatIndex.from_numpy(*state, device="cpu")
     pj, pt = tmp_path / "j.index", tmp_path / "t.index"
     j.save_index(str(pj))
     t.save_index(str(pt))
     assert pj.read_bytes() == pt.read_bytes()
 
-    tj = vers_tpu_torch.IVFFlatIndex.load_index(str(pj))  # dim inferred
+    tj = vers_tpu_torch.IVFFlatIndex.load_index(str(pj),  # dim inferred
+                                                device="cpu")
     jt = vers_tpu.IVFFlatIndex.load_index(str(pt), dim=12)
     for a, b in ((tj, j), (jt, t)):
         np.testing.assert_array_equal(a._values, b._values)
@@ -46,7 +47,7 @@ def test_ivfflat_files_byte_identical_and_cross_load(tmp_path):
 def test_ivfflat_file_after_add_byte_identical(tmp_path):
     state = _ivf_state(seed=1)
     j = vers_tpu.IVFFlatIndex(*state)
-    t = vers_tpu_torch.IVFFlatIndex.from_numpy(*state)
+    t = vers_tpu_torch.IVFFlatIndex.from_numpy(*state, device="cpu")
     v = np.full(12, 0.25, np.float32)
     j.add(v, 7)
     t.add(v, 7)
@@ -60,13 +61,13 @@ def test_flat_files_byte_identical_and_cross_load(tmp_path):
     x = rng.normal(size=(300, 9)).astype(np.float32)
     ids = np.arange(300) * 5 + 1
     j = vers_tpu.FlatIndex(x, ids=ids)
-    t = vers_tpu_torch.FlatIndex.from_numpy(x, ids)
+    t = vers_tpu_torch.FlatIndex.from_numpy(x, ids, device="cpu")
     j.add(x[0] * 2, 10_000)
     t.add(x[0] * 2, 10_000)
     j.save_index(str(tmp_path / "j"))
     t.save_index(str(tmp_path / "t"))
     assert (tmp_path / "j").read_bytes() == (tmp_path / "t").read_bytes()
-    tj = vers_tpu_torch.FlatIndex.load_index(str(tmp_path / "j"))
+    tj = vers_tpu_torch.FlatIndex.load_index(str(tmp_path / "j"), device="cpu")
     jt = vers_tpu.FlatIndex.load_index(str(tmp_path / "t"))
     np.testing.assert_array_equal(tj.search_batch(x[:3], 4).ids,
                                   jt.search_batch(x[:3], 4).ids)

@@ -263,7 +263,8 @@ def test_flat_engines_match_jax(engine, rescore, metric):
     tcfg = vers_tpu_torch.FlatConfig(metric=metric, engine=engine,
                                      bucket_rescore=rescore)
     jidx = vers_tpu.FlatIndex(x, ids=ids, config=jcfg)
-    tidx = vers_tpu_torch.FlatIndex.from_numpy(x, ids, config=tcfg)
+    tidx = vers_tpu_torch.FlatIndex.from_numpy(x, ids, config=tcfg,
+                                               device="cpu")
     assert tidx._store.capacity == jidx._store.capacity == 1024
     _match_results(tidx.search_batch(q, 10), jidx.search_batch(q, 10))
     jidx.add(q[0], 5)

@@ -46,7 +46,7 @@ def test_as_query_matrix():
 def test_vector_store_append_grows_like_jax(n):
     rng = np.random.default_rng(n)
     data = rng.normal(size=(n, 4)).astype(np.float32)
-    js, ts = jc.VectorStore(data), tc.VectorStore(data)
+    js, ts = jc.VectorStore(data), tc.VectorStore(data, device="cpu")
     for _ in range(130):
         row = rng.normal(size=4).astype(np.float32)
         assert js.append(row) == ts.append(row)

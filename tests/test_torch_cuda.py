@@ -1,9 +1,13 @@
 """Kernels A, B, C and D on the card against their plain versions, at
 small edge shapes (ragged query tiles and corpus chunks, k = 1 and
 k = MAX_K, cosine, gated probe ranks, exact ties, superchunks of one and
-several chunks, rows past n_valid, all-inf rows), and kernel A's corpus
+several chunks, rows past n_valid, all-inf rows), kernel A's corpus
 split at small Q over 200k rows (ties across split boundaries, n_valid
-mid-split, k = MAX_K, rows of norm ~15, repeat calls bit-identical).
+mid-split, k = MAX_K, rows of norm ~15, repeat calls bit-identical), and
+kernel D at Q in {1, 65, 130, 200} and d in {8, 37, 300, 1000} (n_valid
+mid-group and mid-superchunk, single-group superchunks, 32-bit ordinals,
+both query-tile layouts, duplicates 128 rows apart, rows of norm ~15,
+repeat calls and the prepared corpus bit-identical).
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips without one. This file imports neither jax nor vers_tpu, so it
@@ -242,7 +246,7 @@ def test_ivf_index_on_cuda_matches_cpu(cuda):
     import vers_tpu_torch as vt
 
     x, q = _clustered()
-    cpu = vt.IVFFlatIndex.build_index(32, 2, 10, x)
+    cpu = vt.IVFFlatIndex.build_index(32, 2, 10, x, device="cpu")
     gpu = vt.IVFFlatIndex.from_numpy(32, cpu._values, cpu._centroids,
                                      cpu._assignments, cpu._ids, device=cuda)
     for nprobe in (0, 1, 3):
@@ -250,7 +254,7 @@ def test_ivf_index_on_cuda_matches_cpu(cuda):
         b = cpu.search_batch(q, 10, nprobe=nprobe)
         _check((a.distances, a.ids), (b.distances, b.ids))
     flat_g = vt.FlatIndex(x, device=cuda).search_batch(q, 10)
-    flat_c = vt.FlatIndex(x).search_batch(q, 10)
+    flat_c = vt.FlatIndex(x, device="cpu").search_batch(q, 10)
     _check((flat_g.distances, flat_g.ids), (flat_c.distances, flat_c.ids))
 
 
@@ -297,6 +301,78 @@ def test_bucket_table_kernel_matches_plain(cuda, metric, q_n, n, n_valid, d,
     cuda_bucket.compare_bucket_tables(got, want, q, x, n_valid, span, metric)
     if n_valid == 0:
         assert torch.isinf(got[0]).all() and (got[1] == -1).all()
+
+
+def _bucket_check(q, x, n_valid, span, metric="sq_euclidean", atol=1e-4):
+    """Kernel D against its plain version; a repeat call and the
+    prepared-corpus path bit-identical to the first call."""
+    before = cuda_bucket.LAUNCHES
+    got = cuda_bucket.cuda_bucket_table(q, x, n_valid, span, metric)
+    again = cuda_bucket.cuda_bucket_table(q, x, n_valid, span, metric)
+    prep = cuda_bucket.prepare_bucket_corpus(x)
+    third = cuda_bucket.cuda_bucket_table(q, x, n_valid, span, metric,
+                                          prepared=prep)
+    torch.cuda.synchronize()
+    assert cuda_bucket.LAUNCHES == before + 3
+    for other in (again, third):
+        assert torch.equal(got[0], other[0]) and torch.equal(got[1], other[1])
+    want = cuda_bucket.bucket_table_plain(q, x, n_valid, span, metric)
+    cuda_bucket.compare_bucket_tables(got, want, q, x, n_valid, span, metric,
+                                      atol=atol)
+    return got
+
+
+@pytest.mark.parametrize("metric", ["sq_euclidean", "cosine"])
+@pytest.mark.parametrize("q_n,d,n,n_valid,span", [
+    (1, 8, 3000, 2999, 1024),
+    (65, 37, 5000, 4037, 2048),      # n_valid mid-group, mid-superchunk
+    (130, 300, 20000, 19950, 14336),  # the smoke's span
+    (200, 1000, 4096, 3000, 512),    # queries streamed with the rows
+    (130, 300, 4096, 4096, 128),     # superchunks of a single group
+    (200, 300, 700, 700, 128 * 65537),  # 32-bit ordinals
+])
+def test_bucket_kernel_d_shapes(cuda, metric, q_n, d, n, n_valid, span):
+    """Query counts off the 128-query tile, widths off the 64-feature
+    slice, both query-tile layouts, both ordinal widths."""
+    x, rng = _corpus(cuda, n, d, 12)
+    q = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(q_n, d)).astype(np.float32)).to(cuda), dim=1)
+    _bucket_check(q, x, n_valid, span, metric)
+
+
+def test_bucket_kernel_d_duplicates_lower_row_wins(cuda):
+    """Rows r and r + 128 are exact duplicates in one bucket (same
+    superchunk, same lane): they tie exactly and the lower row wins."""
+    base, rng = _corpus(cuda, 128, 300, 13)
+    x = torch.cat([base] * 8).contiguous()  # 1024 rows, one superchunk
+    q = base[rng.integers(0, 128, 70)] + 0.02
+    d, i = _bucket_check(q, x, 1024, 1024)
+    assert ((i >= 0) & (i < 128)).all()
+    assert torch.equal(i[0], torch.arange(128, dtype=torch.int32, device=cuda))
+
+
+def test_bucket_kernel_d_unnormalized_rows(cuda):
+    """Rows of norm ~15: qq + xx - 2 q.x cancels ~eps |x|^2, so the
+    tolerance scales with |x|^2 = 225."""
+    x, rng = _corpus(cuda, 30000, 300, 14, scale=15.0)
+    q = x[:70] + torch.from_numpy(rng.normal(size=(70, 300)).astype(
+        np.float32)).to(cuda)
+    _bucket_check(q, x, 30000, 2048, atol=1e-4 * 225)
+
+
+def test_flat_bucket_engine_add_drops_prepared_corpus(cuda):
+    import vers_tpu_torch as vt
+
+    x, q = _clustered()
+    idx = vt.FlatIndex(x, config=vt.FlatConfig(engine="bucket"))
+    assert idx.device == torch.device("cuda", 0)
+    idx.search_batch(q, 10)
+    prep = idx.bucket_corpus()
+    v = q[3] * np.float32(1.001)
+    idx.add(v, 777)
+    assert idx._bucket_corpus is None
+    assert idx.search_batch(v[None, :], 1).ids[0, 0] == 777
+    assert idx.bucket_corpus() is not prep
 
 
 def test_bucket_table_kernel_tie_order(cuda):
@@ -372,5 +448,5 @@ def test_flat_engines_on_cuda_match_cpu(cuda, engine, rescore):
     a = vt.FlatIndex(x, config=cfg, device=cuda).search_batch(q, 10)
     launched = (cuda_bucket.LAUNCHES, cuda_topk.LAUNCHES_VALUES) != before
     assert launched == (engine == "bucket")
-    b = vt.FlatIndex(x, config=cfg).search_batch(q, 10)
+    b = vt.FlatIndex(x, config=cfg, device="cpu").search_batch(q, 10)
     _check((a.distances, a.ids), (b.distances, b.ids))

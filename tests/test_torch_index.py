@@ -40,7 +40,8 @@ def jax_ivf(data):
 
 
 def _carry(jidx, config=None):
-    kw = {} if config is None else dict(config=config)
+    kw = dict(device="cpu") if config is None else dict(config=config,
+                                                         device="cpu")
     return vers_tpu_torch.IVFFlatIndex.from_numpy(
         jidx.num_centroids, jidx._values, jidx._centroids, jidx._assignments,
         jidx._ids, **kw,
@@ -109,7 +110,7 @@ def test_ivf_build_with_jax_init_matches_jax(data):
     init = np.stack([np.asarray(jk.init_centroids(kk, xp, N, K)) for kk in keys])
     jidx = vers_tpu.IVFFlatIndex.build_index(K, 2, 10, x)
     tidx = vers_tpu_torch.IVFFlatIndex.build_index(
-        K, 2, 10, x, init=torch.from_numpy(init))
+        K, 2, 10, x, init=torch.from_numpy(init), device="cpu")
     np.testing.assert_allclose(tidx._centroids, jidx._centroids, atol=1e-4)
     np.testing.assert_array_equal(tidx._assignments, jidx._assignments)
     assert tidx._ids == jidx._ids
@@ -119,7 +120,7 @@ def test_ivf_build_index_device_matches_host_build(data):
     x, q = data
     n_pad = ((N + 127) // 128) * 128
     xt = torch.from_numpy(np.pad(x, ((0, n_pad - N), (0, 0))))
-    host = vers_tpu_torch.IVFFlatIndex.build_index(K, 2, 5, x)
+    host = vers_tpu_torch.IVFFlatIndex.build_index(K, 2, 5, x, device="cpu")
     dev = vers_tpu_torch.IVFFlatIndex.build_index_device(K, 2, 5, xt, n_valid=N)
     np.testing.assert_array_equal(dev._centroids_host(), host._centroids)
     a = dev.search_batch(q, 10, nprobe=2)
@@ -138,7 +139,8 @@ def test_flat_matches_jax(data, metric):
     jcfg = vers_tpu.FlatConfig(metric=metric)
     tcfg = vers_tpu_torch.FlatConfig(metric=metric)
     jidx = vers_tpu.FlatIndex(x, ids=ids, config=jcfg)
-    tidx = vers_tpu_torch.FlatIndex.from_numpy(x, ids, config=tcfg)
+    tidx = vers_tpu_torch.FlatIndex.from_numpy(x, ids, config=tcfg,
+                                               device="cpu")
     _match(tidx.search_batch(q, 10), jidx.search_batch(q, 10))
     jidx.add(q[0], 5)
     tidx.add(q[0], 5)
@@ -146,7 +148,7 @@ def test_flat_matches_jax(data, metric):
     assert got.ids[0, 0] == 5
     _match(got, jidx.search_batch(q[:2], 3))
     # a corpus smaller than top_k pads with (inf, -1)
-    small = vers_tpu_torch.FlatIndex(x[:3])
+    small = vers_tpu_torch.FlatIndex(x[:3], device="cpu")
     r = small.search_batch(q[:2], 5)
     assert (r.ids[:, 3:] == -1).all() and np.isinf(r.distances[:, 3:]).all()
 
@@ -156,19 +158,21 @@ def test_flat_unported_engines_raise(data):
     unported bf16 store raise."""
     x, q = data
     idx = vers_tpu_torch.FlatIndex(
-        x[:100], config=vers_tpu_torch.FlatConfig(engine="nope"))
+        x[:100], config=vers_tpu_torch.FlatConfig(engine="nope"),
+        device="cpu")
     with pytest.raises(ValueError, match="engine"):
         idx.search_batch(q, 5)
     with pytest.raises(ValueError, match="float32"):
         vers_tpu_torch.FlatIndex(
-            x[:100], config=vers_tpu_torch.FlatConfig(dtype="bfloat16"))
+            x[:100], config=vers_tpu_torch.FlatConfig(dtype="bfloat16"),
+            device="cpu")
 
 
 def test_recall_and_exhaustive_match_jax(data):
     x, q = data
     assert vers_tpu_torch.search_exhaustive(x, q[0], 5) == vers_tpu.search_exhaustive(
         x, q[0], 5)
-    truth = vers_tpu_torch.FlatIndex(x).search_batch(q, 10).ids
+    truth = vers_tpu_torch.FlatIndex(x, device="cpu").search_batch(q, 10).ids
     pred = np.roll(truth, 1, axis=1)
     pred[:, 0] = -1
     assert vers_tpu_torch.recall_at_k(pred, truth) == vers_tpu.recall_at_k(pred, truth)

@@ -3,7 +3,8 @@
 
 Hot paths work on whole ``(n, d)`` tensors. Every function takes the
 device from its input tensor or from an explicit ``device`` argument;
-nothing here reads a global default device.
+nothing here reads a global default device. The indexes' entry points
+resolve an unnamed device with ``resolve_device``: the card.
 """
 
 from __future__ import annotations
@@ -20,6 +21,18 @@ NORMALIZE_EPS = 1e-6  # parity with `base.rs:99-105`
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an index lives on: ``device`` as given ("cpu"
+    included), else the first CUDA card. Without a card an unnamed
+    device raises; nothing falls back to the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            'no CUDA device is available: pass device="cpu" to run on the CPU')
+    return torch.device("cuda", 0)
 
 
 def as_query_matrix(queries, device=None) -> torch.Tensor:
@@ -74,7 +87,9 @@ class VectorStore:
     (`ivfflat.rs:200-213`).
 
     Capacity is a multiple of ``LANE`` rows and doubles when full; rows
-    past ``count`` are zero and consumers mask them out.
+    past ``count`` are zero and consumers mask them out. ``device``: as
+    ``resolve_device`` reads it, except that a tensor's own device is
+    kept when none is named.
     """
 
     def __init__(self, data, capacity: int | None = None,
@@ -82,13 +97,13 @@ class VectorStore:
         if isinstance(data, torch.Tensor):
             device = device if device is not None else data.device
             data = data.detach().to("cpu", torch.float32).numpy()
+        device = resolve_device(device)
         data = np.asarray(data, dtype=np.float32)
         if data.ndim != 2:
             raise ValueError(f"expected (n, d) array, got shape {data.shape}")
         n, d = data.shape
         cap = round_up(max(capacity or n, 1), LANE)
-        buf = torch.zeros((cap, d), dtype=dtype,
-                          device=device if device is not None else "cpu")
+        buf = torch.zeros((cap, d), dtype=dtype, device=device)
         buf[:n] = torch.as_tensor(data, dtype=dtype).to(buf.device)
         self._buf = buf
         self._count = n

@@ -93,22 +93,33 @@ __device__ inline uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// TMA: slice rows [row, row + CT), features [col, col + DK) of the
-// corpus into dst, completing on bar (which expects the bytes first).
-// Out-of-range rows and features land as zeros.
-__device__ inline void tma_slice(float* dst, const CUtensorMap* map, int col,
-                                 int row, uint64_t* bar) {
+// Arrive on bar and have its phase also wait for `bytes` of TMA data.
+__device__ inline void mbar_expect(uint64_t* bar, int bytes) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
           smem_addr(bar)),
-      "r"((int)(SLICE * sizeof(float)))
+      "r"(bytes)
       : "memory");
+}
+
+// TMA: the box at (col, row) of a 2-D tensor map into dst, completing
+// on bar. Out-of-range rows and columns land as zeros.
+__device__ inline void tma_2d(void* dst, const CUtensorMap* map, int col,
+                              int row, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
       "r"(smem_addr(bar))
       : "memory");
+}
+
+// TMA: slice rows [row, row + CT), features [col, col + DK) of the
+// corpus into dst, completing on bar (which expects the bytes first).
+__device__ inline void tma_slice(float* dst, const CUtensorMap* map, int col,
+                                 int row, uint64_t* bar) {
+  mbar_expect(bar, (int)(SLICE * sizeof(float)));
+  tma_2d(dst, map, col, row, bar);
 }
 
 __device__ inline void mbar_init(uint64_t* bar, int count) {
@@ -201,13 +212,16 @@ __device__ inline void split_unit(float* xs, float* lo, int u, float& xacc) {
   xacc = fmaf(v.w, v.w, xacc);
 }
 
-// Descriptor of the 64-row x 8-feature B operand starting at row block
-// p (1024-byte aligned) plus byte offset k_bytes along the features:
-// 128-byte swizzle, 8-row groups 1024 bytes apart.
-__device__ inline uint64_t b_desc(const float* p, int k_bytes) {
-  const uint32_t a = smem_addr(p) + k_bytes;
+// Descriptor of a K-major operand in the 128-byte swizzle (rows of 128
+// bytes, 8-row groups 1024 bytes apart) at shared address a: its row
+// block's 1024-byte aligned start plus the byte offset along the row.
+// b_desc: the 64-row x 8-feature B operand at row block p plus k_bytes.
+__device__ inline uint64_t sw128_desc(uint32_t a) {
   return (uint64_t)((a & 0x3FFFF) >> 4) | (1ull << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ inline uint64_t b_desc(const float* p, int k_bytes) {
+  return sw128_desc(smem_addr(p) + k_bytes);
 }
 
 __device__ inline void wgmma_fence() {
@@ -250,6 +264,42 @@ __device__ inline void pin(uint32_t (&a)[4]) {
 __device__ inline void pin(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// cuTensorMapEncodeTiled, looked up at run time with
+// cudaGetDriverEntryPoint (no link to libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// A row-major (rows x cols) matrix of elem-byte values as a TMA tensor:
+// boxes of box_rows x box_cols, 128-byte swizzle, zeros outside. Needs
+// 16-byte aligned rows and a box row of at most 128 bytes.
+inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                             int elem, const void* p, long long rows,
+                             long long cols, int box_rows, int box_cols) {
+  static EncodeTiled encode = nullptr;
+  if (!encode) {
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+        cudaEnableDefault, &found);
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || !encode)
+      return cudaErrorSymbolNotFound;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, type, 2, const_cast<void*>(p), dims, strides, box, step,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The TPU kernel's distance: max(|q|^2 + |x|^2 - 2 q.x, 0), or 1 - q.x

@@ -285,39 +285,12 @@ distance_topk_kernel(const __grid_constant__ CUtensorMap map,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time with
-// cudaGetDriverEntryPoint (no link to libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
 // The corpus as a TMA tensor (n_rows x d f32, boxes of CT rows x DK
 // features, 128-byte swizzle, zeros outside). Needs 16-byte rows.
 inline cudaError_t corpus_map(CUtensorMap* map, const float* x, int n_rows,
                               int d) {
-  static EncodeTiled encode = nullptr;
-  if (!encode) {
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-        cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || !encode)
-      return cudaErrorSymbolNotFound;
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n_rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(float)};
-  const cuuint32_t box[2] = {DK, CT};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(x), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, sizeof(float), x,
+                   n_rows, d, CT, DK);
 }
 
 template <bool RESIDENT>

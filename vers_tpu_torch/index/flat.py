@@ -6,7 +6,11 @@ ground truth every approximate index is measured against.
 Search runs kernel A (``ops/cuda_topk.py``) on a CUDA index and its
 plain version on a CPU index; the approximate engines are
 ``approx_scan_topk`` and the bucket scan (kernels D and C,
-``ops/cuda_bucket.py``).
+``ops/cuda_bucket.py``). A CUDA index keeps kernel D's bf16 copy of the
+corpus and its |x|^2 from the first bucket search until ``add``.
+
+With no ``device`` an index lives on the first CUDA card
+(``core.resolve_device``); ``device="cpu"`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -21,7 +25,10 @@ from vers_tpu_torch.core import VectorStore, as_query_matrix
 from vers_tpu_torch.index.base import Index
 from vers_tpu_torch.io.bincode import Reader, Writer
 from vers_tpu_torch.models.candidates import SearchResult
-from vers_tpu_torch.ops.cuda_bucket import bucket_scan_topk
+from vers_tpu_torch.ops.cuda_bucket import (
+    bucket_scan_topk,
+    prepare_bucket_corpus,
+)
 from vers_tpu_torch.ops.cuda_topk import distance_topk
 
 
@@ -37,6 +44,7 @@ class FlatIndex(Index):
             raise ValueError("only dtype='float32' is ported")
         self.config = config
         self._store = VectorStore(vectors, device=device)
+        self._bucket_corpus = None  # kernel D's corpus, made on first use
         n = self._store.count
         self._ids = np.asarray(
             ids if ids is not None else np.arange(n), dtype=np.int64
@@ -66,7 +74,15 @@ class FlatIndex(Index):
 
     def add(self, embedding, vec_id: int) -> None:
         self._store.append(embedding)
+        self._bucket_corpus = None
         self._ids = np.append(self._ids, np.int64(vec_id))
+
+    def bucket_corpus(self):
+        """Kernel D's corpus for this store state
+        (``prepare_bucket_corpus``), made once and kept until ``add``."""
+        if self._bucket_corpus is None:
+            self._bucket_corpus = prepare_bucket_corpus(self._store.data)
+        return self._bucket_corpus
 
     def search_batch_device(self, queries, top_k: int):
         """Device-resident search: (dists (Q, top_k) f32, rows (Q, top_k)
@@ -87,6 +103,7 @@ class FlatIndex(Index):
             dists, rows = bucket_scan_topk(
                 queries, self._store.data, self._store.count, k_eff,
                 metric=self.config.metric, rescore=self.config.bucket_rescore,
+                prepared=self.bucket_corpus() if queries.is_cuda else None,
             )
         else:
             dists, rows = distance_topk(

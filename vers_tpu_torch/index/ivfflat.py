@@ -16,6 +16,9 @@ take-top_k-per-cluster quirk (numpy, on the host).
 
 Quirk parity: ``add`` ignores the caller's vec_id and assigns
 ``len(assignments)`` (`ivfflat.rs:209` shadows the argument) — kept.
+
+With no ``device`` an index lives on the first CUDA card
+(``core.resolve_device``); ``device="cpu"`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import numpy as np
 import torch
 
 from vers_tpu_torch.config import IVFFlatConfig
-from vers_tpu_torch.core import as_query_matrix, round_up
+from vers_tpu_torch.core import as_query_matrix, resolve_device, round_up
 from vers_tpu_torch.index.base import Index
 from vers_tpu_torch.io.bincode import Reader, Writer
 from vers_tpu_torch.models.candidates import SearchResult
@@ -54,7 +57,7 @@ class IVFFlatIndex(Index):
         device=None,
     ):
         self.config = config
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.num_centroids = int(num_centroids)
         self._values = np.asarray(values, dtype=np.float32)
         self._centroids = np.array(centroids, dtype=np.float32)
@@ -91,15 +94,16 @@ class IVFFlatIndex(Index):
     ) -> "IVFFlatIndex":
         """Parity signature with `ivfflat.rs:102-136`. ``vectors``: (n, d)
         numpy array or tensor; the build runs on ``device``, else on the
-        tensor's device, else on the CPU. ``init``: optional
+        tensor's device, else on the first CUDA card. ``init``: optional
         (num_attempts, k, d) initial centroids in place of random rows."""
         config = config or IVFFlatConfig(
             num_clusters=num_clusters,
             num_attempts=num_attempts,
             max_iterations=max_iterations,
         )
-        if device is None:
-            device = vectors.device if isinstance(vectors, torch.Tensor) else "cpu"
+        if device is None and isinstance(vectors, torch.Tensor):
+            device = vectors.device
+        device = resolve_device(device)
         if isinstance(vectors, torch.Tensor):
             data = vectors.to(device=device, dtype=torch.float32)
             vectors_np = None

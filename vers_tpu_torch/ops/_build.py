@@ -1,8 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, loaded with ``ctypes``.
-The build runs on first use from a CUDA tensor and lands in
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``),
+one ``nvcc`` process per source, all started together, and the objects
+are linked into ONE shared library with a plain C interface, loaded with
+``ctypes``. The build runs on first use from a CUDA tensor and lands in
 ``vers_tpu_torch/_build/``; the library's file name carries a hash of the
 sources, so an edited source rebuilds and an unchanged one is reused.
 
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -80,7 +81,8 @@ def library_path() -> Path:
 def load_library() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library. Raises on any
     build or load failure; ``build_info`` records the build's seconds
-    and the compiler's resource report (``-Xptxas -v``)."""
+    and the compiler's resource report (``-Xptxas -v``), which is kept
+    beside the library for a later process that finds it built."""
     global _lib
     if _lib is not None:
         return _lib
@@ -88,20 +90,35 @@ def load_library() -> ctypes.CDLL:
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        failed = [p.returncode for p in procs if p.returncode]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, "-shared", NVCC_FLAGS[0], NVCC_FLAGS[1], "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            failed = [link.returncode] if link.returncode else []
+        for obj in objs:
+            obj.unlink(missing_ok=True)
         build_info["seconds"] = time.perf_counter() - t0
-        build_info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{build_info['log']}"
-            )
+        build_info["log"] = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_info['log']}")
+        path.with_suffix(".log").write_text(build_info["log"])
         os.replace(tmp, path)
     else:
+        log = path.with_suffix(".log")
         build_info.setdefault("seconds", 0.0)
-        build_info.setdefault("log", "")
+        build_info.setdefault("log", log.read_text() if log.exists() else "")
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

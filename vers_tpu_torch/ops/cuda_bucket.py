@@ -18,9 +18,16 @@ neighbour only where two of them share a bucket.
 
 Dispatch, by the input tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version.
+
+The kernel reads the corpus rounded to bf16 with its feature axis padded
+(``prepare_bucket_corpus``) and the rows' |x|^2. A caller that searches
+one corpus many times (``FlatIndex``) prepares them once and passes them
+in; otherwise the wrapper prepares them on every call.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +47,62 @@ PLAIN_ROWS = 2048
 LAUNCHES = 0
 
 _METRICS = ("sq_euclidean", "cosine")
+
+# Kernel D's tiles and shared-memory layout (csrc/bucket_scan.cu).
+QUERY_TILE = 128     # queries per block
+SLICE_FEATURES = 64  # bf16 features per staged slice (one 128-byte row)
+RING_MAX, RING_MIN = 8, 6  # ring slots: as many as fit, >= RING_MIN resident
+_SLICE = 128 * SLICE_FEATURES * 2  # a corpus or query slice
+_ORD16_GROUPS = 65536  # groups per superchunk that 16-bit ordinals cover
+# shared memory a block may opt into on the H100
+H100_BLOCK_SMEM = 232448
+
+
+def bucket_d_pad(d: int) -> int:
+    """The kernel's feature width: d rounded up to whole k16 steps."""
+    return round_up(d, 16)
+
+
+def kernel_d_geometry(q_n: int, n_rows: int, d: int, span: int,
+                      max_smem: int = H100_BLOCK_SMEM) -> dict:
+    """How ``vers_bucket_scan`` launches kernel D: the padded width and
+    its 64-feature slices; whether the query tile stays resident in
+    shared memory beside at least RING_MIN ring slots (else each slot
+    carries the query slice too); the ring's slots, as many as fit up to
+    RING_MAX; whether a superchunk has more groups than 16-bit ordinals
+    cover; the grid (query tiles, superchunks) and the shared memory
+    per block."""
+    d_pad = bucket_d_pad(d)
+    nk = -(-d_pad // SLICE_FEATURES)
+
+    def smem(resident, ns):
+        slot = _SLICE * (1 if resident else 2)
+        return ((nk * _SLICE if resident else 0) + ns * slot + 2 * 128 * 4
+                + (2 * RING_MAX + 2 * 2 + 1) * 8 + 1024)
+
+    resident = smem(True, RING_MIN) <= max_smem
+    ns = RING_MAX
+    while ns > 2 and smem(resident, ns) > max_smem:
+        ns -= 1
+    return dict(d_pad=d_pad, slices=nk, resident=resident, ring=ns,
+                wide=span // LANE > _ORD16_GROUPS,
+                grid=(-(-q_n // QUERY_TILE), -(-n_rows // span)),
+                smem_bytes=smem(resident, ns))
+
+
+class BucketCorpus(NamedTuple):
+    """Kernel D's corpus: rows rounded to bf16 and zero-padded to
+    ``bucket_d_pad(d)`` features, and |x|^2 of the f32 rows."""
+    rows: torch.Tensor
+    sq_norms: torch.Tensor
+
+
+def prepare_bucket_corpus(corpus: torch.Tensor) -> BucketCorpus:
+    """The bf16 corpus and |x|^2 that ``cuda_bucket_table`` reads."""
+    d = corpus.shape[1]
+    rows = torch.nn.functional.pad(corpus.to(torch.bfloat16),
+                                   (0, bucket_d_pad(d) - d)).contiguous()
+    return BucketCorpus(rows, torch.sum(corpus * corpus, dim=1))
 
 
 def bucket_geometry(n_rows: int, chunk_size: int = DEFAULT_CHUNK,
@@ -117,29 +180,49 @@ def _check_inputs(queries: torch.Tensor, corpus: torch.Tensor,
         raise ValueError("more than 65535 superchunks: raise the span")
 
 
+def _check_prepared(prepared: BucketCorpus, corpus: torch.Tensor) -> None:
+    rows, sq = prepared
+    n_rows, d = corpus.shape
+    want = (n_rows, bucket_d_pad(d))
+    if rows.dtype != torch.bfloat16 or tuple(rows.shape) != want:
+        raise ValueError(f"prepared rows must be bf16 {want}, got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
+    if sq.dtype != torch.float32 or tuple(sq.shape) != (n_rows,):
+        raise ValueError(f"prepared |x|^2 must be f32 ({n_rows},), got "
+                         f"{sq.dtype} {tuple(sq.shape)}")
+    for t in (rows, sq):
+        if t.device != corpus.device or not t.is_contiguous():
+            raise ValueError(f"prepared tensors must be contiguous on "
+                             f"{corpus.device}")
+
+
 def cuda_bucket_table(queries: torch.Tensor, corpus: torch.Tensor,
-                      n_valid: int, span: int, metric: str = "sq_euclidean"):
+                      n_valid: int, span: int, metric: str = "sq_euclidean",
+                      prepared: BucketCorpus | None = None):
     """Stage 1 of the bucket search, as ``bucket_table_plain``. CUDA
     tensors launch kernel D; CPU tensors take the plain version. The
-    wrapper rounds both inputs to bf16 with the feature axis zero-padded
-    to a multiple of 16 (16-byte rows, whole WMMA steps), and computes
-    qq and xx."""
+    wrapper rounds the queries to bf16 with the feature axis zero-padded
+    to ``bucket_d_pad(d)`` and computes qq; ``prepared`` (from
+    ``prepare_bucket_corpus(corpus)``) saves preparing the corpus, with
+    the same result."""
     global LAUNCHES
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     if not queries.is_cuda and not corpus.is_cuda:
         return bucket_table_plain(queries, corpus, n_valid, span, metric)
     _check_inputs(queries, corpus, span)
+    if prepared is None:
+        prepared = prepare_bucket_corpus(corpus)
+    else:
+        _check_prepared(prepared, corpus)
     q_n, d = queries.shape
     n_rows = corpus.shape[0]
     n_super = -(-n_rows // span)
     n_valid = max(0, min(int(n_valid), n_rows))
-    d_pad = round_up(d, 16)
+    d_pad = bucket_d_pad(d)
     qb = torch.nn.functional.pad(queries.to(torch.bfloat16), (0, d_pad - d))
-    xb = torch.nn.functional.pad(corpus.to(torch.bfloat16), (0, d_pad - d))
     qf = qb.float()
     qq = torch.sum(qf * qf, dim=1)
-    xx = torch.sum(corpus * corpus, dim=1)
     dev = queries.device
     out_d = torch.full((q_n, n_super * LANE), float("inf"),
                        dtype=torch.float32, device=dev)
@@ -148,8 +231,8 @@ def cuda_bucket_table(queries: torch.Tensor, corpus: torch.Tensor,
     lib = _build.load_library()
     with torch.cuda.device(dev):
         rc = lib.vers_bucket_scan(
-            qb.data_ptr(), xb.data_ptr(), qq.data_ptr(), xx.data_ptr(),
-            out_d.data_ptr(), out_i.data_ptr(),
+            qb.data_ptr(), prepared.rows.data_ptr(), qq.data_ptr(),
+            prepared.sq_norms.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             q_n, n_rows, d_pad, n_valid, span, n_super,
             int(metric == "cosine"), torch.cuda.current_stream().cuda_stream,
         )
@@ -168,6 +251,7 @@ def bucket_scan_topk(
     shortlist: int = 32,
     target_buckets: int = TARGET_BUCKETS,
     rescore: bool = False,
+    prepared: BucketCorpus | None = None,
 ):
     """Approximate top-k through the bucket table: (dists (Q, k) f32
     ascending, rows (Q, k) int32; (+inf, -1) padding), as
@@ -176,13 +260,14 @@ def bucket_scan_topk(
     ``rescore=False``: the k best buckets, with their bf16-product
     distances. ``rescore=True``: a shortlist of max(k, min(shortlist,
     W)) buckets is rescored exactly in f32 (TF32 off) from the f32
-    corpus and the best k of it kept."""
+    corpus and the best k of it kept. ``prepared``: the corpus as
+    ``prepare_bucket_corpus`` gives it, for kernel D."""
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     chunk, superchunk, _ = bucket_geometry(corpus.shape[0], chunk_size,
                                            target_buckets)
     bd, bi = cuda_bucket_table(queries, corpus, n_valid, chunk * superchunk,
-                               metric)
+                               metric, prepared=prepared)
     s = max(k, min(shortlist, bd.shape[1])) if rescore else k
     sd, cand = topk_values(bd, bi, s)
     if not rescore:
