@@ -30,14 +30,22 @@ kernel C) on the first 1, 64, 2048 and all 16384 queries over the whole
 corpus, k = 10, tie-aware, distances within 1e-4, a repeat call bit-
 identical, with its split count, grid and second-pass time logged, and
 ``FlatIndex.search_approximate`` for one query on the host clock; kernel
-B on the captured scans, the same; kernel D's bucket table on the
+B on the captured scans, the same (a repeat call bit-identical too);
+kernel D's bucket table on the
 first 64, 2048 and all 16384 queries (the phase-2 search's own call at
 16384), distances within 1e-4 and rows equal except at near-ties
 (counted), a repeat call and the unprepared-corpus call bit-identical,
-with its grid logged; kernel C on that table at the shortlist widths 10
-and 32, bit-identical (it only selects), beside one ``torch.topk`` call
-on the same table (timed as the yardstick, with its tie order checked;
-the port never calls it). Each kernel's bound, the least time the card
+with its grid logged; kernel C on that table at the shortlist widths 10,
+32 and 128, bit-identical (it only selects), beside one ``torch.topk``
+call on the same table (timed as the yardstick, with its tie order
+checked; the port never calls it), and on the narrow table of kernel A's
+second pass (the best sets of its corpus splits at 16384 queries).
+Kernel B's lines also carry its geometry (r_blk, grid) and its work as
+the kernel itself reports it in one more launch (the blocks that work
+and the live tiles each walks, hence the products issued and, against
+the products its probes need, the masked share); at the operating
+nprobe the host mirror of the walk is held to that report block by
+block. Each kernel's bound, the least time the card
 could take for its work, comes from ``vers_tpu_torch/utils/roofline.py``
 and this run's inputs (kernel B's from the probes it captured).
 
@@ -48,7 +56,6 @@ last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
-import contextlib
 import json
 import subprocess
 import sys
@@ -68,8 +75,11 @@ TOL = 1e-4  # distances: f32 sums in other orders, TF32 off
 ROOT = Path(__file__).resolve().parent
 
 
+T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    print(f"[{time.perf_counter() - T0:5.0f} s] {msg}", flush=True)
 
 
 def cuda_ms(torch, fn, reps=3):
@@ -85,24 +95,6 @@ def cuda_ms(torch, fn, reps=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-@contextlib.contextmanager
-def captured_scans(binned):
-    """Record the arguments of every packed-scan call the search path
-    makes inside the block; the calls themselves go through unchanged."""
-    calls = []
-    scan = binned.packed_scan
-
-    def record(*args, **kw):
-        calls.append((args, kw))
-        return scan(*args, **kw)
-
-    binned.packed_scan = record
-    try:
-        yield calls
-    finally:
-        binned.packed_scan = scan
 
 
 def main():
@@ -217,7 +209,7 @@ def main():
     operating = None
     scans = {}  # nprobe -> the packed-scan arguments of that search
     for nprobe in (1, 2, 4, 8):
-        with captured_scans(binned) as calls:
+        with binned.captured_scans() as calls:
             res = ivf.search_batch(qd, TOP_K, nprobe=nprobe)
         scans[nprobe] = calls
         # a probed cluster can hold fewer than TOP_K rows (k-means leaves
@@ -235,7 +227,7 @@ def main():
             break
     assert operating is not None, f"recall@10 < {TARGET_RECALL} at nprobe <= 8"
 
-    with captured_scans(binned) as calls:
+    with binned.captured_scans() as calls:
         res0 = ivf.search_batch(qd, TOP_K, nprobe=0)
     scans[0] = calls
     ms0 = cuda_ms(torch, lambda: ivf.search_batch_device(qd, TOP_K, 0))
@@ -377,7 +369,7 @@ def main():
     # kernel C on that table, at the engine's widths: selection only;
     # one torch.topk call computes the same function (the yardstick)
     c_rows = {}
-    for s in (TOP_K, 32):
+    for s in (TOP_K, 32, cuda_topk.MAX_K):
         kc = cuda_topk.cuda_topk_values(kd[0], kd[1], s)
         pc = cuda_topk.topk_values_plain(kd[0], kd[1], s)
         assert torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1]), s
@@ -401,22 +393,59 @@ def main():
                          bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
         del kc
     del kd
+    # ... and on kernel A's second-pass table: the splits' best sets
+    vals, ids, n_split = cuda_topk.split_pass(qd, xd, N, TOP_K)
+    assert n_split > 1, n_split
+    kc = cuda_topk.cuda_topk_values(vals, ids, TOP_K)
+    pc = cuda_topk.topk_values_plain(vals, ids, TOP_K)
+    assert torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1])
+    assert np.array_equal(kc[1].cpu().numpy(), truth.ids)
+    del kc, pc
+    narrow_ms = cuda_ms(torch, lambda: cuda_topk.cuda_topk_values(vals, ids, TOP_K),
+                        reps=20)
+    narrow_plain = cuda_ms(torch, lambda: cuda_topk.topk_values_plain(
+        vals, ids, TOP_K), reps=5)
+    narrow_lib = cuda_ms(torch, lambda: torch.topk(vals, TOP_K, dim=1,
+                                                   largest=False), reps=20)
+    bound = roofline.topk_values_bound(N_QUERIES, vals.shape[1], TOP_K)
+    log(f"kernel C vs plain, kernel A's second pass ({N_QUERIES}, "
+        f"{vals.shape[1]}), s={TOP_K}: identical, {narrow_ms:.4f} ms vs "
+        f"{narrow_plain:.3f} ms; torch.topk {narrow_lib:.4f} ms; bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    c_rows["second_pass"] = dict(width=vals.shape[1], max_abs_err=0.0,
+                                 ms=narrow_ms, plain_ms=narrow_plain,
+                                 library_ms=narrow_lib,
+                                 bound_ms=bound["bound_ms"],
+                                 bound_by=bound["bound_by"])
+    del vals, ids
     torch.cuda.empty_cache()
 
+    assert cuda_binned.kernel_constants() == dict(
+        QUERY_TILE=cuda_binned.QUERY_TILE, TILE_ROWS=cuda_binned.TILE_ROWS,
+        PLAN_MAX=cuda_binned.PLAN_MAX)
     b_rows = {}
     for nprobe, calls in scans.items():
         assert len(calls) == 1, (nprobe, len(calls))
         args, kw = calls[0]
-        kw = {k: v for k, v in kw.items() if k != "plain"}
         q_stack, qb, gb, corpus_padded = args[0], args[2], args[3], args[4]
+        r_blk = kw["chunk"] * kw["r_chunks"]
         cuda_binned.check_work_items(qb, gb, q_stack.shape[0], kw["q_blk"],
-                                     corpus_padded.shape[0],
-                                     kw["chunk"] * kw["r_chunks"])
+                                     corpus_padded.shape[0], r_blk)
         kb = cuda_binned.cuda_packed_scan(*args, **kw)
+        # a repeat call, which also reports the tiles each block walked
+        again = cuda_binned.cuda_packed_scan_walk(*args, **kw)
+        assert torch.equal(kb[0], again[0]) and torch.equal(kb[1], again[1])
+        walked = again[2].cpu().numpy()
+        if nprobe == operating:  # the host mirror of the walk, held to it
+            units = cuda_binned.packed_scan_units(args[1], qb, gb, args[5],
+                                                  kw["q_blk"], r_blk)
+            assert np.array_equal(walked, cuda_binned.units_walked(
+                units, qb.shape[0], kw["q_blk"])), nprobe
+            del units
         pb = cuda_binned.packed_scan_plain(*args, **kw)
         assert_topk_match(kb[0], kb[1], pb[0], pb[1], rtol=0.0, atol=TOL)
         err_b = max_abs_diff(kb[0], pb[0])
-        del kb, pb
+        del kb, again, pb
         ms_b = cuda_ms(torch, lambda: cuda_binned.cuda_packed_scan(*args, **kw))
         plain_b = cuda_ms(torch, lambda: cuda_binned.packed_scan_plain(*args, **kw),
                           reps=1)
@@ -426,15 +455,25 @@ def main():
         sizes = torch.bincount(rbin[rbin >= 0].long(),
                                minlength=int(qbin.max()) + 1)
         live = qbin[qbin >= 0].long()
+        useful = int(sizes[live].sum())
         bound = roofline.packed_scan_bound(
-            live.numel(), q_stack.shape[0], int(sizes[live].sum()),
+            live.numel(), q_stack.shape[0], useful,
             int(sizes[torch.unique(live)].sum()), q_stack.shape[1], kw["top_k"])
+        live_tiles = int(walked[walked >= 0].sum())
+        issued = cuda_binned.QUERY_TILE * cuda_binned.TILE_ROWS * live_tiles
+        assert issued >= useful > 0, (issued, useful)
         log(f"kernel B vs plain, main-path scan of nprobe={nprobe} "
             f"({q_stack.shape[0]} query rows, {qb.shape[0]} work items): "
             f"max |d| {err_b:g}, {ms_b:.3f} ms vs {plain_b:.2f} ms; bound "
             f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, "
-            f"{bound['ops']:.3g} TF32 flop, {bound['bytes']:.3g} bytes)")
+            f"{bound['ops']:.3g} TF32 flop, {bound['bytes']:.3g} bytes); "
+            f"r_blk {r_blk}, grid {list(walked.shape)}, "
+            f"{int((walked >= 0).sum())} working blocks, {live_tiles} "
+            f"live tiles (at most {int(walked.max())} a block) as the kernel "
+            f"reports them, masked share {1.0 - useful / issued:.4f} of "
+            f"{issued:.4g} products issued")
         b_rows[nprobe] = dict(rows=q_stack.shape[0], work_items=qb.shape[0],
+                              r_blk=r_blk, grid=list(walked.shape),
                               max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
                               bound_ms=bound["bound_ms"],
                               bound_by=bound["bound_by"])

@@ -7,7 +7,13 @@ mid-split, k = MAX_K, rows of norm ~15, repeat calls bit-identical), and
 kernel D at Q in {1, 65, 130, 200} and d in {8, 37, 300, 1000} (n_valid
 mid-group and mid-superchunk, single-group superchunks, 32-bit ordinals,
 both query-tile layouts, duplicates 128 rows apart, rows of norm ~15,
-repeat calls and the prepared corpus bit-identical).
+repeat calls and the prepared corpus bit-identical), kernel C on
+adversarial tables (all-equal rows, few distinct values, +-0, rows with
+fewer than k finite values) at W in {1, 20, 33, 1001, 8960, 70000} and k
+in {1, 10, 32, 128}, and kernel B directly on the scans of small binned
+searches (d in {8, 37, 300}, k in {1, 10, 128}, skewed bins, bins larger
+than a tile, groups that end inside a tile, a run of more than 512
+tiles, cosine, ids on and off, exact ties, repeat calls bit-identical).
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips without one. This file imports neither jax nor vers_tpu, so it
@@ -27,6 +33,8 @@ import torch
 
 from vers_tpu_torch.ops import binned, cuda_binned, cuda_bucket, cuda_topk
 from vers_tpu_torch.ops.topk import fused_scan_topk, split_scan_topk_plain
+from vers_tpu_torch.utils.data import TOPK_TABLE_KINDS as TABLE_KINDS
+from vers_tpu_torch.utils.data import adversarial_topk_table
 from vers_tpu_torch.utils.parity import assert_topk_match
 
 pytestmark = pytest.mark.gpu
@@ -411,6 +419,134 @@ def test_topk_values_kernel_matches_plain(cuda, kind, q_n, w, k):
     assert cuda_topk.LAUNCHES_VALUES == before + 1
     want = cuda_topk.topk_values_plain(v, i, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _table(kind, q_n, w, seed=0):
+    """Tables that stress kernel C's order: (vals (q_n, w) f32, ids)."""
+    return tuple(torch.from_numpy(t)
+                 for t in adversarial_topk_table(kind, q_n, w, seed))
+
+
+@pytest.mark.parametrize("kind", TABLE_KINDS)
+@pytest.mark.parametrize("k", [1, 10, 32, cuda_topk.MAX_K])
+@pytest.mark.parametrize("q_n,w", [(70, 1), (70, 20), (70, 33), (37, 8960),
+                                   (9, 70000), (33, 1001)])
+def test_topk_values_kernel_adversarial_tables(cuda, kind, k, q_n, w):
+    """Kernel C on every route (rows of at most 32 entries, 16-byte loads,
+    4-byte loads at W = 33 and 1001), bit-identical to its plain version
+    and to itself on a repeat call."""
+    vals, ids = (t.to(cuda) for t in _table(kind, q_n, w, seed=w + k))
+    before = cuda_topk.LAUNCHES_VALUES
+    got = cuda_topk.cuda_topk_values(vals, ids, k)
+    again = cuda_topk.cuda_topk_values(vals, ids, k)
+    torch.cuda.synchronize()
+    assert cuda_topk.LAUNCHES_VALUES == before + 2
+    want = cuda_topk.topk_values_plain(vals, ids, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_topk_values_kernel_unaligned_view(cuda):
+    """A table whose rows are 16-byte multiples but whose base is not
+    takes the 4-byte loads."""
+    vals, ids = (t.to(cuda) for t in _table("few", 5, 401))
+    v, i = vals.reshape(-1)[1:2001].reshape(5, 400), ids[:, :400].contiguous()
+    assert v.is_contiguous() and v.data_ptr() % 16
+    got = cuda_topk.cuda_topk_values(v, i, 10)
+    want = cuda_topk.topk_values_plain(v, i, 10)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _captured_scan(fn):
+    """The packed-scan arguments of the one scan fn() makes."""
+    with binned.captured_scans() as calls:
+        fn()
+    (args, kw), = calls
+    return args, kw
+
+
+def test_packed_scan_kernel_constants(cuda):
+    """The host mirror of kernel B's walk keeps the kernel's tile sizes
+    and plan limit."""
+    assert cuda_binned.kernel_constants() == dict(
+        QUERY_TILE=cuda_binned.QUERY_TILE, TILE_ROWS=cuda_binned.TILE_ROWS,
+        PLAN_MAX=cuda_binned.PLAN_MAX)
+
+
+@pytest.mark.parametrize("kernel_ids", [False, True])
+@pytest.mark.parametrize("n,d,bins,q_n,nprobe,skew,top_k,metric,tiles", [
+    (3000, 8, 16, 200, 1, True, 1, "sq_euclidean", dict(q_blk=64, r_blk=256, chunk=128)),
+    (6000, 37, 12, 300, 2, True, 10, "sq_euclidean", dict()),  # cp.async rows
+    (5000, 300, 40, 700, 3, True, cuda_topk.MAX_K, "sq_euclidean",
+     dict(q_blk=128, r_blk=256, chunk=128)),  # query tile not resident
+    (5000, 300, 40, 300, 2, False, 10, "cosine", dict()),
+    (2000, 16, 40, 130, 2, False, 10, "sq_euclidean",
+     dict(q_blk=64, r_blk=192, chunk=64)),  # groups end inside a tile
+    (140_000, 8, 2, 70, 1, False, 10, "sq_euclidean", dict()),  # > 512 tiles a run
+])
+def test_packed_scan_kernel_matches_plain(cuda, kernel_ids, n, d, bins, q_n,
+                                          nprobe, skew, top_k, metric, tiles):
+    """Kernel B on the arguments the binned search hands it, against
+    ``packed_scan_plain``; a repeat call bit-identical; the blocks that
+    work and the live tiles each walks, as the kernel reports them, equal
+    to the host mirror's (``packed_scan_units``), block by block."""
+    layout, rng = _layout(n, d, bins, skew, cuda)
+    cents = torch.from_numpy(rng.normal(size=(bins, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32)).to(cuda)
+    if metric == "cosine":
+        q = torch.nn.functional.normalize(q, dim=1)
+        for key in ("corpus_sorted",):
+            layout[key] = torch.nn.functional.normalize(layout[key], dim=1)
+    args, kw = _captured_scan(lambda: binned.binned_topk_kernel(
+        q, cents, nprobe, layout, top_k=top_k, metric=metric,
+        kernel_ids=kernel_ids, **tiles))
+    cuda_binned.check_work_items(args[2], args[3], args[0].shape[0], kw["q_blk"],
+                                 args[4].shape[0], kw["chunk"] * kw["r_chunks"])
+    before = cuda_binned.LAUNCHES
+    got = cuda_binned.cuda_packed_scan(*args, **kw)
+    again = cuda_binned.cuda_packed_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert cuda_binned.LAUNCHES == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    atol = 1e-4 * max(1.0, float((args[6].max())))  # scales with |x|^2
+    want = cuda_binned.packed_scan_plain(*args, **kw)
+    assert_topk_match(got[0], got[1], want[0], want[1], rtol=1e-4, atol=atol)
+    walk = cuda_binned.cuda_packed_scan_walk(*args, **kw)
+    assert cuda_binned.LAUNCHES == before + 3
+    assert torch.equal(got[0], walk[0]) and torch.equal(got[1], walk[1])
+    units = cuda_binned.packed_scan_units(args[1], args[2], args[3], args[5],
+                                          kw["q_blk"], kw["chunk"] * kw["r_chunks"])
+    want_walk = cuda_binned.units_walked(units, args[2].shape[0], kw["q_blk"])
+    assert np.array_equal(walk[2].cpu().numpy(), want_walk)
+    assert (want_walk >= 0).any()
+    if n == 140_000:
+        assert want_walk.max() > 512
+
+
+def test_packed_scan_kernel_ties_lower_padded_row(cuda):
+    """Every bin's rows are copies of its first two: distances tie
+    exactly and the lower padded row wins, whatever the ids."""
+    layout, rng = _layout(3000, 32, 16, True, cuda)
+    q = torch.from_numpy(rng.normal(size=(200, 32)).astype(np.float32)).to(cuda)
+    cents = torch.from_numpy(rng.normal(size=(16, 32)).astype(np.float32)).to(cuda)
+    args, kw = _captured_scan(lambda: binned.binned_topk_kernel(
+        q, cents, 2, layout, top_k=8, q_blk=64, r_blk=256, chunk=128))
+    args = list(args)
+    corpus, rbin = args[4].clone(), args[5].reshape(-1)
+    for b in range(16):
+        rows = torch.nonzero(rbin == b).reshape(-1)
+        if rows.numel():
+            corpus[rows] = corpus[rows[torch.arange(rows.numel(), device=cuda) % 2]]
+    args[4], args[6] = corpus, (corpus * corpus).sum(dim=1)[None, :]
+    kw["ids_padded"] = (kw["ids_padded"].max() - kw["ids_padded"]).contiguous()
+    got = cuda_binned.cuda_packed_scan(*args, **kw)
+    want = cuda_binned.packed_scan_plain(*args, **kw)
+    assert (want[0][:, 1:] == want[0][:, :-1]).any()
+    _check(got, want)
+    kw["ids_padded"] = None  # padded positions: ties ascend
+    d, i = cuda_binned.cuda_packed_scan(*args, **kw)
+    same = (d[:, 1:] == d[:, :-1]) & torch.isfinite(d[:, 1:])
+    assert same.any() and (i[:, 1:][same] > i[:, :-1][same]).all()
 
 
 def test_bucket_and_values_wrappers_reject_bad_inputs(cuda):

@@ -22,24 +22,13 @@ Needs one CUDA card; exits 2 without one.
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-
-def cuda_ms(torch, fn, reps):
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+from kernel_timing import card_line, cuda_ms  # noqa: E402
 
 
 def main():
@@ -61,9 +50,7 @@ def main():
     from vers_tpu_torch.utils.data import synthetic_gaussian
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     q_counts = [int(v) for v in args.queries.split(",")]
     x, q = synthetic_gaussian(args.n, args.dim, n_clusters=1024,
                               n_queries=max(q_counts), seed=0, normalized=True,

@@ -28,7 +28,6 @@ Needs one CUDA card; exits 2 without one.
 """
 
 import argparse
-import ctypes
 import json
 import re
 import shutil
@@ -37,6 +36,10 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from kernel_timing import (  # noqa: E402
+    Variant, build_variants, card_line, cuda_ms, ptxas_report, sass_counts)
 
 OPCODES = ("HGMMA", "HMMA", "UTMALDG", "SYNCS", "WARPGROUP")
 
@@ -61,94 +64,12 @@ ABLATIONS = {
 }
 
 
-def cuda_ms(torch, fn, reps):
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def sass_counts(path):
-    """Per-kernel counts of OPCODES in a library's SASS (cuobjdump), for
-    kernel D's kernels, and the HGMMA shapes it holds."""
+def hgmma_shapes(path):
+    """The HGMMA shapes in a library's SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(path)],
                           capture_output=True, text=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            counts[fn] = dict.fromkeys(OPCODES, 0)
-        elif fn:
-            for op in re.findall(r"\b([A-Z][A-Z0-9]+)[.\s]", line):
-                if op in counts[fn]:
-                    counts[fn][op] += 1
-    shapes = sorted(set(re.findall(r"HGMMA\.[0-9x]+\.F32\.\w+", sass)))
-    return dict(hgmma_shapes=shapes,
-                sass={f: c for f, c in counts.items() if "bucket" in f})
-
-
-def build_report(_build):
-    """Kernel D's ptxas lines (registers, spills) and its SASS."""
-    _build.load_library()
-    lines = _build.build_info["log"].splitlines()
-    ptxas = []
-    for i, line in enumerate(lines):
-        if "Compiling entry" in line and "bucket" in line:
-            ptxas.append(" ".join(x.strip() for x in lines[i:i + 4]))
-    return dict(ptxas=ptxas, **sass_counts(_build.library_path()))
-
-
-class _Variant:
-    """Stands in for ``ops._build`` with an ablated library."""
-
-    def __init__(self, lib):
-        self.lib = lib
-
-    def load_library(self):
-        return self.lib
-
-    @staticmethod
-    def check(lib, rc, name):
-        if rc:
-            raise RuntimeError(f"{name}: CUDA error {rc}")
-
-
-def build_variants(_build, names):
-    """Compile each edited copy of bucket_scan.cu (in parallel) into a
-    library of its own; name -> (ctypes library, its SASS counts)."""
-    src = (_build.CSRC / "bucket_scan.cu").read_text()
-    out = _build.BUILD_DIR / "ablate"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        text = src
-        for old, new in ABLATIONS[name]:
-            assert old in text, (name, old)
-            text = text.replace(old, new)
-        cu = out / f"bucket_scan_{name}.cu"
-        cu.write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-             str(_build.CSRC), "-o", str(out / f"lib_{name}.so"), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, p in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        path = out / f"lib_{name}.so"
-        lib = ctypes.CDLL(str(path))
-        lib.vers_bucket_scan.argtypes = _build._SIGNATURES["vers_bucket_scan"]
-        lib.vers_bucket_scan.restype = ctypes.c_int
-        libs[name] = (lib, sass_counts(path)["sass"])
-    return libs
+    return sorted(set(re.findall(r"HGMMA\.[0-9x]+\.F32\.\w+", sass)))
 
 
 def main():
@@ -171,10 +92,12 @@ def main():
     from vers_tpu_torch.utils.roofline import bucket_scan_bound
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "build": build_report(_build)}), flush=True)
+    card = card_line()
+    print(json.dumps({"card": card, "build": dict(
+        ptxas=ptxas_report(_build, "bucket"),
+        hgmma_shapes=hgmma_shapes(_build.library_path()),
+        sass=sass_counts(_build.library_path(), OPCODES, "bucket"))}),
+        flush=True)
 
     q_counts = [int(v) for v in args.queries.split(",")]
     x, q = synthetic_gaussian(args.n, args.dim, n_clusters=1024,
@@ -213,18 +136,20 @@ def main():
 
     if args.ablate:
         qs = qd[: max(q_counts)]
-        libs = build_variants(_build, list(ABLATIONS))
+        libs = build_variants(_build, "bucket_scan.cu", "vers_bucket_scan",
+                              ABLATIONS)
         real = cuda_bucket._build
         rows = {"full": cuda_ms(torch, kernel(qs), 2)}
         try:
             for name, (lib, _) in libs.items():
-                cuda_bucket._build = _Variant(lib)
+                cuda_bucket._build = Variant(lib)
                 rows[name] = cuda_ms(torch, kernel(qs), 2)
         finally:
             cuda_bucket._build = real
         rows["full_again"] = cuda_ms(torch, kernel(qs), 2)
-        hgmma = {name: sorted({c["HGMMA"] for c in sass.values()})
-                 for name, (_, sass) in libs.items()}
+        hgmma = {name: sorted({c["HGMMA"] for c in sass_counts(
+            path, ("HGMMA",), "bucket").values()})
+                 for name, (_, path) in libs.items()}
         print(json.dumps({"card": card, "Q": qs.shape[0], "ablation_ms": rows,
                           "variant_hgmma_per_kernel": hgmma}), flush=True)
     return 0

@@ -5,118 +5,234 @@
 // _values_kernel). The TPU kernel walks column chunks in order and merges
 // each into a carried (QT, k) set by k extract-min passes, carried
 // entries first: equal values come out in ascending column order, i.e.
-// a stable sort by value. Its caller is stage 2 of the bucket scan
-// (kernel D), which hands it the bucket table.
+// a stable sort by value. Its callers are stage 2 of the bucket scan
+// (kernel D), which hands it the bucket table, and kernel A, which hands
+// it the best sets of its corpus splits.
 //
 // Bound on the H100: reading the values once (Q * W * 4 bytes; 16384 x
 // 8960 is 0.59 GB, ~0.18 ms at 3.35 TB/s). There is no reuse, so the
-// design is one warp per row with coalesced reads: lane j takes columns
-// j, j + 32, ... in ascending order, four loads in flight, and keeps its
-// own k smallest by strict-less sorted insertion in shared memory (so a
-// lane's list is ordered by (value, column)). Once a lane holds k
-// entries, most values fail the one compare against its k-th and cost a
-// load and a compare. A warp merge then extracts the minimum (value,
-// column) over the 32 list heads k times, which is the stable order.
-// Only the k winners' ids are read.
+// design is one warp per row streaming 16-byte loads (two in flight per
+// lane, eight rows a block) against ONE threshold per row, the row's
+// current k-th value:
+//  * An entry is a candidate only if its 64-bit key, (ordered value
+//    bits << 32) | column, is below the key of the current k-th entry:
+//    k entries are ahead of any other and it cannot be a winner. One
+//    float compare of a lane's least value against the k-th value
+//    rejects most loads before any key is made. (The key compare, not a
+//    strict float compare, decides: a lane holds four neighbouring
+//    columns, so the k-th entry may sit at a higher column than an
+//    equal value tested after it.)
+//  * The few entries that pass are appended to one candidate buffer per
+//    row in shared memory (ballot + prefix popcount) as keys. The buffer
+//    holds CAP keys (a power of two near 4 k, chosen by the host): when
+//    it is full, a bitonic sort by the warp keeps the k smallest and
+//    tightens the threshold. After a prune at n columns seen, a later
+//    entry passes with probability k / n, so the columns seen grow by
+//    CAP / k from prune to prune: a handful of sorts per row, not one
+//    insertion per entry. Shared memory per row is 8 CAP bytes whatever
+//    the lane count.
+//  * Keys order as a stable sort by value orders the entries: the value
+//    bits map to an unsigned integer that rises with the float (negative
+//    floats have all bits flipped, others the sign bit set), -0.0 is
+//    keyed as +0.0 (they compare equal, so the column decides), and the
+//    column fills the low word. +inf and NaN are never candidates, so
+//    only finite values (and -inf, whose id is -1 as in the plain
+//    version) are written; the rest of a row stays the wrapper's
+//    (+inf, -1). The winners' values and ids are gathered from the
+//    inputs at their columns, k loads in parallel.
+//  * Rows of at most 32 entries (kernel A's second pass over two splits
+//    of k = 10) take a route without shared memory: one key per lane and
+//    a bitonic sort by shuffles.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): the loads and
+// the reject compare alone take 0.20-0.21 ms of the 0.26 ms at k = 10 and
+// of the 0.37 ms at k = 32; two loads in flight per lane beat one, four
+// and eight, which hold the candidate work of a step back.
 #include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace vers {
 
-constexpr int VWARPS = 4;  // rows per block, one warp each
-constexpr int VUNROLL = 4; // loads in flight per lane
+constexpr int VWARPS = 8;    // rows per block, one warp each
+constexpr int VLOADS = 2;    // 16-byte loads in flight per lane
+constexpr int VSTEP = 128;   // columns a warp takes with one load each
+constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned long long PAD_KEY = ~0ull;
 
+// Unsigned bits that rise with the float; -0.0 as +0.0.
+__device__ inline unsigned order_bits(float v) {
+  const unsigned u = v == 0.f ? 0u : __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ inline unsigned long long make_key(float v, int col) {
+  return ((unsigned long long)order_bits(v) << 32) | (unsigned)col;
+}
+
+// The float a key was made from (+0.0 for either zero).
+__device__ inline float key_value(unsigned long long key) {
+  const unsigned o = (unsigned)(key >> 32);
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// Ascending bitonic sort of buf[0, n), n a power of two, by one warp.
+__device__ inline void warp_sort(unsigned long long* buf, int n, int lane) {
+  for (int size = 2; size <= n; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = lane; i < n / 2; i += 32) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const bool up = (lo & size) == 0;
+        const unsigned long long a = buf[lo], b = buf[hi];
+        if ((a > b) == up) {
+          buf[lo] = b;
+          buf[hi] = a;
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// Sort the cnt keys of buf, keep the k smallest, and set the threshold
+// to the k-th key and its value (PAD_KEY, +inf while fewer than k are
+// held).
+__device__ inline void prune(unsigned long long* buf, int& cnt,
+                             unsigned long long& thr_key, float& thr, int k,
+                             int lane) {
+  int n = 32;
+  while (n < cnt) n <<= 1;
+  for (int i = cnt + lane; i < n; i += 32) buf[i] = PAD_KEY;
+  __syncwarp();
+  warp_sort(buf, n, lane);
+  cnt = min(cnt, k);
+  thr_key = cnt == k ? buf[k - 1] : PAD_KEY;
+  thr = cnt == k ? key_value(thr_key) : CUDART_INF_F;
+}
+
+// Write the row's winners: values and ids gathered at their columns.
+__device__ inline void write_winner(const float* __restrict__ vals,
+                                    const int* __restrict__ ids,
+                                    float* __restrict__ out_d,
+                                    int* __restrict__ out_i, size_t row, int W,
+                                    int k, int t, unsigned long long key) {
+  const size_t at = row * W + (unsigned)(key & 0xffffffffu);
+  const float v = vals[at];
+  out_d[row * k + t] = v;
+  out_i[row * k + t] = isinf(v) ? -1 : ids[at];
+}
+
+// VEC: W % 4 == 0 and 16-byte aligned rows: lane j of a step holds
+// columns 4 j .. 4 j + 3. Otherwise 4-byte loads, lane j holding columns
+// j, j + 32, j + 64, j + 96.
+template <bool VEC>
 __global__ void __launch_bounds__(VWARPS * 32)
 topk_values_kernel(const float* __restrict__ vals, const int* __restrict__ ids,
                    float* __restrict__ out_d, int* __restrict__ out_i, int Q,
-                   int W, int k) {
-  extern __shared__ float4 smem_raw[];
+                   int W, int k, int cap) {
+  extern __shared__ unsigned long long keys[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * VWARPS + warp;
   if (row >= Q) return;  // no block-wide barrier below
-  // this warp's lists, rank-major: entry t of lane j at [t * 32 + j]
-  float* ld = reinterpret_cast<float*>(smem_raw) + (size_t)warp * k * 32;
-  int* lc = reinterpret_cast<int*>(reinterpret_cast<float*>(smem_raw) +
-                                   (size_t)VWARPS * k * 32) +
-            (size_t)warp * k * 32;
-  for (int t = 0; t < k; ++t) {
-    ld[t * 32 + lane] = CUDART_INF_F;
-    lc[t * 32 + lane] = INT_MAX;
-  }
-
+  unsigned long long* buf = keys + (size_t)warp * cap;
   const float* v = vals + (size_t)row * W;
-  float kth = CUDART_INF_F;
-  for (int c0 = lane; c0 < W; c0 += 32 * VUNROLL) {
-    float x[VUNROLL];
-#pragma unroll
-    for (int u = 0; u < VUNROLL; ++u) {
-      const int c = c0 + 32 * u;
-      x[u] = c < W ? v[c] : CUDART_INF_F;
-    }
-#pragma unroll
-    for (int u = 0; u < VUNROLL; ++u) {
-      if (x[u] < kth) {
-        int t = k - 1;
-        while (t > 0) {
-          const float prev = ld[(t - 1) * 32 + lane];
-          if (prev <= x[u]) break;
-          ld[t * 32 + lane] = prev;
-          lc[t * 32 + lane] = lc[(t - 1) * 32 + lane];
-          --t;
-        }
-        ld[t * 32 + lane] = x[u];
-        lc[t * 32 + lane] = c0 + 32 * u;
-        kth = ld[(k - 1) * 32 + lane];
-      }
-    }
-  }
-  __syncwarp();
+  int cnt = 0;
+  unsigned long long thr_key = PAD_KEY;
+  float thr = CUDART_INF_F;
 
-  // k extract-min rounds over the 32 list heads, ordered by (value,
-  // column); every lane ends a round with the same winner
-  int head = 0;
-  for (int t = 0; t < k; ++t) {
-    const float hv = head < k ? ld[head * 32 + lane] : CUDART_INF_F;
-    const int hc = head < k ? lc[head * 32 + lane] : INT_MAX;
-    float mv = hv;
-    int mc = hc;
+  for (int c0 = 0; c0 < W; c0 += VSTEP * VLOADS) {
+    float x[VLOADS][4];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, mv, off);
-      const int oc = __shfl_xor_sync(0xffffffffu, mc, off);
-      if (ov < mv || (ov == mv && oc < mc)) {
-        mv = ov;
-        mc = oc;
+    for (int u = 0; u < VLOADS; ++u) {
+      const int base = c0 + u * VSTEP;
+      if (VEC) {
+        const int c = base + 4 * lane;
+        float4 f = make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F,
+                               CUDART_INF_F);
+        if (c < W) f = __ldcs(reinterpret_cast<const float4*>(v + c));
+        x[u][0] = f.x, x[u][1] = f.y, x[u][2] = f.z, x[u][3] = f.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = base + 32 * j + lane;
+          x[u][j] = c < W ? __ldcs(v + c) : CUDART_INF_F;
+        }
       }
     }
-    // only finite values were inserted: the rest of the row stays at the
-    // wrapper's (+inf, -1)
-    if (mv == CUDART_INF_F) break;
-    if (hc == mc) ++head;
-    if (lane == 0) {
-      out_d[(size_t)row * k + t] = mv;
-      out_i[(size_t)row * k + t] = isinf(mv) ? -1 : ids[(size_t)row * W + mc];
+#pragma unroll
+    for (int u = 0; u < VLOADS; ++u) {
+      const float least =
+          fminf(fminf(x[u][0], x[u][1]), fminf(x[u][2], x[u][3]));
+      if (!__any_sync(FULL, least <= thr)) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = c0 + u * VSTEP + (VEC ? 4 * lane + j : 32 * j + lane);
+        const unsigned long long key = make_key(x[u][j], col);
+        const bool finite = x[u][j] < CUDART_INF_F;  // not +inf, not NaN
+        bool pass = finite && key < thr_key;
+        unsigned b = __ballot_sync(FULL, pass);
+        if (!b) continue;
+        if (cnt + __popc(b) > cap) {  // full: keep k, tighten, test again
+          prune(buf, cnt, thr_key, thr, k, lane);
+          pass = finite && key < thr_key;
+          b = __ballot_sync(FULL, pass);
+        }
+        if (pass) buf[cnt + __popc(b & ((1u << lane) - 1u))] = key;
+        cnt += __popc(b);
+      }
     }
   }
+  prune(buf, cnt, thr_key, thr, k, lane);
+  for (int t = lane; t < cnt; t += 32)
+    write_winner(vals, ids, out_d, out_i, (size_t)row, W, k, t, buf[t]);
+}
+
+// Rows of at most 32 entries: one key per lane, sorted by shuffles.
+__global__ void __launch_bounds__(VWARPS * 32)
+topk_values_narrow_kernel(const float* __restrict__ vals,
+                          const int* __restrict__ ids,
+                          float* __restrict__ out_d, int* __restrict__ out_i,
+                          int Q, int W, int k) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * VWARPS + warp;
+  if (row >= Q) return;
+  const float x = lane < W ? vals[(size_t)row * W + lane] : CUDART_INF_F;
+  unsigned long long key = x < CUDART_INF_F ? make_key(x, lane) : PAD_KEY;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(FULL, key, stride);
+      const bool up = (lane & size) == 0, low = (lane & stride) == 0;
+      key = (low == up) ? min(key, other) : max(key, other);
+    }
+  if (lane < k && key != PAD_KEY)
+    write_winner(vals, ids, out_d, out_i, (size_t)row, W, k, lane, key);
 }
 
 }  // namespace vers
 
+// cap: keys of a row's candidate buffer, a power of two >= k + 32.
 extern "C" int vers_topk_values(const float* vals, const int* ids,
                                 float* out_d, int* out_i, int Q, int W, int k,
-                                void* stream) {
+                                int cap, void* stream) {
   using namespace vers;
   if (Q <= 0) return 0;
-  if (k <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)VWARPS * k * 32 * (sizeof(float) + sizeof(int));
-  cudaError_t e = cudaFuncSetAttribute(
-      topk_values_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  if (k <= 0 || W <= 0 || cap < k + 32 || (cap & (cap - 1)))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((Q + VWARPS - 1) / VWARPS);
-  topk_values_kernel<<<grid, VWARPS * 32, smem, (cudaStream_t)stream>>>(
-      vals, ids, out_d, out_i, Q, W, k);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (W <= 32) {
+    topk_values_narrow_kernel<<<grid, VWARPS * 32, 0, st>>>(vals, ids, out_d,
+                                                            out_i, Q, W, k);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)VWARPS * cap * sizeof(unsigned long long);
+  const bool vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(vals) % 16 == 0;
+  auto kernel = vec ? topk_values_kernel<true> : topk_values_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<grid, VWARPS * 32, smem, st>>>(vals, ids, out_d, out_i, Q, W, k, cap);
   return (int)cudaGetLastError();
 }

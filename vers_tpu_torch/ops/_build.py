@@ -40,11 +40,14 @@ _SIGNATURES = {
     # split_rows, stream
     "vers_distance_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q_stack, qbin, qb, gb, corpus, rbin, xx, ids (nullable), out_d,
-    # out_i, n_rows, d, W, q_blk, r_blk, k, cosine, stream
-    "vers_packed_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _P],
-    # vals, ids, out_d, out_i, Q, W, k, stream
-    "vers_topk_values": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # out_i, plan (3 ints of scratch a block, nullable), walked (an int a
+    # block, nullable), n_rows, n_corpus, d, W, q_blk, r_blk, k, cosine, stream
+    "vers_packed_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # out (3 ints): the scan's query tile, corpus tile and plan limit
+    "vers_packed_scan_constants": [_P],
+    # vals, ids, out_d, out_i, Q, W, k, cap, stream
+    "vers_topk_values": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q (bf16), x (bf16), qq, xx, out_d, out_i, Q, n_rows, d_pad, n_valid,
     # span, n_super, cosine, stream
     "vers_bucket_scan": [_P, _P, _P, _P, _P, _P,

@@ -14,6 +14,7 @@ tables for tile planning, with the JAX package's keys.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import numpy as np
@@ -27,6 +28,27 @@ from vers_tpu_torch.ops.cuda_binned import (
 )
 from vers_tpu_torch.ops.distance import pairwise_distance
 from vers_tpu_torch.ops.topk import topk_smallest
+
+
+@contextlib.contextmanager
+def captured_scans():
+    """Record every packed-scan call the search path makes inside the
+    block as (args, kwargs less ``plain``), the arguments
+    ``cuda_packed_scan`` and ``packed_scan_plain`` take; the calls
+    themselves go through unchanged. For the tests and the timing tools."""
+    global packed_scan
+    calls = []
+    scan = packed_scan
+
+    def record(*args, **kw):
+        calls.append((args, {k: v for k, v in kw.items() if k != "plain"}))
+        return scan(*args, **kw)
+
+    packed_scan = record
+    try:
+        yield calls
+    finally:
+        packed_scan = scan
 
 
 def make_layout(values: np.ndarray, bin_ids: np.ndarray, num_bins: int,

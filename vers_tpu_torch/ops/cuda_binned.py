@@ -5,6 +5,12 @@ Replaces ``vers_tpu/ops/pallas_binned.py:pallas_packed_scan``. What
 bounds it on the H100 and how the design answers that is in the source
 note at the top of the ``.cu`` file. Its plain version is
 ``packed_scan_plain`` below, with the same signature.
+``packed_scan_units`` mirrors the kernel's walk on the host (its blocks
+and their live tiles); ``packed_scan_work`` counts from it what the
+kernel issues against what counts, and ``packed_scan_tiled_plain``
+follows it in plain torch (for the tests). ``cuda_packed_scan_walk``
+has the kernel report the tiles each block walked, which holds the
+mirror to the kernel.
 
 Layout, as in the JAX package: the corpus is **group-major padded** —
 group g (a run of whole bins packed to <= r_blk rows) occupies rows
@@ -223,6 +229,147 @@ def packed_scan_plain(
     return out_d, out_i
 
 
+# Kernel B's tiles (csrc/packed_scan.cu: QT query rows, CT corpus rows)
+# and the most (work item, 64-row part) units its plan orders (PLAN_MAX).
+QUERY_TILE = 64
+TILE_ROWS = 128
+PLAN_MAX = 4096
+
+
+def _host(t) -> np.ndarray:
+    return (t.cpu().numpy() if isinstance(t, torch.Tensor)
+            else np.asarray(t)).reshape(-1)
+
+
+def packed_scan_units(qbin_stack, qb, gb, rbin_padded, q_blk: int, r_blk: int):
+    """Kernel B's walk, mirrored on the host: one unit for every block of
+    the kernel that does work, i.e. every (run of consecutive work items
+    with one query block, 64-row part of that block) with a live query
+    row. Returns [(row0, nq, tiles, items)]: the unit's first stacked
+    row, its row count, the padded first rows of its live 128-row tiles
+    in the order the kernel takes them (item order, then row order), and
+    its run's item range (first, end). A tile is live if one of its rows
+    has a bin inside the unit's [lowest, highest] live query bin."""
+    qbin, qb_h, gb_h, rbin = (_host(t) for t in (qbin_stack, qb, gb,
+                                                 rbin_padded))
+    n_rows, n_w = qbin.shape[0], qb_h.shape[0]
+    starts = np.arange(0, r_blk, TILE_ROWS)
+    units = []
+    w = 0
+    while w < n_w:
+        block = int(qb_h[w])
+        end = w + 1
+        while end < n_w and qb_h[end] == block:
+            end += 1
+        for y0 in range(0, q_blk, QUERY_TILE):
+            row0 = block * q_blk + y0
+            nq = min(QUERY_TILE, q_blk - y0, n_rows - row0)
+            if nq <= 0:
+                continue
+            bins = qbin[row0 : row0 + nq]
+            live = bins[bins >= 0]
+            if not live.size:
+                continue
+            lo, hi = live.min(), live.max()
+            tiles = []
+            for v in range(w, end):
+                g0 = int(gb_h[v]) * r_blk
+                rb = rbin[g0 : g0 + r_blk]
+                hit = np.logical_or.reduceat((rb >= lo) & (rb <= hi), starts)
+                tiles.extend((g0 + starts[hit]).tolist())
+            units.append((row0, nq, tiles, (w, end)))
+        w = end
+    return units
+
+
+def units_walked(units, n_items: int, q_blk: int) -> np.ndarray:
+    """The units of ``packed_scan_units`` as ``cuda_packed_scan_walk``
+    reports them: (n_items, parts) int32, the count of live tiles of the
+    block that works for (first item of a run, 64-row part), -1 for every
+    block that returns at once."""
+    walked = np.full((n_items, -(-q_blk // QUERY_TILE)), -1, np.int32)
+    for row0, _, tiles, (w, _) in units:
+        walked[w, row0 % q_blk // QUERY_TILE] = len(tiles)
+    return walked
+
+
+def packed_scan_work(qbin_stack, qb, gb, rbin_padded, q_blk: int, r_blk: int):
+    """What kernel B issues for these inputs against what counts, from
+    the host mirror of its walk: its grid, the blocks that work, their
+    live tiles, the 64 x 128 products issued (a tile is computed whole),
+    the products of (query row, corpus row) pairs with equal bins, and
+    the masked share 1 - useful / issued."""
+    qbin, gb_h, rbin = (_host(t) for t in (qbin_stack, gb, rbin_padded))
+    units = packed_scan_units(qbin_stack, qb, gb, rbin_padded, q_blk, r_blk)
+    n_bins = int(rbin.max()) + 1 if rbin.size else 0
+    useful = 0
+    for row0, nq, _, (w, end) in units:
+        rows = np.concatenate([rbin[int(g) * r_blk : (int(g) + 1) * r_blk]
+                               for g in gb_h[w:end]])
+        sizes = np.bincount(rows[rows >= 0], minlength=n_bins + 1)
+        bins = qbin[row0 : row0 + nq]
+        useful += int(sizes[np.clip(bins[bins >= 0], 0, n_bins)].sum())
+    n_tiles = [len(t) for _, _, t, _ in units]
+    issued = QUERY_TILE * TILE_ROWS * sum(n_tiles)
+    return dict(
+        grid=[int(_host(qb).shape[0]), -(-q_blk // QUERY_TILE)],
+        r_blk=r_blk, working_blocks=len(units), live_tiles=sum(n_tiles),
+        max_tiles_per_block=max(n_tiles, default=0),
+        issued_products=issued, useful_products=useful,
+        masked_share=1.0 - useful / issued if issued else 0.0,
+    )
+
+
+def packed_scan_tiled_plain(
+    q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded, xx_padded,
+    top_k: int, q_blk: int, chunk: int, r_chunks: int, q_pad_rank: int,
+    metric: str = "sq_euclidean", ids_padded=None,
+):
+    """Kernel B's walk in plain torch, for the tests: each unit of
+    ``packed_scan_units`` takes its live tiles alone, in order, carries
+    (distance, padded position) best sets with the carried entries
+    winning ties, then the lower position, and gathers the ids once at
+    the end. Same result as ``packed_scan_plain``."""
+    n_rows = q_stack.shape[0]
+    dev = q_stack.device
+    r_blk = chunk * r_chunks
+    out_d = torch.full((n_rows, top_k), float("inf"), dtype=torch.float32,
+                       device=dev)
+    out_i = torch.full((n_rows, top_k), -1, dtype=torch.int32, device=dev)
+    qbin = qbin_stack.reshape(-1)
+    rbin = rbin_padded.reshape(-1)
+    xx = xx_padded.reshape(-1)
+    for row0, nq, tiles, _ in packed_scan_units(qbin_stack, qb, gb,
+                                                rbin_padded, q_blk, r_blk):
+        q = q_stack[row0 : row0 + nq].float()
+        qbins = qbin[row0 : row0 + nq]
+        qq = torch.sum(q * q, dim=1, keepdim=True)
+        best_d = torch.full((nq, top_k), float("inf"), dtype=torch.float32,
+                            device=dev)
+        best_p = torch.full((nq, top_k), -1, dtype=torch.int32, device=dev)
+        for g0 in tiles:
+            nx = min(TILE_ROWS, r_blk - g0 % r_blk)
+            dot = q @ corpus_padded[g0 : g0 + nx].float().T
+            if metric == "cosine":
+                dist = 1.0 - dot
+            else:
+                dist = torch.clamp_min(qq + xx[None, g0 : g0 + nx] - 2.0 * dot,
+                                       0.0)
+            ok = (qbins[:, None] == rbin[None, g0 : g0 + nx]) & (
+                qbins[:, None] >= 0)
+            dist = torch.where(ok, dist, float("inf"))
+            pos = torch.arange(g0, g0 + nx, dtype=torch.int32, device=dev)
+            best_d, sel = topk_smallest(torch.cat([best_d, dist], dim=1), top_k)
+            best_p = torch.gather(
+                torch.cat([best_p, pos[None, :].expand(nq, -1)], dim=1), 1, sel)
+        found = torch.isfinite(best_d)
+        if ids_padded is not None:
+            best_p = ids_padded.reshape(-1)[torch.clamp_min(best_p, 0).long()]
+        out_d[row0 : row0 + nq] = best_d
+        out_i[row0 : row0 + nq] = torch.where(found, best_p, -1)
+    return out_d, out_i
+
+
 def _check_inputs(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
                   xx_padded, ids_padded, top_k, q_blk, r_blk):
     f32 = dict(q_stack=q_stack, corpus_padded=corpus_padded,
@@ -292,7 +439,6 @@ def cuda_packed_scan(
     empty. Device, dtypes, shapes and contiguity are checked here; the
     values of ``qb``/``gb`` are not (that needs a device sync) and must
     be in range, as ``check_work_items`` verifies."""
-    global LAUNCHES
     if metric not in ("sq_euclidean", "cosine"):
         raise ValueError(f"unknown metric {metric!r}")
     if not q_stack.is_cuda:
@@ -301,7 +447,54 @@ def cuda_packed_scan(
             xx_padded, top_k, q_blk, chunk, r_chunks, q_pad_rank,
             metric=metric, ids_padded=ids_padded,
         )
-    r_blk = chunk * r_chunks
+    return _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
+                   xx_padded, top_k, q_blk, chunk * r_chunks, metric,
+                   ids_padded, None)
+
+
+def cuda_packed_scan_walk(
+    q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded, xx_padded,
+    top_k: int, q_blk: int, chunk: int, r_chunks: int, q_pad_rank: int,
+    metric: str = "sq_euclidean", ids_padded=None,
+):
+    """Kernel B reporting its walk: (res_d, res_i, walked), walked
+    (W, parts) int32 with the count of live tiles each block walked and
+    -1 for the blocks that returned at once (not the first item of a
+    run, or no live query row). The tests and the timing tools hold
+    ``packed_scan_units`` to it. CPU tensors take the plain version and
+    the host mirror's count."""
+    if metric not in ("sq_euclidean", "cosine"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if not q_stack.is_cuda:
+        out = packed_scan_plain(
+            q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
+            xx_padded, top_k, q_blk, chunk, r_chunks, q_pad_rank,
+            metric=metric, ids_padded=ids_padded)
+        units = packed_scan_units(qbin_stack, qb, gb, rbin_padded, q_blk,
+                                  chunk * r_chunks)
+        return (*out, torch.from_numpy(units_walked(units, qb.shape[0], q_blk)))
+    walked = torch.full((qb.shape[0], -(-q_blk // QUERY_TILE)), -1,
+                        dtype=torch.int32, device=q_stack.device)
+    out = _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
+                  xx_padded, top_k, q_blk, chunk * r_chunks, metric,
+                  ids_padded, walked)
+    return (*out, walked)
+
+
+def kernel_constants() -> Dict[str, int]:
+    """QUERY_TILE, TILE_ROWS and PLAN_MAX as the built kernel has them."""
+    import ctypes
+
+    out = (ctypes.c_int * 3)()
+    lib = _build.load_library()
+    _build.check(lib, lib.vers_packed_scan_constants(out),
+                 "vers_packed_scan_constants")
+    return dict(QUERY_TILE=out[0], TILE_ROWS=out[1], PLAN_MAX=out[2])
+
+
+def _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
+            xx_padded, top_k, q_blk, r_blk, metric, ids_padded, walked):
+    global LAUNCHES
     _check_inputs(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
                   xx_padded, ids_padded, top_k, q_blk, r_blk)
     n_rows, d = q_stack.shape
@@ -309,6 +502,12 @@ def cuda_packed_scan(
     out_d = torch.full((n_rows, top_k), float("inf"), dtype=torch.float32,
                        device=dev)
     out_i = torch.full((n_rows, top_k), -1, dtype=torch.int32, device=dev)
+    # scratch of the kernel's plan (heavy blocks first): 64-bit sort keys
+    # and the order, per (work item, 64-row part)
+    n_w = qb.shape[0]
+    units = n_w * -(-q_blk // QUERY_TILE)
+    plan = (torch.empty((3 * units,), dtype=torch.int32, device=dev)
+            if units <= PLAN_MAX else None)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         rc = lib.vers_packed_scan(
@@ -317,7 +516,9 @@ def cuda_packed_scan(
             xx_padded.data_ptr(),
             None if ids_padded is None else ids_padded.data_ptr(),
             out_d.data_ptr(), out_i.data_ptr(),
-            n_rows, d, qb.shape[0], q_blk, r_blk, top_k,
+            None if plan is None else plan.data_ptr(),
+            None if walked is None else walked.data_ptr(),
+            n_rows, corpus_padded.shape[0], d, n_w, q_blk, r_blk, top_k,
             int(metric == "cosine"),
             torch.cuda.current_stream().cuda_stream,
         )

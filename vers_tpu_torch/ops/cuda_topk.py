@@ -214,6 +214,14 @@ def _check_values(vals: torch.Tensor, ids: torch.Tensor, k: int) -> None:
         raise ValueError("sizes must fit the kernel's int32 sizes")
 
 
+def values_buffer_keys(k: int) -> int:
+    """Keys in a row's candidate buffer of kernel C: the power of two at
+    or above 4 k (columns seen then grow about fourfold from one prune to
+    the next, which costs the fewest compare-exchanges per row), at least
+    k + 32 (one ballot's worth of room beside the kept k) and 64."""
+    return 1 << (max(4 * k, k + 32, 64) - 1).bit_length()
+
+
 def cuda_topk_values(vals: torch.Tensor, ids: torch.Tensor, k: int):
     """The k smallest of each row with carried ids, as
     ``topk_values_plain``. CUDA tensors launch kernel C; CPU tensors
@@ -226,11 +234,13 @@ def cuda_topk_values(vals: torch.Tensor, ids: torch.Tensor, k: int):
     out_d = torch.full((q_n, k), float("inf"), dtype=torch.float32,
                        device=vals.device)
     out_i = torch.full((q_n, k), -1, dtype=torch.int32, device=vals.device)
+    if q_n == 0 or w == 0:  # nothing to select from: no launch
+        return out_d, out_i
     lib = _build.load_library()
     with torch.cuda.device(vals.device):
         rc = lib.vers_topk_values(
             vals.data_ptr(), ids.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), q_n, w, k,
+            out_i.data_ptr(), q_n, w, k, values_buffer_keys(k),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "vers_topk_values")

@@ -7,6 +7,8 @@ matmul in chunks and carries a running (Q, k) best set, so the full
 (Q, N) distance matrix is never materialized. ``topk_values_plain`` is
 kernel C's plain version. ``split_scan_topk_plain`` (kernel A's split
 design) and ``tf32_split`` (its operand split) serve the tests only.
+``ordered_value_keys`` and ``topk_values_stream_plain`` (kernel C's key
+and its threshold-and-buffer walk) serve the tests likewise.
 ``approx_scan_topk`` is the flat index's ``engine="approx"``.
 """
 
@@ -85,6 +87,63 @@ def topk_values_plain(vals: torch.Tensor, ids: torch.Tensor, k: int):
         out_d = torch.nn.functional.pad(out_d, (0, k - kk), value=float("inf"))
         out_i = torch.nn.functional.pad(out_i, (0, k - kk), value=-1)
     return out_d, out_i
+
+
+def ordered_value_keys(vals: torch.Tensor) -> torch.Tensor:
+    """Kernel C's sort key as a torch function: int64 keys (Q, W) whose
+    ascending order is a stable sort of each row by value. The high word
+    is the value's bits mapped to an unsigned integer that rises with the
+    float (negative floats: all bits flipped; others: the sign bit set),
+    with -0.0 keyed as +0.0 since the two compare equal; the low word is
+    the column. The kernel packs (high << 32) | column into 64 unsigned
+    bits; int64 is signed, so here the shift is 31 (columns are below
+    2^31) and every key stays non-negative, in the same order."""
+    v = vals.to(torch.float32).contiguous()
+    bits = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.where(v == 0, torch.zeros_like(bits), bits)
+    neg = (bits >> 31) == 1
+    high = torch.where(neg, ~bits & 0xFFFFFFFF, bits | 0x80000000)
+    col = torch.arange(v.shape[-1], dtype=torch.int64, device=v.device)
+    return (high << 31) | col
+
+
+def topk_values_stream_plain(vals: torch.Tensor, ids: torch.Tensor, k: int,
+                             cap: int, step: int = 128):
+    """Kernel C's walk in plain Python, for the tests: each row streams
+    in steps of ``step`` columns held four to a lane (lane j: columns
+    4 j .. 4 j + 3), one ballot per component; an entry whose key is
+    below the key of the row's current k-th entry is appended to a
+    buffer of ``cap`` keys, and a full buffer is sorted and cut to its k
+    smallest, which sets the new k-th key. Same result as
+    ``topk_values_plain``."""
+    q_n, w = vals.shape
+    keys = ordered_value_keys(vals).tolist()
+    rows = vals.tolist()
+    inf = float("inf")
+    out_d = torch.full((q_n, k), inf, dtype=torch.float32)
+    out_i = torch.full((q_n, k), -1, dtype=torch.int32)
+    for r in range(q_n):
+        buf, thr_key = [], None
+
+        def passing(cols):
+            return [c for c in cols if rows[r][c] < inf
+                    and (thr_key is None or keys[r][c] < thr_key)]
+
+        for c0 in range(0, w, step):
+            for j in range(4):
+                cols = range(c0 + j, min(c0 + step, w), 4)
+                new = passing(cols)
+                if len(buf) + len(new) > cap:
+                    buf = sorted(buf)[:k]
+                    thr_key = buf[k - 1] if len(buf) == k else None
+                    new = passing(cols)
+                buf += [keys[r][c] for c in new]
+                assert len(buf) <= cap
+        for t, key in enumerate(sorted(buf)[:k]):
+            c = key & 0x7FFFFFFF
+            out_d[r, t] = vals[r, c]
+            out_i[r, t] = ids[r, c] if torch.isfinite(vals[r, c]) else -1
+    return out_d.to(vals.device), out_i.to(vals.device)
 
 
 def split_scan_topk_plain(

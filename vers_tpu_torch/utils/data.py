@@ -148,6 +148,35 @@ def synthetic_gaussian(
     return data, queries
 
 
+TOPK_TABLE_KINDS = ["random", "equal", "few", "zeros", "sparse"]
+
+
+def adversarial_topk_table(kind: str, q_n: int, w: int, seed: int = 0):
+    """A (q_n, w) f32 table with int32 ids that stresses the order of a
+    values top-k (stable by value, then column), by ``kind`` of
+    ``TOPK_TABLE_KINDS``. Returns (vals, ids) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        vals = rng.normal(size=(q_n, w)).astype(np.float32)
+    elif kind == "equal":  # every entry ties: columns 0 .. k - 1 win
+        vals = np.full((q_n, w), 0.25, np.float32)
+    elif kind == "few":  # duplicates 1, 4, 32 and 128 columns apart
+        vals = rng.integers(0, 3, size=(q_n, w)).astype(np.float32)
+    elif kind == "zeros":  # -0.0 and +0.0 tie; -1 beats both
+        vals = np.where(rng.random((q_n, w)) < 0.5, -0.0, 0.0).astype(np.float32)
+        vals[:, 1::5] = -1.0
+    elif kind == "sparse":  # rows with fewer than k finite values
+        vals = np.full((q_n, w), np.inf, np.float32)
+        for r in range(q_n):
+            hit = rng.choice(w, size=min(w, r % 4), replace=False)
+            vals[r, hit] = rng.normal(size=hit.shape).astype(np.float32)
+        vals[0, :1] = -np.inf  # selected first, id -1 as non-finite
+    else:
+        raise ValueError(kind)
+    ids = rng.integers(0, 1 << 30, size=(q_n, w)).astype(np.int32)
+    return vals, ids
+
+
 def read_fvecs(path: str, max_rows: int | None = None) -> np.ndarray:
     """SIFT-style .fvecs reader: each row = i32 dim + dim f32 (LE)."""
     raw = np.fromfile(path, dtype="<i4")
