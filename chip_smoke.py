@@ -17,13 +17,27 @@ port's default device:
   3. ``IVFFlatIndex.build_index(2048, 2, 10, ...)``,
   4. ``search_batch`` over nprobe 1, 2, 4, 8 until recall@10 >= 0.95
      (kernel B), then the adaptive nprobe=0, ``search_approximate``,
-     ``add`` + search for the added row, and a save/load round trip.
+     ``add`` + search for the added row, and a save/load round trip,
+  5. the RP-forest at the size bench.py runs it:
+     ``ANNIndex.build_index(8, 100, ...)`` (build seconds on the host and
+     on the card apart, leaves per tree), ``search_batch`` with the
+     default auto probes (the deficit rule), ``probes_per_tree=4`` and
+     ``=1``: recall@10 against phase 1's ground truth with a floor per
+     setting, the median and spread of five timed calls of
+     ``search_batch_device``, kernel B launched once a tree a search,
+     the plan units of a launch against ``PLAN_MAX``; the plain engine
+     (``engine="xla"``) on a 2048-query slice equal to the kernel
+     engine's; ``search_approximate``; ``add`` of enough rows into one
+     leaf to split it, then a search that finds them; a save/load round
+     trip.
 
 The launch counters of kernels C and D are zeroed just before phase 2
 and must have moved by its end; those of A and B likewise around phases
-1-4. The packed-scan inputs of the main path's own searches (each
-nprobe of the sweep, and the adaptive nprobe=0) are captured as they
-pass. Then each kernel is held against its plain torch version on the
+1-4, and kernel B's again around phase 5 (8 launches a search). The
+packed-scan inputs of the main path's own searches (each nprobe of the
+sweep, the adaptive nprobe=0, and the forest's first and last tree at
+each probe setting, copied as they pass because the trees share one
+view buffer) are captured as they pass. Then each kernel is held against its plain torch version on the
 card at the main path's shapes and timed with CUDA events: kernel A
 (which splits the corpus across blocks and takes the final k with
 kernel C) on the first 1, 64, 2048 and all 16384 queries over the whole
@@ -44,8 +58,8 @@ Kernel B's lines also carry its geometry (r_blk, grid) and its work as
 the kernel itself reports it in one more launch (the blocks that work
 and the live tiles each walks, hence the products issued and, against
 the products its probes need, the masked share); at the operating
-nprobe the host mirror of the walk is held to that report block by
-block. Each kernel's bound, the least time the card
+nprobe, and for the forest's first tree at each probe setting, the
+host mirror of the walk is held to that report block by block. Each kernel's bound, the least time the card
 could take for its work, comes from ``vers_tpu_torch/utils/roofline.py``
 and this run's inputs (kernel B's from the probes it captured).
 
@@ -72,6 +86,12 @@ TARGET_RECALL = 0.95
 # recall@10 floors of the flat approximate engines against the exact scan
 ENGINE_RECALL = {"bucket": 0.95, "bucket+rescore": 0.99, "approx": 0.999}
 TOL = 1e-4  # distances: f32 sums in other orders, TF32 off
+FOREST_TREES, FOREST_LEAF = 8, 100  # bench.py's forest: 8 trees, max_node_size 100
+FOREST_SLICE = 2048                 # queries of the plain-engine comparison
+# recall@10 floors of the forest per probes_per_tree (None: the auto
+# deficit rule). The reference promises nothing at 1M rows: each floor is
+# the first reading on an H100 (0.3330 / 0.6608 / 0.3326) less 0.02.
+FOREST_RECALL = {None: 0.313, 4: 0.640, 1: 0.312}
 ROOT = Path(__file__).resolve().parent
 
 
@@ -95,6 +115,254 @@ def cuda_ms(torch, fn, reps=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def hold_kernel_b(torch, args, kw, label, mirror, time_plain=True):
+    """Kernel B against its plain version on one captured packed scan:
+    tie-aware, distances within TOL, a repeat call bit-identical; its
+    time, its bound from these inputs and its work as the kernel reports
+    it (``mirror``: the host mirror of the walk held to that report block
+    by block). Returns the scan's row for the ``kernels`` line."""
+    from vers_tpu_torch.ops import cuda_binned
+    from vers_tpu_torch.utils import roofline
+    from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
+
+    q_stack, qb, gb, corpus_padded = args[0], args[2], args[3], args[4]
+    r_blk = kw["chunk"] * kw["r_chunks"]
+    cuda_binned.check_work_items(qb, gb, q_stack.shape[0], kw["q_blk"],
+                                 corpus_padded.shape[0], r_blk)
+    kb = cuda_binned.cuda_packed_scan(*args, **kw)
+    # a repeat call, which also reports the tiles each block walked
+    again = cuda_binned.cuda_packed_scan_walk(*args, **kw)
+    assert torch.equal(kb[0], again[0]) and torch.equal(kb[1], again[1]), label
+    walked = again[2].cpu().numpy()
+    if mirror:
+        units = cuda_binned.packed_scan_units(args[1], qb, gb, args[5],
+                                              kw["q_blk"], r_blk)
+        assert np.array_equal(walked, cuda_binned.units_walked(
+            units, qb.shape[0], kw["q_blk"])), label
+    pb = cuda_binned.packed_scan_plain(*args, **kw)
+    assert_topk_match(kb[0], kb[1], pb[0], pb[1], rtol=0.0, atol=TOL)
+    err_b = max_abs_diff(kb[0], pb[0])
+    del kb, again, pb
+    ms_b = cuda_ms(torch, lambda: cuda_binned.cuda_packed_scan(*args, **kw))
+    plain_b = cuda_ms(torch, lambda: cuda_binned.packed_scan_plain(*args, **kw),
+                      reps=1) if time_plain else None
+    # the work these probes ask for: each live stacked row against
+    # the rows of its bin; the probed bins' rows read once
+    qbin, rbin = args[1].reshape(-1), args[5].reshape(-1)
+    sizes = torch.bincount(rbin[rbin >= 0].long(),
+                           minlength=int(qbin.max()) + 1)
+    live = qbin[qbin >= 0].long()
+    useful = int(sizes[live].sum())
+    bound = roofline.packed_scan_bound(
+        live.numel(), q_stack.shape[0], useful,
+        int(sizes[torch.unique(live)].sum()), q_stack.shape[1], kw["top_k"])
+    live_tiles = int(walked[walked >= 0].sum())
+    issued = cuda_binned.QUERY_TILE * cuda_binned.TILE_ROWS * live_tiles
+    assert issued >= useful > 0, (issued, useful)
+    units_n = walked.shape[0] * walked.shape[1]
+    log(f"kernel B vs plain, {label} "
+        f"({q_stack.shape[0]} query rows, {qb.shape[0]} work items): "
+        f"max |d| {err_b:g}, {ms_b:.3f} ms vs "
+        f"{'not timed' if plain_b is None else f'{plain_b:.2f} ms'}; bound "
+        f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, "
+        f"{bound['ops']:.3g} TF32 flop, {bound['bytes']:.3g} bytes); "
+        f"r_blk {r_blk}, grid {list(walked.shape)} = {units_n} plan units "
+        f"({'over' if units_n > cuda_binned.PLAN_MAX else 'within'} PLAN_MAX), "
+        f"{int((walked >= 0).sum())} working blocks, {live_tiles} "
+        f"live tiles (at most {int(walked.max())} a block) as the kernel "
+        f"reports them, masked share {1.0 - useful / issued:.4f} of "
+        f"{issued:.4g} products issued")
+    return dict(rows=q_stack.shape[0], work_items=qb.shape[0],
+                r_blk=r_blk, grid=list(walked.shape),
+                max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+
+def forest_phase(torch, vt, x, q, qd, truth_ids, dev):
+    """Phase 5: the RP-forest end to end (see the module docstring).
+    Returns (per-setting rows of the searches, rows of kernel B on the
+    captured scans, kernel B's launches in the phase)."""
+    import dataclasses
+
+    from vers_tpu_torch.ops import binned, cuda_binned
+    from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
+
+    cuda_binned.LAUNCHES = 0
+    t0 = time.perf_counter()
+    forest = vt.ANNIndex.build_index(FOREST_TREES, FOREST_LEAF, x, np.arange(N))
+    build_s = time.perf_counter() - t0
+    assert forest.device == dev, forest.device
+    assert forest._values.shape == (N, DIM)  # no bitwise duplicates
+    sizes = [np.array([len(m) for m in t.members]) for t in forest._trees]
+    assert all(s.sum() == N for s in sizes)  # every row in one leaf a tree
+    sec = forest.build_seconds
+    log(f"forest build, {FOREST_TREES} trees, max_node_size {FOREST_LEAF}: "
+        f"{build_s:.2f} s = dedup {sec['dedup_host']:.2f} s (host) + trees "
+        f"{sec['trees_device']:.2f} s (card) + level tables and member lists "
+        f"{sec['tables_host']:.2f} s (host); leaves per tree "
+        f"{[len(s) for s in sizes]}, largest leaf {max(s.max() for s in sizes)}, "
+        f"leaves under {TOP_K} rows {sum(int((s < TOP_K).sum()) for s in sizes)}, "
+        f"leaves frozen at {FOREST_LEAF} rows or more at the bottom level "
+        f"{sum(int((s >= FOREST_LEAF).sum()) for s in sizes)}, "
+        f"levels {forest._trees[0].split.shape[0]}")
+
+    searches, b_rows = {}, {}
+    first_last = (0, FOREST_TREES - 1)
+    for probes in (None, 4, 1):
+        name = "auto" if probes is None else str(probes)
+        depth = forest._auto_probes(TOP_K) if probes is None else probes
+        before = cuda_binned.LAUNCHES
+        t0 = time.perf_counter()
+        with binned.captured_scans(only=first_last) as calls:
+            res = forest.search_batch(qd, TOP_K, probes)
+        first_s = time.perf_counter() - t0  # with the device tables' set-up
+        per_search = cuda_binned.LAUNCHES - before
+        assert per_search == FOREST_TREES, per_search
+        assert res.ids.shape == (N_QUERIES, TOP_K)
+        assert np.array_equal(res.ids >= 0, np.isfinite(res.distances))
+        assert (np.diff(res.distances, axis=1) >= 0).all()
+        live = np.sort(np.where(res.ids >= 0, res.ids, -np.arange(1, TOP_K + 1)),
+                       axis=1)
+        assert (live[:, 1:] != live[:, :-1]).all()  # no id twice in a row
+        short = int((res.ids < 0).any(axis=1).sum())
+        rec = vt.recall_at_k(res.ids, truth_ids)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        times = sorted(cuda_ms(torch, lambda: forest.search_batch_device(
+            qd, TOP_K, probes), reps=1) for _ in range(5))
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        units = [c[0][2].shape[0] * -(-c[1]["q_blk"] // cuda_binned.QUERY_TILE)
+                 for c in calls]
+        log(f"forest probes_per_tree={name} (depth {depth}): recall@10 "
+            f"{rec:.4f}, median {times[2]:.2f} ms / {N_QUERIES} queries "
+            f"(min {times[0]:.2f}, max {times[4]:.2f} of 5 calls) = "
+            f"{N_QUERIES / times[2] * 1e3:.0f} qps; kernel B launches a search "
+            f"{per_search}, plan units a launch {units} (PLAN_MAX "
+            f"{cuda_binned.PLAN_MAX}); {short} queries with < {TOP_K} results; "
+            f"a search allocates at most {peak_gb:.2f} GB (one tree's view is "
+            f"{calls[0][0][4].numel() * 4 / 1e9:.2f} GB); first call "
+            f"{first_s:.2f} s")
+        assert rec >= FOREST_RECALL[probes], (name, rec)
+        searches[name] = dict(depth=depth, recall=rec, ms_median=times[2],
+                              ms_min=times[0], ms_max=times[4],
+                              qps=N_QUERIES / times[2] * 1e3,
+                              launches_per_search=per_search, plan_units=units,
+                              peak_search_gb=peak_gb,
+                              over_plan_max=[u > cuda_binned.PLAN_MAX
+                                             for u in units])
+        counted = cuda_binned.LAUNCHES  # comparisons do not count
+        for tree, (args, kw) in zip(first_last, calls):
+            b_rows[f"forest probes={name} tree {tree}"] = hold_kernel_b(
+                torch, args, kw,
+                f"forest scan, probes_per_tree={name}, tree {tree}",
+                mirror=tree == 0, time_plain=tree == 0)
+        cuda_binned.LAUNCHES = counted
+        del calls
+
+    # the descent on the card against the CPU's on the same tables: a
+    # leaf hangs on the sign of a projection, so leaves must be equal
+    # wherever every |projection| on the path exceeds TOL and no two
+    # margins are that close (the flip order); the rest are counted
+    from vers_tpu_torch.ops import rpforest
+
+    sh = forest._shared
+    names = ("coeffs", "consts", "cbase", "splits", "buckets")
+    qs = qd[:FOREST_SLICE]
+    on_card = rpforest.descend_forest_flat(
+        qs, *(sh[k] for k in names), sh["offsets"], n_probes=4).cpu()
+    host = [sh[k].cpu() for k in names]
+    on_cpu = rpforest.descend_forest_flat(
+        qs.cpu(), *host, sh["offsets"].cpu(), n_probes=4)
+    _, margins = rpforest._descend_once_flat(
+        qs.cpu(), *host, torch.arange(FOREST_TREES), None, want_margins=True)
+    m = margins.sort(dim=2).values  # (T, Q, L), +inf last
+    gaps = torch.where(torch.isfinite(m[:, :, 1:]), m[:, :, 1:] - m[:, :, :-1],
+                       float("inf"))
+    unsure = ((m[:, :, 0] < TOL) | (gaps.min(dim=2).values < TOL)).T
+    differs = (on_card != on_cpu).reshape(FOREST_SLICE, FOREST_TREES, 4).any(dim=2)
+    assert not bool((differs & ~unsure).any()), int((differs & ~unsure).sum())
+    log(f"forest descent, card vs CPU, {FOREST_SLICE} queries x {FOREST_TREES} "
+        f"trees x 4 probes: {int(differs.sum())} (query, tree) cells differ, all "
+        f"among the {int(unsure.sum())} with a |projection| or a margin gap "
+        f"under {TOL:g}")
+    del host, margins, m, gaps
+
+    # the whole search on the plain engine, on a slice of the queries
+    for probes in (None, 1):
+        got = forest.search_batch(qd[:FOREST_SLICE], TOP_K, probes)
+        forest.config = dataclasses.replace(forest.config, engine="xla")
+        try:
+            before = cuda_binned.LAUNCHES
+            want = forest.search_batch(qd[:FOREST_SLICE], TOP_K, probes)
+            assert cuda_binned.LAUNCHES == before  # no kernel on this route
+        finally:
+            forest.config = dataclasses.replace(forest.config, engine="auto")
+        assert_topk_match(got.distances, got.ids, want.distances, want.ids,
+                          rtol=0.0, atol=TOL)
+        log(f"forest engine='xla' (plain) vs kernel engine, {FOREST_SLICE} "
+            f"queries, probes_per_tree={probes}: equal up to ties, max |d| "
+            f"{max_abs_diff(got.distances, want.distances):g}")
+
+    for i in range(3):
+        pairs = forest.search_approximate(q[i], TOP_K)
+        ids = np.array([j for j, _ in pairs])
+        dists = np.array([d for _, d in pairs])
+        assert len(pairs) == TOP_K and len(set(ids)) == TOP_K
+        assert (ids >= 0).all() and (ids < N).all() and (np.diff(dists) >= 0).all()
+        direct = ((x[ids] - q[i][None, :]) ** 2).sum(axis=1)
+        assert np.allclose(dists, direct, rtol=0.0, atol=TOL)
+    log("forest search_approximate (the host deficit rule): 3 queries ok")
+
+    # fill tree 0's largest leaf past max_node_size with near-copies of
+    # one of its rows: the leaf splits, and a search finds the new rows
+    tree = forest._trees[0]
+    leaf = int(np.argmax(np.where(sizes[0] < FOREST_LEAF, sizes[0], 0)))
+    seed_row = x[tree.members[leaf][0]]
+    leaves_before, added = tree.num_buckets, []
+    t0 = time.perf_counter()
+    for i in range(1, 4 * FOREST_LEAF):
+        # 3e-3 apart: squared distances of 9e-6 and up between them, above
+        # the f32 cancellation error (~2e-7) of the distance form on unit rows
+        v = seed_row * np.float32(1.0 + 3e-3 * i)
+        if forest._descend_host_pos(tree, v)[0] != leaf:
+            continue
+        forest.add(v, N + len(added))
+        added.append(v)
+        if tree.num_buckets > leaves_before:
+            break
+    add_s = time.perf_counter() - t0
+    assert tree.num_buckets > leaves_before and not forest._dirty_trees
+    assert all(len(tree.members[tree.leaf_of_vec[N + i]]) < FOREST_LEAF
+               for i in range(len(added)))
+    t0 = time.perf_counter()
+    found = forest.search_batch(np.stack(added), 1)
+    assert list(found.ids[:, 0]) == list(range(N, N + len(added))), found.ids
+    log(f"forest add: {len(added)} rows into a leaf of {sizes[0][leaf]} split "
+        f"it ({leaves_before} -> {tree.num_buckets} leaves; {add_s:.2f} s); "
+        f"every new row found as its own nearest ({time.perf_counter() - t0:.2f}"
+        f" s with the device tables rebuilt)")
+
+    path = ROOT / "vers_tpu_torch" / "_build" / "smoke_lsh.index"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        forest.save_index(str(path))
+        size_mb = path.stat().st_size / 1e6
+        loaded = vt.ANNIndex.load_index(str(path))
+        assert loaded.device == dev, loaded.device
+        io_s = time.perf_counter() - t0
+    finally:
+        path.unlink(missing_ok=True)
+    a = forest.search_batch(qd, TOP_K, 1)
+    b = loaded.search_batch(qd, TOP_K, 1)
+    assert np.array_equal(a.ids, b.ids)
+    rt_err = max_abs_diff(a.distances, b.distances)
+    assert rt_err <= 1e-6, rt_err
+    log(f"forest save/load round trip: identical ids, max |d distance| "
+        f"{rt_err:g} ({io_s:.1f} s for {size_mb:.0f} MB)")
+    return searches, b_rows, cuda_binned.LAUNCHES
 
 
 def main():
@@ -274,6 +542,13 @@ def main():
     log(f"kernel launches on the main path: {launches}")
     assert all(n > 0 for n in launches.values()), launches
 
+    # -- the forest, kernel B's second caller, counted on its own -----
+    forest_rows, forest_scans, forest_launches = forest_phase(
+        torch, vt, x, q, qd, truth.ids, dev)
+    log(f"kernel B launches in the forest phase: {forest_launches}")
+    assert forest_launches > 0
+    torch.cuda.empty_cache()
+
     # -- each kernel against its plain version, on the card, at the --
     # -- main path's shapes ------------------------------------------
     # kernel A (with kernel C as its second pass when the corpus is split)
@@ -426,57 +701,9 @@ def main():
     b_rows = {}
     for nprobe, calls in scans.items():
         assert len(calls) == 1, (nprobe, len(calls))
-        args, kw = calls[0]
-        q_stack, qb, gb, corpus_padded = args[0], args[2], args[3], args[4]
-        r_blk = kw["chunk"] * kw["r_chunks"]
-        cuda_binned.check_work_items(qb, gb, q_stack.shape[0], kw["q_blk"],
-                                     corpus_padded.shape[0], r_blk)
-        kb = cuda_binned.cuda_packed_scan(*args, **kw)
-        # a repeat call, which also reports the tiles each block walked
-        again = cuda_binned.cuda_packed_scan_walk(*args, **kw)
-        assert torch.equal(kb[0], again[0]) and torch.equal(kb[1], again[1])
-        walked = again[2].cpu().numpy()
-        if nprobe == operating:  # the host mirror of the walk, held to it
-            units = cuda_binned.packed_scan_units(args[1], qb, gb, args[5],
-                                                  kw["q_blk"], r_blk)
-            assert np.array_equal(walked, cuda_binned.units_walked(
-                units, qb.shape[0], kw["q_blk"])), nprobe
-            del units
-        pb = cuda_binned.packed_scan_plain(*args, **kw)
-        assert_topk_match(kb[0], kb[1], pb[0], pb[1], rtol=0.0, atol=TOL)
-        err_b = max_abs_diff(kb[0], pb[0])
-        del kb, again, pb
-        ms_b = cuda_ms(torch, lambda: cuda_binned.cuda_packed_scan(*args, **kw))
-        plain_b = cuda_ms(torch, lambda: cuda_binned.packed_scan_plain(*args, **kw),
-                          reps=1)
-        # the work these probes ask for: each live stacked row against
-        # the rows of its bin; the probed bins' rows read once
-        qbin, rbin = args[1].reshape(-1), args[5].reshape(-1)
-        sizes = torch.bincount(rbin[rbin >= 0].long(),
-                               minlength=int(qbin.max()) + 1)
-        live = qbin[qbin >= 0].long()
-        useful = int(sizes[live].sum())
-        bound = roofline.packed_scan_bound(
-            live.numel(), q_stack.shape[0], useful,
-            int(sizes[torch.unique(live)].sum()), q_stack.shape[1], kw["top_k"])
-        live_tiles = int(walked[walked >= 0].sum())
-        issued = cuda_binned.QUERY_TILE * cuda_binned.TILE_ROWS * live_tiles
-        assert issued >= useful > 0, (issued, useful)
-        log(f"kernel B vs plain, main-path scan of nprobe={nprobe} "
-            f"({q_stack.shape[0]} query rows, {qb.shape[0]} work items): "
-            f"max |d| {err_b:g}, {ms_b:.3f} ms vs {plain_b:.2f} ms; bound "
-            f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, "
-            f"{bound['ops']:.3g} TF32 flop, {bound['bytes']:.3g} bytes); "
-            f"r_blk {r_blk}, grid {list(walked.shape)}, "
-            f"{int((walked >= 0).sum())} working blocks, {live_tiles} "
-            f"live tiles (at most {int(walked.max())} a block) as the kernel "
-            f"reports them, masked share {1.0 - useful / issued:.4f} of "
-            f"{issued:.4g} products issued")
-        b_rows[nprobe] = dict(rows=q_stack.shape[0], work_items=qb.shape[0],
-                              r_blk=r_blk, grid=list(walked.shape),
-                              max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
-                              bound_ms=bound["bound_ms"],
-                              bound_by=bound["bound_by"])
+        b_rows[nprobe] = hold_kernel_b(
+            torch, *calls[0], f"main-path scan of nprobe={nprobe}",
+            mirror=nprobe == operating)
     del scans
 
     bound_a = roofline.distance_topk_bound(N_QUERIES, N, DIM, TOP_K)
@@ -492,14 +719,18 @@ def main():
         {"name": "packed_scan", "route": "cuda",
          "source": "vers_tpu_torch/csrc/packed_scan.cu",
          "replaces": "vers_tpu/ops/pallas_binned.py:235",
-         "launches": launches["packed_scan"],
-         "max_abs_err": max(r["max_abs_err"] for r in b_rows.values()),
+         "launches": launches["packed_scan"] + forest_launches,
+         "launches_ivf": launches["packed_scan"],
+         "launches_forest": forest_launches,
+         "max_abs_err": max(r["max_abs_err"] for r in
+                            (*b_rows.values(), *forest_scans.values())),
          "ms": b_rows[operating]["ms"], "plain_ms": b_rows[operating]["plain_ms"],
          "bound_ms": b_rows[operating]["bound_ms"],
          "bound_by": b_rows[operating]["bound_by"], "library_ms": None,
          "shape": f"Q={N_QUERIES} nprobe={operating} k={TOP_K} of the "
                   f"{K_CLUSTERS}-cluster layout",
-         "by_nprobe": b_rows},
+         "by_nprobe": b_rows, "by_forest_scan": forest_scans,
+         "forest": forest_rows},
         {"name": "topk_values", "route": "cuda",
          "source": "vers_tpu_torch/csrc/topk_values.cu",
          "replaces": "vers_tpu/ops/pallas_topk.py:230",

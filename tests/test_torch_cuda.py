@@ -13,7 +13,11 @@ fewer than k finite values) at W in {1, 20, 33, 1001, 8960, 70000} and k
 in {1, 10, 32, 128}, and kernel B directly on the scans of small binned
 searches (d in {8, 37, 300}, k in {1, 10, 128}, skewed bins, bins larger
 than a tile, groups that end inside a tile, a run of more than 512
-tiles, cosine, ids on and off, exact ties, repeat calls bit-identical).
+tiles, cosine, ids on and off, exact ties, repeat calls bit-identical),
+and the RP-forest: its build on the card, its search with kernel B
+against the plain engine on both sides of the plan limit, the duplicate
+mask where a query probes one leaf twice, the descent against the CPU's,
+and one launch of kernel B a tree a search.
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips without one. This file imports neither jax nor vers_tpu, so it
@@ -586,3 +590,155 @@ def test_flat_engines_on_cuda_match_cpu(cuda, engine, rescore):
     assert launched == (engine == "bucket")
     b = vt.FlatIndex(x, config=cfg, device="cpu").search_batch(q, 10)
     _check((a.distances, a.ids), (b.distances, b.ids))
+
+
+# -- the RP-forest on the card: kernel B's second caller ---------------
+
+def _forest_on(cuda, n, d, max_size, trees=2, seed=3):
+    import vers_tpu_torch as vt
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(64, d)).astype(np.float32)
+    x = centers[rng.integers(0, 64, n)] + 0.5 * rng.normal(size=(n, d))
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    idx = vt.ANNIndex.build_index(trees, max_size, x, np.arange(n), device=cuda)
+    assert idx.device.type == "cuda"
+    for tree in idx._trees:  # the build on the card: every row in one leaf,
+        # leaves under max_size unless frozen at the bottom level
+        sizes = np.array([len(m) for m in tree.members])
+        assert sizes.sum() == n and sizes.min() > 0
+        bottom = tree.bucket[-1]
+        assert set(np.flatnonzero(sizes >= max_size)) <= set(bottom[bottom >= 0])
+    q = x[rng.integers(0, n, 2048)] + 0.05 * rng.normal(size=(2048, d))
+    return idx, x, q.astype(np.float32)
+
+
+def _forest_search(idx, q, top_k, n_probes, q_blk, r_blk, plain):
+    """``forest_search_shared`` on the index's tables at a chosen tile
+    plan; returns the result and the plan units of one launch."""
+    from vers_tpu_torch.core import round_up
+    from vers_tpu_torch.ops.forest_shared import forest_search_shared
+
+    sh = idx._ensure_shared(r_blk)
+    q_pad_rank = round_up(q.shape[0], q_blk)
+    blocks = (n_probes * q_pad_rank if n_probes > 1 else q_pad_rank) // q_blk
+    w_rank = blocks + sh["g_max"] + 1
+    out = forest_search_shared(
+        q, sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],
+        sh["buckets"], sh["offsets"], sh["sizes_dev"], sh["corpus_pad"],
+        sh["xx"], sh["src"], sh["rbin"], sh["g_first"], n_probes=n_probes,
+        num_bins=sh["num_bins"], top_k=top_k, q_blk=q_blk, r_blk=r_blk,
+        chunk=r_blk, w_rank=w_rank, q_pad_rank=q_pad_rank, plain=plain)
+    return out, w_rank * -(-q_blk // cuda_binned.QUERY_TILE)
+
+
+@pytest.mark.parametrize("n,n_probes,q_blk,over", [
+    (60_000, 1, 64, False), (60_000, 4, 128, False),
+    (250_000, 1, 128, True), (450_000, 4, 64, True)])
+def test_forest_kernel_engine_matches_plain_around_plan_max(cuda, n, n_probes,
+                                                            q_blk, over):
+    """Groups of 128 rows give a mid-size forest as many work items as
+    1M rows have at r_blk 1024: under PLAN_MAX units the plan kernels
+    order the blocks, over it they run in list order."""
+    idx, _, q = _forest_on(cuda, n, 32, 100)
+    qd = torch.from_numpy(q).to(cuda)
+    before = cuda_binned.LAUNCHES
+    got, units = _forest_search(idx, qd, 10, n_probes, q_blk, 128, plain=False)
+    torch.cuda.synchronize()
+    assert cuda_binned.LAUNCHES == before + 2  # one a tree
+    assert (units > cuda_binned.PLAN_MAX) == over, units
+    want, _ = _forest_search(idx, qd, 10, n_probes, q_blk, 128, plain=True)
+    assert cuda_binned.LAUNCHES == before + 2
+    _check(got, want)
+    again, _ = _forest_search(idx, qd, 10, n_probes, q_blk, 128, plain=False)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_forest_dedup_with_a_probe_table_that_repeats_a_leaf(cuda):
+    """Leaves one or two levels down: late flip ranks change nothing, so
+    a query probes one leaf twice, and the trees overlap; the merge must
+    drop the repeats (IVF never asks for this)."""
+    import dataclasses
+
+    from vers_tpu_torch.ops import rpforest
+
+    idx, x, q = _forest_on(cuda, 3000, 16, 1000, trees=3)
+    qd = torch.from_numpy(q[:500]).to(cuda)
+    before = cuda_binned.LAUNCHES
+    got = idx.search_batch(qd, 20, probes_per_tree=4)
+    assert cuda_binned.LAUNCHES == before + 3
+    sh = idx._shared
+    probes = rpforest.descend_forest_flat(
+        qd, sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],
+        sh["buckets"], sh["offsets"], n_probes=4).reshape(500, 3, 4)
+    ranked = probes.sort(dim=2).values
+    assert bool((ranked[:, :, 1:] == ranked[:, :, :-1]).any())
+    live = np.sort(np.where(got.ids >= 0, got.ids, -np.arange(1, 21)), axis=1)
+    assert (live[:, 1:] != live[:, :-1]).all()  # no id twice in a row
+    idx.config = dataclasses.replace(idx.config, engine="xla")
+    want = idx.search_batch(qd, 20, probes_per_tree=4)
+    assert cuda_binned.LAUNCHES == before + 3
+    _check((got.distances, got.ids), (want.distances, want.ids))
+    # every probed leaf's rows were candidates: the result is the exact
+    # top-k over their union
+    pr = probes.cpu().numpy()
+    off = sh["offsets"].cpu().numpy()
+    for r in range(0, 500, 50):
+        rows = set()
+        for t, tree in enumerate(idx._trees):
+            for b in pr[r, t]:
+                rows.update(tree.members[int(b - off[t])])
+        rows = np.array(sorted(rows))
+        d2 = ((x[rows] - q[r][None, :]) ** 2).sum(axis=1)
+        np.testing.assert_allclose(np.sort(d2)[:20], got.distances[r],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_probes", [1, 4, 8])
+def test_forest_descent_on_cuda_matches_cpu(cuda, n_probes):
+    """The side of a plane is a sign: leaves are equal wherever every
+    |projection| on the path exceeds 1e-4 and no two margins are that
+    close; the rest are counted."""
+    from vers_tpu_torch.ops import rpforest
+
+    idx, _, q = _forest_on(cuda, 60_000, 300, 100)
+    tables = [torch.from_numpy(a) for a in idx._flat_descent_tables()]
+    off = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum([t.num_buckets for t in idx._trees])[:-1]]).astype(np.int32))
+    qc = torch.from_numpy(q)
+    want = rpforest.descend_forest_flat(qc, *tables, off, n_probes=n_probes)
+    got = rpforest.descend_forest_flat(
+        qc.to(cuda), *(t.to(cuda) for t in tables), off.to(cuda),
+        n_probes=n_probes).cpu()
+    _, margins = rpforest._descend_once_flat(
+        qc, *tables, torch.arange(2), None, want_margins=True)
+    m = np.sort(margins.numpy(), axis=2)
+    with np.errstate(invalid="ignore"):
+        gaps = np.where(np.isfinite(m[:, :, 1:]), m[:, :, 1:] - m[:, :, :-1],
+                        np.inf)
+    unsure = ((m[:, :, 0] < 1e-4) | (gaps.min(axis=2) < 1e-4)).T
+    differs = (got != want).reshape(len(q), 2, n_probes).any(dim=2).numpy()
+    assert not (differs & ~unsure).any()
+    assert differs.sum() <= 8, int(differs.sum())
+
+
+@pytest.mark.parametrize("probes", [None, 1, 3])
+def test_forest_search_launches_kernel_b_once_a_tree(cuda, probes):
+    import vers_tpu_torch as vt
+
+    idx, x, q = _forest_on(cuda, 20_000, 48, 40, trees=5)
+    before = cuda_binned.LAUNCHES
+    got = idx.search_batch(q, 10, probes)
+    assert cuda_binned.LAUNCHES == before + 5
+    dists, ext = idx.search_batch_device(torch.from_numpy(q).to(cuda), 10, probes)
+    assert cuda_binned.LAUNCHES == before + 10
+    assert ext.is_cuda and ext.dtype == torch.int32
+    np.testing.assert_array_equal(ext.cpu().numpy(), got.ids)
+    cpu = vt.ANNIndex.from_numpy(idx.max_node_size, idx._trees, idx._values,
+                                 idx._ids, device="cpu")
+    want = cpu.search_batch(q, 10, probes)
+    assert cuda_binned.LAUNCHES == before + 10  # CPU tensors: the plain version
+    _check((got.distances, got.ids), (want.distances, want.ids))
+    large = idx.search_batch(q[:64], cuda_topk.MAX_K + 2, 2)  # counted plain route
+    assert cuda_binned.LAUNCHES == before + 10
+    assert large.ids.shape == (64, cuda_topk.MAX_K + 2)

@@ -71,6 +71,23 @@ def test_ivf_large_k_takes_counted_plain_path(data, jax_ivf):
     _match(got, jax_ivf.search_batch(q[:20], 130, nprobe=2))
 
 
+def test_ivf_kernel_engine_takes_any_precision(data, jax_ivf):
+    """``precision`` reaches only the plain ("xla") engine; the kernel
+    engine is f32-exact whatever it says, as in the JAX package."""
+    _, q = data
+    jcfg = vers_tpu.IVFFlatConfig(precision="default", engine="pallas")
+    jidx = vers_tpu.IVFFlatIndex(
+        jax_ivf.num_centroids, jax_ivf._values, jax_ivf._centroids,
+        jax_ivf._assignments, jax_ivf._ids, jcfg)
+    for engine in ("pallas", "auto"):
+        tcfg = vers_tpu_torch.IVFFlatConfig(precision="default", engine=engine)
+        _match(_carry(jax_ivf, tcfg).search_batch(q, 10, nprobe=2),
+               jidx.search_batch(q, 10, nprobe=2))
+    tcfg = vers_tpu_torch.IVFFlatConfig(precision="default", engine="xla")
+    with pytest.raises(ValueError, match="precision"):
+        _carry(jax_ivf, tcfg).search_batch(q, 10, nprobe=2)
+
+
 def test_ivf_search_approximate_matches_jax(data, jax_ivf):
     _, q = data
     tidx = _carry(jax_ivf)

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of vers_tpu_torch imports jax or
-the JAX package, and importing it pulls in neither."""
+"""The port stands alone: no module of vers_tpu_torch, no tool and not
+the smoke script imports jax or the JAX package, and importing the
+package pulls in neither."""
 
 import ast
 import pathlib
@@ -19,10 +20,14 @@ def _imports(path):
 
 
 def test_no_jax_or_vers_tpu_imports():
-    files = sorted(PKG.rglob("*.py"))
-    assert len(files) >= 16
+    root = PKG.parent
+    files = sorted(PKG.rglob("*.py")) + sorted((root / "tools").glob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) >= 30
+    assert {"lsh.py", "rpforest.py", "forest_shared.py", "time_kernel_b.py",
+            "chip_smoke.py"} <= {f.name for f in files}
     bad = [
-        (str(f.relative_to(PKG)), name)
+        (str(f.relative_to(root)), name)
         for f in files
         for name in _imports(f)
         if name.split(".")[0] in ("jax", "jaxlib", "vers_tpu")
@@ -36,7 +41,8 @@ def test_import_loads_neither_jax_nor_vers_tpu():
     code = (
         "import sys; before = set(sys.modules); "
         "import vers_tpu_torch, vers_tpu_torch.ops.binned, "
-        "vers_tpu_torch.ops.kmeans, vers_tpu_torch.utils.parity; "
+        "vers_tpu_torch.ops.kmeans, vers_tpu_torch.utils.parity, "
+        "vers_tpu_torch.index.lsh, vers_tpu_torch.ops.forest_shared; "
         "print(sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'vers_tpu')))"
     )

@@ -3,13 +3,16 @@
 
 Builds the smoke run's configuration (``synthetic_gaussian`` corpus of
 1M x 300 from seed 0, IVF k = 2048 with 2 restarts and 10 Lloyd
-iterations, 16384 queries, top_k = 10), then for each search path --
-IVF at nprobe 1, 2 and the adaptive 0, the exact flat scan, and the flat
-"bucket" (no rescore) and "approx" engines -- it
+iterations, an RP-forest of 8 trees with ``max_node_size`` 100, 16384
+queries, top_k = 10), then for each search path -- IVF at nprobe 1, 2
+and the adaptive 0, the forest at ``probes_per_tree`` 1, 4 and the
+default auto depth, the exact flat scan, and the flat "bucket" (no
+rescore) and "approx" engines -- it
 times ``--reps`` calls with CUDA events, profiles ``--reps`` more with
 ``torch.profiler``, and prints per call:
 
-  * the wall time, unprofiled and under the profiler (ms);
+  * the wall time, unprofiled (every path timed before the first
+    profiler run) and under the profiler (ms);
   * the device busy time: the union of the card's kernel and copy
     intervals, so overlapping or nested records count once (ms);
   * the device idle share: 1 - busy / profiled window, where the window
@@ -91,11 +94,10 @@ def device_profile(events, reps, device_type):
     )
 
 
-def profile_path(torch, fn, reps):
+def profile_path(torch, fn, reps, wall):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    wall = cuda_ms(torch, fn, reps)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(WINDOW):
@@ -147,6 +149,9 @@ def main(argv=None):
     approx = vt.FlatIndex(x, config=vt.FlatConfig(engine="approx"), device=dev)
     ivf = vt.IVFFlatIndex.build_index(args.clusters, 2, 10, x, device=dev)
     ivf._ensure_layout()
+    import numpy as np
+
+    forest = vt.ANNIndex.build_index(8, 100, x, np.arange(len(x)), device=dev)
     torch.cuda.synchronize()
 
     k = args.top_k
@@ -154,15 +159,26 @@ def main(argv=None):
         "ivf nprobe=1": lambda: ivf.search_batch_device(qd, k, 1),
         "ivf nprobe=2": lambda: ivf.search_batch_device(qd, k, 2),
         "ivf nprobe=0 (adaptive)": lambda: ivf.search_batch_device(qd, k, 0),
+        "forest probes_per_tree=1": lambda: forest.search_batch_device(qd, k, 1),
+        "forest probes_per_tree=4": lambda: forest.search_batch_device(qd, k, 4),
+        "forest auto probes": lambda: forest.search_batch_device(qd, k),
         "flat exact": lambda: flat.search_batch_device(qd, k),
         "flat bucket": lambda: bucket.search_batch_device(qd, k),
         "flat approx": lambda: approx.search_batch_device(qd, k),
     }
+    def reps_of(name):
+        return 1 if name in ("flat exact", "flat approx") else args.reps
+
+    # every unprofiled wall time first: once the profiler has run,
+    # its tracing stays attached to the process and every later launch
+    # costs the host more, which a search of ~1000 launches shows
+    walls = {name: cuda_ms(torch, fn, reps_of(name))
+             for name, fn in paths.items()}
     results = {}
     for name, fn in paths.items():
-        reps = 1 if name in ("flat exact", "flat approx") else args.reps
+        reps = reps_of(name)
         t0 = time.perf_counter()
-        r = profile_path(torch, fn, reps)
+        r = profile_path(torch, fn, reps, walls[name])
         results[name] = r
         print(f"== {name}, Q={args.queries}: wall {r['wall_ms']:.3f} ms/call, "
               f"profiled {r['profiled_ms']:.3f} ms/call, device busy "

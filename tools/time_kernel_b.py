@@ -44,10 +44,20 @@ report nor the corpus row count; its headers beside it)
 and times it beside the kernel at each nprobe, both launched bare
 (outputs allocated once): the comparison of two versions inside one call.
 
+``--forest`` times the kernel on its second caller's scans instead: it
+builds the smoke run's RP-forest (8 trees, ``max_node_size`` 100) and
+captures the first tree's packed scan of a 16384-query search at
+``probes_per_tree`` 1, 4 and the default auto depth, each at the
+index's own query block (64 rows: one plan unit a work item) and at
+128-row blocks (two units an item, which takes the auto depth past
+``PLAN_MAX``, where the kernel runs its blocks in list order). Each scan
+gets the same line as an IVF scan, and where the plan applies also the
+time of the ``no_plan`` variant: list order against plan order.
+
 Usage, from the repository root:
 
     python3 tools/time_kernel_b.py [--n N] [--queries Q] [--nprobe 1,2]
-        [--reps R] [--ablate] [--parent PATH]
+        [--reps R] [--ablate] [--parent PATH] [--forest]
 
 Needs one CUDA card; exits 2 without one.
 """
@@ -152,6 +162,37 @@ def bare_library(_build, source):
     return lib
 
 
+def forest_scans(torch, vt, binned, x, qd, args):
+    """The first tree's packed scan of a forest search at 1, 4 and the
+    auto probe depth, at 64- and 128-row query blocks: [(label, scan
+    args, scan kwargs)]."""
+    from vers_tpu_torch.core import round_up
+    from vers_tpu_torch.ops.forest_shared import forest_search_shared
+
+    forest = vt.ANNIndex.build_index(args.trees, args.max_node_size, x,
+                                     np.arange(len(x)))
+    scans = []
+    for probes in (1, 4, None):
+        depth = forest._auto_probes(args.top_k) if probes is None else probes
+        deficit_k = args.top_k if probes is None and depth > 1 else 0
+        for q_blk in (64, 128):
+            sh, plan = forest._shared_plan(qd.shape[0], args.top_k, depth)
+            q_pad = round_up(qd.shape[0], q_blk)
+            blocks = (depth * q_pad if depth > 1 else q_pad) // q_blk
+            plan.update(q_blk=q_blk, q_pad_rank=q_pad,
+                        w_rank=blocks + sh["g_max"] + 1)
+            with binned.captured_scans(only=(0,)) as calls:
+                forest_search_shared(
+                    qd, sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],
+                    sh["buckets"], sh["offsets"], sh["sizes_dev"],
+                    sh["corpus_pad"], sh["xx"], sh["src"], sh["rbin"],
+                    sh["g_first"], n_probes=depth, num_bins=sh["num_bins"],
+                    top_k=args.top_k, deficit_k=deficit_k, **plan)
+            scans.append((dict(forest_probes="auto" if probes is None else probes,
+                               depth=depth, tree=0), *calls[0]))
+    return scans
+
+
 def scan_bound(torch, roofline, args, kw):
     """The bound of one scan from its own probes: every live stacked row
     against the rows of its bin (``pairs``); the probed bins' rows read
@@ -178,6 +219,10 @@ def main():
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--parent", help="an earlier csrc/packed_scan.cu to time "
                     "beside the kernel")
+    ap.add_argument("--forest", action="store_true",
+                    help="time the RP-forest's scans instead of the IVF's")
+    ap.add_argument("--trees", type=int, default=8)
+    ap.add_argument("--max-node-size", type=int, default=100)
     args = ap.parse_args()
 
     import torch
@@ -206,18 +251,27 @@ def main():
                               n_queries=args.queries, seed=0, normalized=True,
                               query_noise=0.5)
     qd = torch.from_numpy(q).to("cuda")
-    ivf = vt.IVFFlatIndex.build_index(args.clusters, 2, 10, x)
-    ivf._ensure_layout()
 
     def kernel(a, kw):
         return lambda: cuda_binned.cuda_packed_scan(*a, **kw)
 
     parent = bare_library(_build, Path(args.parent)) if args.parent else None
+    no_plan = None
+    if args.forest:
+        scans = forest_scans(torch, vt, binned, x, qd, args)
+        no_plan = Variant(build_variants(
+            _build, "packed_scan.cu", "vers_packed_scan",
+            {"no_plan": ABLATIONS["no_plan"]})["no_plan"][0])
+    else:
+        ivf = vt.IVFFlatIndex.build_index(args.clusters, 2, 10, x)
+        ivf._ensure_layout()
+        scans = []
+        for nprobe in (int(v) for v in args.nprobe.split(",")):
+            with binned.captured_scans() as calls:
+                ivf.search_batch_device(qd, args.top_k, nprobe)
+            scans.append((dict(nprobe=nprobe), *calls[0]))
 
-    for nprobe in (int(v) for v in args.nprobe.split(",")):
-        with binned.captured_scans() as calls:
-            ivf.search_batch_device(qd, args.top_k, nprobe)
-        (a, kw), = calls
+    for label, a, kw in scans:
         r_blk = kw["chunk"] * kw["r_chunks"]
         got = cuda_binned.cuda_packed_scan(*a, **kw)
         again = cuda_binned.cuda_packed_scan_walk(*a, **kw)
@@ -245,8 +299,18 @@ def main():
             useful_products=b["pairs"],
             masked_share=1.0 - b["pairs"] / issued,
             schedule=schedule(cuda_binned, units, a, kw["q_blk"], r_blk, sms))
+        list_order = None
+        if no_plan is not None and work["schedule"]["planned"]:
+            real = cuda_binned._build
+            cuda_binned._build = no_plan
+            try:
+                list_order = cuda_ms(torch, kernel(a, kw), args.reps)
+            finally:
+                cuda_binned._build = real
+            ms.append(cuda_ms(torch, kernel(a, kw), args.reps))
         print(json.dumps({
-            "card": card, "nprobe": nprobe, "rows": a[0].shape[0],
+            "card": card, **label, "rows": a[0].shape[0],
+            "plan_units": walked.size, "list_order_ms": list_order,
             "work_items": a[2].shape[0], "d": a[0].shape[1],
             "top_k": kw["top_k"], "q_blk": kw["q_blk"], "work": work,
             "max_abs_err": err, "kernel_ms": ms, "plain_ms": [p0, p1],
@@ -275,7 +339,7 @@ def main():
                 *tail)
             ms = [cuda_ms(torch, f, args.reps)
                   for f in (run_old, run_new, run_new, run_old)]
-            print(json.dumps({"card": card, "nprobe": nprobe,
+            print(json.dumps({"card": card, **label,
                               "bare_parent_ms": [ms[0], ms[3]],
                               "bare_kernel_ms": ms[1:3]}), flush=True)
 
@@ -295,7 +359,7 @@ def main():
                  for name, (_, path) in libs.items()}
         spills = {name: variant_spills(path, "packed_scan")
                   for name, (_, path) in libs.items()}
-        print(json.dumps({"card": card, "nprobe": nprobe, "ablation_ms": rows,
+        print(json.dumps({"card": card, **label, "ablation_ms": rows,
                           "variant_hgmma": hgmma, "variant_ptxas": spills}),
               flush=True)
     return 0

@@ -5,25 +5,33 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100. It keeps
 ``vers_tpu``'s module layout, public names and bincode files; the JAX
 package stays the reference it is tested against.
 
-Ported so far: the exact flat index and IVFFlat (build, batched and
-single-query search, incremental add, save/load). Kernels:
-``ops/cuda_topk.py`` (distance + top-k scan) and ``ops/cuda_binned.py``
-(packed binned scan), each with a plain torch version.
+Ported so far: the flat index (exact, approx and bucket engines),
+IVFFlat and the RP-forest ``ANNIndex`` ("LSH"), each with build, batched
+and single-query search, incremental add and save/load. Four CUDA
+kernels, one for each Pallas kernel of ``vers_tpu``, each with a plain
+torch version: ``ops/cuda_topk.py`` (A, the distance + top-k scan, and
+C, the values top-k), ``ops/cuda_binned.py`` (B, the packed binned scan
+behind IVFFlat and the forest) and ``ops/cuda_bucket.py`` (D, the
+bucket-min scan). Not ported yet: HNSW, the multi-device layers and the
+``compat``/``demo`` surface.
 
 Dispatch follows the input tensor's device: a CUDA tensor runs the
 kernel, a CPU tensor the plain version. Nothing here imports JAX.
 """
 
-from vers_tpu_torch.config import FlatConfig, IVFFlatConfig
+from vers_tpu_torch.config import FlatConfig, IVFFlatConfig, LSHConfig
 from vers_tpu_torch.index.flat import FlatIndex
 from vers_tpu_torch.index.ivfflat import IVFFlatIndex
+from vers_tpu_torch.index.lsh import ANNIndex
 from vers_tpu_torch.utils.harness import recall_at_k, search_exhaustive
 
 __all__ = [
     "FlatIndex",
     "IVFFlatIndex",
+    "ANNIndex",
     "FlatConfig",
     "IVFFlatConfig",
+    "LSHConfig",
     "recall_at_k",
     "search_exhaustive",
 ]

@@ -1,5 +1,5 @@
 """Configuration dataclasses for vers_tpu_torch (the slice ported so
-far: the flat and IVFFlat indexes; fields and defaults as in
+far: the flat, IVFFlat and RP-forest indexes; fields and defaults as in
 ``vers_tpu.config``).
 
 The reference has no config system at all — every hyperparameter is a
@@ -54,11 +54,29 @@ class IVFFlatConfig:
     nprobe: int = 0
     seed: int = 0
     dtype: str = "float32"
-    # matmul precision of the batched scan. Only "highest" (f32-exact
-    # distances, TF32 off) exists in this package.
+    # matmul precision of the batched scan. The packed-scan kernel
+    # ("auto" / "pallas") always computes f32-exact distances, whatever
+    # this says, as the JAX package's kernel does; the plain version
+    # ("xla") exists only at "highest" (TF32 off) and raises otherwise.
     precision: str = "highest"
     # batched-search engine: "auto" / "pallas" = the packed-scan kernel
     # on a CUDA tensor (its plain version on a CPU tensor), with
     # top_k > 128 routed to the plain version as in the JAX package;
+    # "xla" = always the plain version.
+    engine: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class LSHConfig:
+    """Random-hyperplane projection forest (Annoy-style), called "LSH"
+    in the reference (`vers/src/indexes/lsh.rs`)."""
+
+    num_trees: int = 8
+    max_node_size: int = 100
+    seed: int = 0
+    dtype: str = "float32"
+    # batched-search engine: "auto" = the packed-scan kernel on a CUDA
+    # tensor when top_k <= 128, else its plain version; "pallas" = the
+    # kernel (its plain version on a CPU tensor, and for top_k > 128);
     # "xla" = always the plain version.
     engine: str = "auto"

@@ -74,6 +74,31 @@ def to_hashkey(x: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(x, dtype=np.float32)).view(np.uint32)
 
 
+def deduplicate(vectors: np.ndarray, ids: np.ndarray):
+    """Drop bitwise-duplicate rows, keeping first occurrence (parity
+    with `lsh.rs:113-130`). Returns (unique_vectors, their_ids)."""
+    keys = to_hashkey(vectors)
+    _, first = np.unique(keys, axis=0, return_index=True)
+    keep = np.sort(first)
+    return vectors[keep], np.asarray(ids)[keep]
+
+
+def device_id_map(ids, device) -> torch.Tensor | None:
+    """int32 copy on ``device`` of an internal-row -> external-id map,
+    or ``None`` when any id falls outside int32 range.
+
+    The bincode formats store external ids as u64, so ids >= 2**31 are
+    valid inputs; casting them to int32 would wrap and return wrong ids.
+    Callers map such ids on the host in int64 (or raise on the
+    device-resident path) when this returns None."""
+    ids = np.asarray(ids)
+    if ids.size and (
+        int(ids.min()) < -(2**31) or int(ids.max()) > 2**31 - 1
+    ):
+        return None
+    return torch.as_tensor(ids.astype(np.int32), device=device)
+
+
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Exact bitwise equality of two f32 tensors (the reference's
     k-means convergence test, `ivfflat.rs:84-93`)."""

@@ -301,8 +301,11 @@ class IVFFlatIndex(Index):
         engine = self.config.engine
         if engine not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown engine {engine!r}")
-        if self.config.precision != "highest":
-            raise ValueError("only precision='highest' (float32) is ported")
+        # precision reaches only the plain ("xla") engine, as in the JAX
+        # package; the kernel engine is f32-exact whatever it says
+        if engine == "xla" and self.config.precision != "highest":
+            raise ValueError("engine='xla' exists only at precision='highest' "
+                             "(float32)")
         # dedup=False: every row lives in exactly ONE cluster and a
         # query's probes are distinct clusters, so probe ranks cover
         # disjoint ids

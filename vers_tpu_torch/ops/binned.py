@@ -31,17 +31,30 @@ from vers_tpu_torch.ops.topk import topk_smallest
 
 
 @contextlib.contextmanager
-def captured_scans():
+def captured_scans(only=None):
     """Record every packed-scan call the search path makes inside the
     block as (args, kwargs less ``plain``), the arguments
     ``cuda_packed_scan`` and ``packed_scan_plain`` take; the calls
-    themselves go through unchanged. For the tests and the timing tools."""
+    themselves go through unchanged. For the tests and the timing tools.
+
+    ``only``: ordinals (from 0) of the calls to record, with their tensor
+    arguments copied. The forest search scans every tree out of one view
+    buffer, so a later tree overwrites what an earlier call was given,
+    and eight views of a large corpus are too much to keep."""
     global packed_scan
     calls = []
     scan = packed_scan
+    seen = 0
+
+    def keep(v):
+        return v.clone() if only is not None and isinstance(v, torch.Tensor) else v
 
     def record(*args, **kw):
-        calls.append((args, {k: v for k, v in kw.items() if k != "plain"}))
+        nonlocal seen
+        if only is None or seen in only:
+            calls.append((tuple(keep(a) for a in args),
+                          {k: keep(v) for k, v in kw.items() if k != "plain"}))
+        seen += 1
         return scan(*args, **kw)
 
     packed_scan = record
