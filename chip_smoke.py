@@ -29,7 +29,25 @@ port's default device:
      (``engine="xla"``) on a 2048-query slice equal to the kernel
      engine's; ``search_approximate``; ``add`` of enough rows into one
      leaf to split it, then a search that finds them; a save/load round
-     trip.
+     trip,
+  6. HNSW at the reference's own workload (``main.rs:70-79``):
+     ``HNSWIndex.build_index_batched(12, 100, 32, 24, x)`` with no
+     ``device=`` and the default ``wave_cap="auto"`` (build seconds,
+     device and host apart, layer sizes, the auto policy's (cap, dp),
+     the inline beam asserted on), first on phase 1's corpus (recall@10
+     at ef = 32 against phase 1's truth, floor = first reading less
+     0.02, then the cheapest ef reaching 0.95), then on the 4096-cluster
+     corpus of the JAX package's 1M HNSW record with its own exact truth
+     (kernel A): ``search_batch`` at ef = 32, k = 10, recall@10 >= 0.95;
+     the median and spread of five timed calls of
+     ``search_batch_device``; the same graph with the classic gather
+     beam (``nav_inline_dp=None``) and with ``route_mode="beam"`` on a
+     2048-query slice; ``add`` of one row on the device fast path, then
+     a search that finds it first; a save/load round trip of a separate
+     20k-row index. Kernel A's counter is zeroed before the HNSW builds
+     and must have moved by the end: it runs the layer-1 routing scan
+     of every scan-routed search, whose inputs are captured once and
+     held to the plain version below.
 
 The launch counters of kernels C and D are zeroed just before phase 2
 and must have moved by its end; those of A and B likewise around phases
@@ -59,7 +77,10 @@ the kernel itself reports it in one more launch (the blocks that work
 and the live tiles each walks, hence the products issued and, against
 the products its probes need, the masked share); at the operating
 nprobe, and for the forest's first tree at each probe setting, the
-host mirror of the walk is held to that report block by block. Each kernel's bound, the least time the card
+host mirror of the walk is held to that report block by block. Kernel
+A is also held on HNSW's captured routing scan (Q = 16384 over the
+layer-1 members, k = 8, cosine, bf16-valued f32 operands): tie-aware,
+distances within 1e-5, a repeat call bit-identical. Each kernel's bound, the least time the card
 could take for its work, comes from ``vers_tpu_torch/utils/roofline.py``
 and this run's inputs (kernel B's from the probes it captured).
 
@@ -92,6 +113,22 @@ FOREST_SLICE = 2048                 # queries of the plain-engine comparison
 # deficit rule). The reference promises nothing at 1M rows: each floor is
 # the first reading on an H100 (0.3330 / 0.6608 / 0.3326) less 0.02.
 FOREST_RECALL = {None: 0.313, 4: 0.640, 1: 0.312}
+# HNSW: the reference's main.rs:70-79 build (num_layers, ef_construction,
+# ef_search, M) and its ef_search
+HNSW_ARGS = (12, 100, 32, 24)
+HNSW_EF = HNSW_ARGS[2]
+HNSW_SLICE = 2048  # queries of the classic-beam and beam-route readings
+# The JAX package's 1M HNSW record ran on a corpus of 4096 clusters
+# (benchmarks/tpu_1m_hnsw_default.py:48-51): recall@10 >= 0.95 at
+# ef = 32 is held there. On phase 1's 1024-cluster corpus the same
+# build reads lower (first reading on an H100: 0.9357; the JAX package's
+# own bench row on that corpus, BENCH_1M.json, 0.9313 at (8, 100, 32,
+# 16)): its floor is that reading less 0.02, and the cheapest ef that
+# reaches 0.95 is found and held.
+HNSW_CLUSTERS = 4096
+HNSW_RECALL_PHASE1 = 0.915
+HNSW_EFS = (48, 64, 96, 128, 192)
+HNSW_IO_ROWS = 20_000  # the save/load round trip's separate index
 ROOT = Path(__file__).resolve().parent
 
 
@@ -365,6 +402,223 @@ def forest_phase(torch, vt, x, q, qd, truth_ids, dev):
     return searches, b_rows, cuda_binned.LAUNCHES
 
 
+def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
+    """Phase 6: HNSW end to end (see the module docstring). Returns
+    (rows of the readings, kernel A's row on the captured routing scan,
+    kernel A's launches in the HNSW searches)."""
+    import dataclasses
+
+    from vers_tpu_torch.ops import beam, cuda_topk
+    from vers_tpu_torch.ops.topk import fused_scan_topk
+    from vers_tpu_torch.utils import roofline
+    from vers_tpu_torch.utils.data import synthetic_gaussian
+    from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
+
+    rows = {}
+
+    def build(corpus, label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = vt.HNSWIndex.build_index_batched(*HNSW_ARGS, corpus)
+        build_s = time.perf_counter() - t0
+        assert h.device == dev, h.device
+        t0 = time.perf_counter()
+        cache = h._ensure_device_cache()
+        torch.cuda.synchronize()
+        cache_s = time.perf_counter() - t0
+        sec = h.build_seconds
+        layers = h.get_num_nodes_in_layers()
+        assert layers[0] == corpus.shape[0]
+        assert all(a >= b for a, b in zip(layers, layers[1:]))
+        cap, dp = cache["policy"]
+        assert cache["inline"] is not None and (cap, dp) == (32, 64), (cap, dp)
+        log(f"hnsw build {HNSW_ARGS} on {label}: {build_s:.2f} s = upload "
+            f"{sec['upload_s']:.2f} s + {sec['waves']} waves of up to "
+            f"{sec['wave_cap']} {sec['waves_s']:.2f} s (card, ending in a sync; "
+            f"the host enqueues them meanwhile) + graph to the host "
+            f"{sec['graph_to_host_s']:.2f} s; serving cache {cache_s:.2f} s (host "
+            f"pack of the adjacency, PCA, the inline table); layers {layers}; "
+            f"auto policy (cap, dp) = ({cap}, {dp}), inline beam on, layer-1 "
+            f"routing table {cache['n1']} rows")
+        return h, dict(build_s=build_s, upload_s=sec["upload_s"],
+                       waves_s=sec["waves_s"], waves=sec["waves"],
+                       graph_to_host_s=sec["graph_to_host_s"],
+                       cache_s=cache_s, layers=layers, cap=cap, dp=dp,
+                       n1=cache["n1"])
+
+    def recall(h, queries, truth, ef=HNSW_EF):
+        h.ef_search = ef
+        res = h.search_batch(queries, TOP_K)
+        h.ef_search = HNSW_EF
+        assert res.ids.shape == (queries.shape[0], TOP_K)
+        assert (res.ids >= 0).all() and np.isfinite(res.distances).all()
+        assert (np.diff(res.distances, axis=1) >= 0).all()
+        return vt.recall_at_k(res.ids, truth)
+
+    # the JAX record's workload and its exact truth, made before the
+    # counter is zeroed (the truth's own kernel-A launch is phase 1's kind)
+    t0 = time.perf_counter()
+    x2, q2 = synthetic_gaussian(N, DIM, n_clusters=HNSW_CLUSTERS,
+                                n_queries=N_QUERIES, seed=0, normalized=True,
+                                query_noise=0.5)
+    qd2 = torch.from_numpy(q2).to(dev)
+    flat2 = vt.FlatIndex(x2)
+    truth2 = flat2.search_batch(qd2, TOP_K).ids
+    del flat2
+    torch.cuda.empty_cache()
+    log(f"hnsw corpus of {HNSW_CLUSTERS} clusters and its exact truth "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    cuda_topk.LAUNCHES = 0
+
+    # -- phase 1's corpus -------------------------------------------------
+    h, rows["phase1_build"] = build(x, "phase 1's corpus")
+    rec = recall(h, qd, truth_ids)
+    log(f"hnsw phase-1 corpus: recall@10 {rec:.4f} at ef={HNSW_EF}")
+    assert rec >= HNSW_RECALL_PHASE1, rec
+    sweep = {HNSW_EF: rec}
+    for ef in HNSW_EFS:
+        if sweep[max(sweep)] >= TARGET_RECALL:
+            break
+        h.ef_search = ef
+        sweep[ef] = recall(h, qd, truth_ids, ef)
+        ms = cuda_ms(torch, lambda: h.search_batch_device(qd, TOP_K), reps=1)
+        h.ef_search = HNSW_EF
+        log(f"hnsw phase-1 corpus: recall@10 {sweep[ef]:.4f} at ef={ef}, "
+            f"{ms:.2f} ms / {N_QUERIES} queries")
+    ef_ok = max(sweep)
+    assert sweep[ef_ok] >= TARGET_RECALL, sweep
+    rows["phase1_recall_by_ef"] = sweep
+    del h
+    torch.cuda.empty_cache()
+
+    # -- the JAX record's workload: the main reading ----------------------
+    h, rows["build"] = build(x2, f"the {HNSW_CLUSTERS}-cluster corpus")
+    captured = []
+    real_scan = beam.route_scan
+
+    def capturing(queries, l1_tab, n1, k):
+        captured.append((queries.clone(), l1_tab, n1, k))
+        return real_scan(queries, l1_tab, n1, k)
+
+    beam.route_scan = capturing
+    try:
+        before = cuda_topk.LAUNCHES
+        res = h.search_batch(qd2, TOP_K)
+        assert cuda_topk.LAUNCHES == before + 1  # the routing scan
+    finally:
+        beam.route_scan = real_scan
+    rec = vt.recall_at_k(res.ids, truth2)
+    assert (np.diff(res.distances, axis=1) >= 0).all()
+    direct = 1.0 - np.einsum("qkd,qd->qk", x2[res.ids[:4]], q2[:4])
+    assert np.allclose(res.distances[:4], direct, rtol=0.0, atol=1e-5)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    times = sorted(cuda_ms(torch, lambda: h.search_batch_device(qd2, TOP_K),
+                           reps=1) for _ in range(5))
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    log(f"hnsw search_batch ef={HNSW_EF} (inline beam): recall@10 {rec:.4f}, "
+        f"median {times[2]:.2f} ms / {N_QUERIES} queries (min {times[0]:.2f}, "
+        f"max {times[4]:.2f} of 5 calls) = {N_QUERIES / times[2] * 1e3:.0f} qps; "
+        f"a search allocates at most {peak_gb:.2f} GB")
+    assert rec >= TARGET_RECALL, rec
+    rows["inline"] = dict(recall=rec, ms_median=times[2], ms_min=times[0],
+                          ms_max=times[4], qps=N_QUERIES / times[2] * 1e3,
+                          peak_search_gb=peak_gb)
+
+    qs, ts = qd2[:HNSW_SLICE], truth2[:HNSW_SLICE]
+    base = h.config
+    for name, cfg in (("classic", dataclasses.replace(base, nav_inline_dp=None)),
+                      ("beam_route", dataclasses.replace(base, route_mode="beam"))):
+        h.config, h._device_cache = cfg, None
+        before = cuda_topk.LAUNCHES
+        rec_s = recall(h, qs, ts)
+        scans = cuda_topk.LAUNCHES - before
+        assert scans == (1 if name == "classic" else 0), (name, scans)
+        assert h._device_cache["inline"] is None
+        ms = cuda_ms(torch, lambda: h.search_batch_device(qs, TOP_K), reps=1)
+        log(f"hnsw {name} on {HNSW_SLICE} queries: recall@10 {rec_s:.4f}, "
+            f"{ms:.2f} ms ({HNSW_SLICE / ms * 1e3:.0f} qps); kernel A "
+            f"launches {scans}")
+        rows[name] = dict(queries=HNSW_SLICE, recall=rec_s, ms=ms)
+    h.config, h._device_cache = base, None
+    rows["inline_slice_recall"] = recall(h, qs, ts)
+
+    # add one row on the device fast path; a search finds it first
+    v = q2[11] * np.float32(1.0)
+    t0 = time.perf_counter()
+    h.add(v, N)
+    add_s = time.perf_counter() - t0
+    assert h._last_add_patch is not None and h._last_add_patch["row"] == N
+    found = h.search_batch(v[None, :], 1)
+    assert found.ids[0, 0] == N, found.ids
+    log(f"hnsw add (device fast path): row {N} in {add_s * 1e3:.1f} ms, found "
+        f"first by a search")
+    del h
+    torch.cuda.empty_cache()
+
+    # save/load round trip on a separate small index (the format does not
+    # depend on size). The loaded index answers as the saved one up to
+    # ties: an adjacency row's order comes from a set on either side,
+    # and a heap's equal distances come back in reverse insertion order
+    # (the reference port's quirk, the JAX package's too)
+    small = vt.HNSWIndex.build_index_batched(*HNSW_ARGS, x2[:HNSW_IO_ROWS])
+    path = ROOT / "vers_tpu_torch" / "_build" / "smoke_hnsw.index"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        small.save_index(str(path))
+        size_mb = path.stat().st_size / 1e6
+        loaded = vt.HNSWIndex.load_index(str(path))
+        assert loaded.device == dev, loaded.device
+        io_s = time.perf_counter() - t0
+    finally:
+        path.unlink(missing_ok=True)
+    assert loaded.get_num_nodes_in_layers() == small.get_num_nodes_in_layers()
+    assert np.array_equal(loaded._vecs[:HNSW_IO_ROWS], x2[:HNSW_IO_ROWS])
+    a = small.search_batch(qd2[:HNSW_SLICE], TOP_K)
+    b = loaded.search_batch(qd2[:HNSW_SLICE], TOP_K)
+    assert_topk_match(b.distances, b.ids, a.distances, a.ids, rtol=0.0,
+                      atol=1e-6)
+    log(f"hnsw save/load round trip ({HNSW_IO_ROWS} rows, {size_mb:.1f} MB, "
+        f"{io_s:.1f} s): same layers and vectors, results equal up to ties "
+        f"({int((a.ids != b.ids).any(axis=1).sum())} of {HNSW_SLICE} rows "
+        f"ordered otherwise)")
+    launches = cuda_topk.LAUNCHES
+
+    # kernel A on the captured routing scan against its plain version
+    q_in, l1_tab, n1, k = captured[0]
+    q_scan = q_in.to(torch.bfloat16).float().contiguous()
+    ka = cuda_topk.cuda_distance_topk(q_scan, l1_tab, n1, k, metric="cosine")
+    again = cuda_topk.cuda_distance_topk(q_scan, l1_tab, n1, k, metric="cosine")
+    assert torch.equal(ka[0], again[0]) and torch.equal(ka[1], again[1])
+    pa = fused_scan_topk(q_scan, l1_tab, n1, k, metric="cosine")
+    assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=1e-5)
+    err = max_abs_diff(ka[0], pa[0])
+    del ka, again, pa
+    ms = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(
+        q_scan, l1_tab, n1, k, metric="cosine"), reps=5)
+    plain = cuda_ms(torch, lambda: fused_scan_topk(q_scan, l1_tab, n1, k,
+                                                   metric="cosine"), reps=1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, split_rows = cuda_topk.split_geometry(q_scan.shape[0], n1, sms)
+    bound = roofline.route_scan_bound(q_scan.shape[0], n1, DIM, k)
+    bound3 = roofline.distance_topk_bound(q_scan.shape[0], n1, DIM, k)
+    log(f"kernel A vs plain on the HNSW routing scan (Q={q_scan.shape[0]} over "
+        f"{n1} layer-1 rows, k={k}, cosine, bf16-valued operands): max |d| "
+        f"{err:g}, {ms:.3f} ms vs {plain:.2f} ms; {n_split} splits of "
+        f"{split_rows} rows; bound {bound['bound_ms']:.3f} ms "
+        f"({bound['bound_by']}, one bf16 product each), {bound3['bound_ms']:.3f} "
+        f"ms by 3xTF32 as the kernel multiplies; {ms / rows['inline']['ms_median']:.1%}"
+        f" of the search's median")
+    a_row = dict(q=q_scan.shape[0], n1=n1, k=k, n_split=n_split,
+                 max_abs_err=err, ms=ms, plain_ms=plain,
+                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                 bound_3xtf32_ms=bound3["bound_ms"],
+                 share_of_search=ms / rows["inline"]["ms_median"])
+    return rows, a_row, launches
+
+
 def main():
     import torch
 
@@ -549,6 +803,13 @@ def main():
     assert forest_launches > 0
     torch.cuda.empty_cache()
 
+    # -- HNSW, kernel A's second caller, counted on its own -----------
+    hnsw_rows, hnsw_scan, hnsw_launches = hnsw_phase(
+        torch, vt, x, q, qd, truth.ids, dev)
+    log(f"kernel A launches in the HNSW phase: {hnsw_launches}")
+    assert hnsw_launches > 0
+    torch.cuda.empty_cache()
+
     # -- each kernel against its plain version, on the card, at the --
     # -- main path's shapes ------------------------------------------
     # kernel A (with kernel C as its second pass when the corpus is split)
@@ -711,11 +972,15 @@ def main():
         {"name": "distance_topk", "route": "cuda",
          "source": "vers_tpu_torch/csrc/distance_topk.cu",
          "replaces": "vers_tpu/ops/pallas_topk.py:294",
-         "launches": launches["distance_topk"], "max_abs_err": err_a,
+         "launches": launches["distance_topk"] + hnsw_launches,
+         "launches_flat": launches["distance_topk"],
+         "launches_hnsw": hnsw_launches,
+         "max_abs_err": max(err_a, hnsw_scan["max_abs_err"]),
          "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a["bound_ms"],
          "bound_by": bound_a["bound_by"], "library_ms": None,
          "shape": f"Q={N_QUERIES} N={N} d={DIM} k={TOP_K}",
-         "by_q": a_rows, "search_approximate_ms": single_ms},
+         "by_q": a_rows, "search_approximate_ms": single_ms,
+         "hnsw_route_scan": hnsw_scan, "hnsw": hnsw_rows},
         {"name": "packed_scan", "route": "cuda",
          "source": "vers_tpu_torch/csrc/packed_scan.cu",
          "replaces": "vers_tpu/ops/pallas_binned.py:235",

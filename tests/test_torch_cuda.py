@@ -17,7 +17,12 @@ tiles, cosine, ids on and off, exact ties, repeat calls bit-identical),
 and the RP-forest: its build on the card, its search with kernel B
 against the plain engine on both sides of the plan limit, the duplicate
 mask where a query probes one leaf twice, the descent against the CPU's,
-and one launch of kernel B a tree a search.
+and one launch of kernel B a tree a search, and HNSW: a 20k x 64 wave
+build on the card searched there and on the CPU over the same graph
+(classic, inline and beam routes; rows may differ only at near-ties of
+nav distances, counted), kernel A launched once by a scan-routed search
+and held to its plain version on the routing scan, the build from a
+CUDA tensor, ``add`` on the card, and bad routing-scan inputs raising.
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips without one. This file imports neither jax nor vers_tpu, so it
@@ -742,3 +747,152 @@ def test_forest_search_launches_kernel_b_once_a_tree(cuda, probes):
     large = idx.search_batch(q[:64], cuda_topk.MAX_K + 2, 2)  # counted plain route
     assert cuda_binned.LAUNCHES == before + 10
     assert large.ids.shape == (64, cuda_topk.MAX_K + 2)
+
+
+# -- HNSW: the device build and the searches on the card ----------------
+
+
+@pytest.fixture(scope="module")
+def hnsw_card():
+    """One wave build of 20k x 64 clustered unit rows on the card
+    (wave_cap auto = 1024), and 256 queries near corpus rows (recall@10
+    0.985 at ef = 32 on the CPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from vers_tpu_torch.index.hnsw import HNSWIndex
+    from vers_tpu_torch.utils.data import synthetic_gaussian
+
+    x, q = synthetic_gaussian(20_000, 64, n_clusters=64, n_queries=256, seed=8,
+                              normalized=True, query_noise=0.5)
+    idx = HNSWIndex.build_index_batched(4, 64, 32, 16, x, device="cuda")
+    return x, q, idx
+
+
+def _hnsw_pair(hnsw_card, **cfg):
+    """The card index under ``cfg`` and a CPU index over the same graph
+    (and the same PCA basis when the inline table is on)."""
+    from vers_tpu_torch.config import HNSWConfig
+    from vers_tpu_torch.index.hnsw import HNSWIndex
+
+    x, q, built = hnsw_card
+    config = HNSWConfig(num_layers=4, ef_construction=64, ef_search=32,
+                        num_neighbours=16, **cfg)
+    card = HNSWIndex.from_numpy(x, built._pending_graph, 64, 32, 4, 16,
+                                config=config, device="cuda")
+    basis = None
+    if cfg.get("nav_inline_dp"):
+        basis = card._ensure_device_cache()["inline"]["basis"].cpu().numpy()
+    cpu = HNSWIndex.from_numpy(x, built._pending_graph, 64, 32, 4, 16,
+                               config=config, basis=basis, device="cpu")
+    return card, cpu
+
+
+@pytest.mark.parametrize("cfg", [{}, dict(nav_inline_dp=32),
+                                 dict(route_mode="beam")])
+def test_hnsw_search_on_cuda_matches_cpu(hnsw_card, cfg):
+    x, q, _ = hnsw_card
+    card, cpu = _hnsw_pair(hnsw_card, **cfg)
+    got = card.search_batch(q, 10)
+    want = cpu.search_batch(q, 10)
+    assert (card._device_cache["inline"] is not None) == ("nav_inline_dp" in cfg)
+    # bf16 products are exact on both sides; the f32 sums run in other
+    # orders, so a row may differ only at a near-tie of nav distances
+    xn = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    qn = torch.from_numpy(q).to(torch.bfloat16).double().numpy()
+    near_ties = 0
+    for r in np.flatnonzero((got.ids != want.ids).any(axis=1)):
+        a, b = set(got.ids[r].tolist()), set(want.ids[r].tolist())
+        if a == b:
+            continue
+        near_ties += 1
+        d = np.sort(1.0 - xn[sorted(a | b)] @ qn[r])
+        assert np.diff(d).min() < 1e-5, r
+    assert near_ties <= 0.02 * q.shape[0], near_ties
+    same = (got.ids == want.ids).all(axis=1)
+    assert np.allclose(got.distances[same], want.distances[same], rtol=0.0,
+                       atol=1e-5)
+    d, i = card.search_batch_device(torch.from_numpy(q).cuda(), 10)
+    assert i.is_cuda and i.dtype == torch.int32
+    assert np.array_equal(i.cpu().numpy(), got.ids)
+
+
+def test_hnsw_scan_route_launches_kernel_a(hnsw_card):
+    x, q, idx = hnsw_card
+    from vers_tpu_torch.ops import beam
+    from vers_tpu_torch.utils.harness import recall_at_k
+
+    before = cuda_topk.LAUNCHES
+    res = idx.search_batch(q, 10)
+    torch.cuda.synchronize()
+    assert cuda_topk.LAUNCHES == before + 1
+    truth = np.argsort(-(q @ x.T), axis=1)[:, :10]
+    assert recall_at_k(res.ids, truth) > 0.95
+    # the scan's kernel result against its plain version on the card
+    cache = idx._ensure_device_cache()
+    qd = torch.from_numpy(q).cuda()
+    got = beam.route_scan(qd, cache["l1_tab"], cache["n1"], 8)
+    q_scan = qd.to(torch.bfloat16).float()
+    want = fused_scan_topk(q_scan, cache["l1_tab"], cache["n1"], 8,
+                           metric="cosine")
+    assert_topk_match(got[0], got[1], want[0], want[1], rtol=0.0, atol=1e-5)
+    card, _ = _hnsw_pair(hnsw_card, route_mode="beam")
+    before = cuda_topk.LAUNCHES
+    card.search_batch(q[:8], 10)
+    assert cuda_topk.LAUNCHES == before  # no scan on the beam route
+
+
+def test_hnsw_build_index_device_on_cuda_tensor(hnsw_card):
+    from vers_tpu_torch.index.hnsw import HNSWIndex
+
+    x, q, idx = hnsw_card
+    corpus = torch.zeros((20_096, 64), device="cuda")
+    corpus[:20_000] = torch.from_numpy(x).cuda()
+    h = HNSWIndex.build_index_device(4, 64, 32, 16, corpus, n_valid=20_000)
+    assert h.device.type == "cuda"
+    for (m1, a1, d1), (m2, a2, d2) in zip(h._pending_graph, idx._pending_graph):
+        assert np.array_equal(m1, m2) and np.array_equal(a1, a2)
+        assert np.array_equal(d1, d2)
+    assert np.array_equal(h.search_batch(q, 10).ids, idx.search_batch(q, 10).ids)
+    assert h._device_cache["vecs"] is h._corpus_dev
+
+
+def test_hnsw_add_on_cuda(hnsw_card):
+    from vers_tpu_torch.index.hnsw import HNSWIndex
+
+    x, q, built = hnsw_card
+    h = HNSWIndex.from_numpy(x, built._pending_graph, 64, 32, 4, 16,
+                             device="cuda")
+    h.search_batch(q[:4], 10)
+    for k in range(3):
+        h.add(q[k], 20_000 + k)
+        assert h._last_add_patch is not None  # the device fast path
+    res = h.search_batch(q[:3], 1)
+    assert list(res.ids[:, 0]) == [20_000, 20_001, 20_002]
+
+
+def test_hnsw_route_scan_raises_on_bad_input(hnsw_card):
+    import dataclasses
+
+    from vers_tpu_torch.ops import beam
+
+    x, q, idx = hnsw_card
+    cache = idx._ensure_device_cache()
+    qd = torch.from_numpy(q).cuda()
+    with pytest.raises(TypeError):  # f64 table: no fallback to the plain scan
+        beam.route_scan(qd, cache["l1_tab"].double(), cache["n1"], 8)
+    with pytest.raises(ValueError):  # non-contiguous table
+        beam.route_scan(qd, cache["l1_tab"].t().contiguous().t(), cache["n1"], 8)
+    with pytest.raises(ValueError):  # k past kernel A's 128
+        beam.route_scan(qd, cache["l1_tab"], cache["n1"], 129)
+    old = idx.config
+    idx.config = dataclasses.replace(old, route_seeds=200)
+    idx.ef_search = 256  # seeds = min(route_seeds, ef) = 200 > 128
+    try:
+        with pytest.raises(ValueError):
+            idx.search_batch(q[:4], 10)
+    finally:
+        idx.config, idx.ef_search = old, 32
+    before = cuda_topk.LAUNCHES
+    idx.search_batch(q[:4], 10)
+    assert cuda_topk.LAUNCHES == before + 1

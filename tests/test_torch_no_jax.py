@@ -25,7 +25,8 @@ def test_no_jax_or_vers_tpu_imports():
     files.append(root / "chip_smoke.py")
     assert len(files) >= 30
     assert {"lsh.py", "rpforest.py", "forest_shared.py", "time_kernel_b.py",
-            "chip_smoke.py"} <= {f.name for f in files}
+            "chip_smoke.py", "beam.py", "beam_inline.py", "hnsw_build.py",
+            "hnsw.py", "config.py"} <= {f.name for f in files}
     bad = [
         (str(f.relative_to(root)), name)
         for f in files
@@ -42,7 +43,9 @@ def test_import_loads_neither_jax_nor_vers_tpu():
         "import sys; before = set(sys.modules); "
         "import vers_tpu_torch, vers_tpu_torch.ops.binned, "
         "vers_tpu_torch.ops.kmeans, vers_tpu_torch.utils.parity, "
-        "vers_tpu_torch.index.lsh, vers_tpu_torch.ops.forest_shared; "
+        "vers_tpu_torch.index.lsh, vers_tpu_torch.ops.forest_shared, "
+        "vers_tpu_torch.index.hnsw, vers_tpu_torch.ops.beam, "
+        "vers_tpu_torch.ops.beam_inline, vers_tpu_torch.ops.hnsw_build; "
         "print(sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'vers_tpu')))"
     )

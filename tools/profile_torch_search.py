@@ -4,10 +4,13 @@
 Builds the smoke run's configuration (``synthetic_gaussian`` corpus of
 1M x 300 from seed 0, IVF k = 2048 with 2 restarts and 10 Lloyd
 iterations, an RP-forest of 8 trees with ``max_node_size`` 100, 16384
-queries, top_k = 10), then for each search path -- IVF at nprobe 1, 2
-and the adaptive 0, the forest at ``probes_per_tree`` 1, 4 and the
-default auto depth, the exact flat scan, and the flat "bucket" (no
-rescore) and "approx" engines -- it
+queries, top_k = 10; HNSW as ``HNSWIndex.build_index_batched(12, 100,
+32, 24, x)`` on the smoke run's HNSW corpus of 4096 clusters), then for
+each search path -- IVF at nprobe 1, 2 and the adaptive 0, the forest
+at ``probes_per_tree`` 1, 4 and the default auto depth, the exact flat
+scan, the flat "bucket" (no rescore) and "approx" engines, and HNSW at
+ef = 32 with the default inline beam and with the classic gather beam
+on the first 2048 queries -- it
 times ``--reps`` calls with CUDA events, profiles ``--reps`` more with
 ``torch.profiler``, and prints per call:
 
@@ -23,7 +26,11 @@ Usage, from the repository root:
 
     python3 tools/profile_torch_search.py [--n N] [--dim D] [--queries Q]
         [--clusters K] [--top-k K] [--reps R] [--top T] [--out PATH]
+        [--paths PREFIX,...] [--hnsw-io]
 
+``--paths`` keeps the paths whose names start with one of the prefixes
+(``hnsw`` alone builds only the HNSW index); ``--hnsw-io`` also times
+``save_index`` and ``load_index`` of the HNSW index (host clock).
 ``--out`` writes every path's numbers and all of its device activities
 as JSON. Needs one CUDA card; exits 2 without one.
 """
@@ -120,6 +127,10 @@ def main(argv=None):
     ap.add_argument("--top", type=int, default=12,
                     help="device activities printed per path")
     ap.add_argument("--out", help="write all numbers as JSON here")
+    ap.add_argument("--paths", default="",
+                    help="comma-separated name prefixes of the paths to run")
+    ap.add_argument("--hnsw-io", action="store_true",
+                    help="also time the HNSW index's save_index + load_index")
     args = ap.parse_args(argv)
 
     import torch
@@ -140,32 +151,82 @@ def main(argv=None):
     print(f"{smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     dev = torch.device("cuda:0")
-    x, q = synthetic_gaussian(args.n, args.dim, n_clusters=1024,
-                              n_queries=args.queries, seed=0, normalized=True,
-                              query_noise=0.5)
-    qd = torch.from_numpy(q).to(dev)
-    flat = vt.FlatIndex(x, device=dev)
-    bucket = vt.FlatIndex(x, config=vt.FlatConfig(engine="bucket"), device=dev)
-    approx = vt.FlatIndex(x, config=vt.FlatConfig(engine="approx"), device=dev)
-    ivf = vt.IVFFlatIndex.build_index(args.clusters, 2, 10, x, device=dev)
-    ivf._ensure_layout()
     import numpy as np
 
-    forest = vt.ANNIndex.build_index(8, 100, x, np.arange(len(x)), device=dev)
-    torch.cuda.synchronize()
+    prefixes = [p for p in args.paths.split(",") if p]
+
+    def wanted(name):
+        return not prefixes or any(name.startswith(p) for p in prefixes)
 
     k = args.top_k
-    paths = {
-        "ivf nprobe=1": lambda: ivf.search_batch_device(qd, k, 1),
-        "ivf nprobe=2": lambda: ivf.search_batch_device(qd, k, 2),
-        "ivf nprobe=0 (adaptive)": lambda: ivf.search_batch_device(qd, k, 0),
-        "forest probes_per_tree=1": lambda: forest.search_batch_device(qd, k, 1),
-        "forest probes_per_tree=4": lambda: forest.search_batch_device(qd, k, 4),
-        "forest auto probes": lambda: forest.search_batch_device(qd, k),
-        "flat exact": lambda: flat.search_batch_device(qd, k),
-        "flat bucket": lambda: bucket.search_batch_device(qd, k),
-        "flat approx": lambda: approx.search_batch_device(qd, k),
-    }
+    paths = {}
+    extra = {}
+    if any(wanted(n) for n in ("ivf", "forest", "flat")):
+        x, q = synthetic_gaussian(args.n, args.dim, n_clusters=1024,
+                                  n_queries=args.queries, seed=0,
+                                  normalized=True, query_noise=0.5)
+        qd = torch.from_numpy(q).to(dev)
+    if wanted("ivf"):
+        ivf = vt.IVFFlatIndex.build_index(args.clusters, 2, 10, x, device=dev)
+        ivf._ensure_layout()
+        paths["ivf nprobe=1"] = lambda: ivf.search_batch_device(qd, k, 1)
+        paths["ivf nprobe=2"] = lambda: ivf.search_batch_device(qd, k, 2)
+        paths["ivf nprobe=0 (adaptive)"] = lambda: ivf.search_batch_device(qd, k, 0)
+    if wanted("forest"):
+        forest = vt.ANNIndex.build_index(8, 100, x, np.arange(len(x)), device=dev)
+        paths["forest probes_per_tree=1"] = lambda: forest.search_batch_device(qd, k, 1)
+        paths["forest probes_per_tree=4"] = lambda: forest.search_batch_device(qd, k, 4)
+        paths["forest auto probes"] = lambda: forest.search_batch_device(qd, k)
+    if wanted("flat"):
+        flat = vt.FlatIndex(x, device=dev)
+        bucket = vt.FlatIndex(x, config=vt.FlatConfig(engine="bucket"), device=dev)
+        approx = vt.FlatIndex(x, config=vt.FlatConfig(engine="approx"), device=dev)
+        paths["flat exact"] = lambda: flat.search_batch_device(qd, k)
+        paths["flat bucket"] = lambda: bucket.search_batch_device(qd, k)
+        paths["flat approx"] = lambda: approx.search_batch_device(qd, k)
+    if wanted("hnsw"):
+        import dataclasses
+
+        hx, hq = synthetic_gaussian(args.n, args.dim, n_clusters=4096,
+                                    n_queries=args.queries, seed=0,
+                                    normalized=True, query_noise=0.5)
+        hqd = torch.from_numpy(hq).to(dev)
+        t0 = time.perf_counter()
+        hnsw = vt.HNSWIndex.build_index_batched(12, 100, 32, 24, hx, device=dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hnsw._ensure_device_cache()
+        torch.cuda.synchronize()
+        extra["hnsw_build"] = dict(build_s=build_s, **hnsw.build_seconds,
+                                   cache_s=time.perf_counter() - t0,
+                                   layers=hnsw.get_num_nodes_in_layers())
+        print(f"hnsw build: {extra['hnsw_build']}", flush=True)
+        classic = vt.HNSWIndex.from_numpy(
+            hx, hnsw._pending_graph, 100, 32, 12, 24,
+            config=dataclasses.replace(hnsw.config, nav_inline_dp=None),
+            device=dev)
+        hs = hqd[:2048]
+        paths["hnsw ef=32 inline"] = lambda: hnsw.search_batch_device(hqd, k)
+        paths["hnsw ef=32 classic, 2048 queries"] = (
+            lambda: classic.search_batch_device(hs, k))
+        if args.hnsw_io:
+            path = Path(__file__).resolve().parent.parent / "vers_tpu_torch" / \
+                "_build" / "profile_hnsw.index"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            try:
+                t0 = time.perf_counter()
+                hnsw.save_index(str(path))
+                save_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                vt.HNSWIndex.load_index(str(path), device=dev)
+                load_s = time.perf_counter() - t0
+                extra["hnsw_io"] = dict(save_s=save_s, load_s=load_s,
+                                        mb=path.stat().st_size / 1e6)
+            finally:
+                path.unlink(missing_ok=True)
+            print(f"hnsw save/load: {extra['hnsw_io']}", flush=True)
+    torch.cuda.synchronize()
+
     def reps_of(name):
         return 1 if name in ("flat exact", "flat approx") else args.reps
 
@@ -189,7 +250,8 @@ def main(argv=None):
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            dict(device=smi, args=vars(args), paths=results), indent=1))
+            dict(device=smi, args=vars(args), paths=results, **extra),
+            indent=1))
     return 0
 
 

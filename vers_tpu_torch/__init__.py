@@ -6,21 +6,25 @@ PyTorch, with hand-written CUDA kernels for the NVIDIA H100. It keeps
 package stays the reference it is tested against.
 
 Ported so far: the flat index (exact, approx and bucket engines),
-IVFFlat and the RP-forest ``ANNIndex`` ("LSH"), each with build, batched
-and single-query search, incremental add and save/load. Four CUDA
-kernels, one for each Pallas kernel of ``vers_tpu``, each with a plain
-torch version: ``ops/cuda_topk.py`` (A, the distance + top-k scan, and
-C, the values top-k), ``ops/cuda_binned.py`` (B, the packed binned scan
-behind IVFFlat and the forest) and ``ops/cuda_bucket.py`` (D, the
-bucket-min scan). Not ported yet: HNSW, the multi-device layers and the
-``compat``/``demo`` surface.
+IVFFlat, the RP-forest ``ANNIndex`` ("LSH") and HNSW (the host
+sequential build, the wave-parallel device build, the scan-routed
+search with the classic and the inline beam, the beam-routed search),
+each with build, batched and single-query search, incremental add and
+save/load. Four CUDA kernels, one for each Pallas kernel of
+``vers_tpu``, each with a plain torch version: ``ops/cuda_topk.py`` (A,
+the distance + top-k scan, also HNSW's layer-1 routing scan, and C, the
+values top-k), ``ops/cuda_binned.py`` (B, the packed binned scan behind
+IVFFlat and the forest) and ``ops/cuda_bucket.py`` (D, the bucket-min
+scan). Not ported yet: the multi-device layers, the
+``compat``/``demo`` surface, the bf16 flat store and the native IO.
 
 Dispatch follows the input tensor's device: a CUDA tensor runs the
 kernel, a CPU tensor the plain version. Nothing here imports JAX.
 """
 
-from vers_tpu_torch.config import FlatConfig, IVFFlatConfig, LSHConfig
+from vers_tpu_torch.config import FlatConfig, HNSWConfig, IVFFlatConfig, LSHConfig
 from vers_tpu_torch.index.flat import FlatIndex
+from vers_tpu_torch.index.hnsw import HNSWIndex
 from vers_tpu_torch.index.ivfflat import IVFFlatIndex
 from vers_tpu_torch.index.lsh import ANNIndex
 from vers_tpu_torch.utils.harness import recall_at_k, search_exhaustive
@@ -29,7 +33,9 @@ __all__ = [
     "FlatIndex",
     "IVFFlatIndex",
     "ANNIndex",
+    "HNSWIndex",
     "FlatConfig",
+    "HNSWConfig",
     "IVFFlatConfig",
     "LSHConfig",
     "recall_at_k",

@@ -1,5 +1,5 @@
-"""Configuration dataclasses for vers_tpu_torch (the slice ported so
-far: the flat, IVFFlat and RP-forest indexes; fields and defaults as in
+"""Configuration dataclasses for vers_tpu_torch (the flat, IVFFlat,
+RP-forest and HNSW indexes; fields and defaults as in
 ``vers_tpu.config``).
 
 The reference has no config system at all — every hyperparameter is a
@@ -80,3 +80,68 @@ class LSHConfig:
     # kernel (its plain version on a CPU tensor, and for top_k > 128);
     # "xla" = always the plain version.
     engine: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class HNSWConfig:
+    """HNSW graph index (`vers/src/indexes/hnsw.rs`). Built on the host
+    one node at a time (``build_index``) or in waves on the index's
+    device (``build_index_batched``); queries run as a batched beam
+    search on the device. Fields and defaults are the JAX package's:
+    they select the same graphs and the same search behaviour."""
+
+    num_layers: int = 8
+    ef_construction: int = 100
+    ef_search: int = 32
+    num_neighbours: int = 16  # M; layer 0 uses 2*M (`hnsw.rs:400-404`)
+    seed: int = 0
+    dtype: str = "float32"
+    # Cap on the padded adjacency width of the device beam. None: the
+    # widest row of each layer.
+    max_degree: Optional[int] = None
+    # dtype of the beam's navigation table: "bfloat16" (half the gather
+    # bytes of "float32"; products exact, sums in f32; the final top-k
+    # is rescored in f32) or "float32". "int8" (per-row quantization)
+    # is not ported and raises NotImplementedError.
+    nav_dtype: str = "bfloat16"
+    # Neighbourhood-inlined navigation (ops/beam_inline.py): the device
+    # cache also holds, per node, its layer-0 neighbours' dp-dim
+    # PCA-projected bf16 vectors side by side, and the layer-0 beam
+    # gathers Q*expand wide rows a step instead of Q*expand*deg thin
+    # ones. "auto" (default): on at >= 200k rows under the scan router,
+    # the layer-0 gather width capped at min(max_degree or 32, 32)
+    # (index/hnsw.py INLINE_DEG_CAP) and dp the larger of 64, 32 whose
+    # table fits ``inline_hbm_budget_gb``; else the classic gathers.
+    # None/0: classic gathers; an int forces that dp (and leaves
+    # max_degree alone).
+    nav_inline_dp: Optional[object] = "auto"
+    # Device-memory budget of the (n_pad, cap*dp) bf16 inline table
+    # when nav_inline_dp="auto" picks dp (4 GiB at 1M x 32 x 64).
+    inline_hbm_budget_gb: float = 4.5
+    # Exact-refine width of the inline beam: each step scores the
+    # candidates in projected space, keeps this many, and ranks them by
+    # their full-dim bf16 distances, so the beam keeps exact order.
+    # None -> 2*ef; 0 -> pure projected navigation.
+    nav_inline_refine: Optional[int] = None
+    # Beam width of the routing layers (route_mode="beam"). The
+    # reference uses ef_search on every layer (`hnsw.rs:526-536`); a
+    # routing layer only has to land the entry of the layer below.
+    # None -> ef_search everywhere (PARITY.md D13).
+    ef_route: Optional[int] = 8
+    # Best unexpanded beam entries expanded a step. None -> 8 on the
+    # classic gather beam and ``add``'s insertion beams, 4 on the inline
+    # beam; an int forces that value everywhere. (The wave build takes
+    # its own ``expand``, 8.)
+    beam_expand: Optional[int] = None
+    # Cap on the query beam's steps. None -> max(4*ef, 64) on the
+    # classic beam, ceil(ef/expand) on the inline beam.
+    beam_steps: Optional[int] = None
+    # Batched-query routing. "scan" (default): one exact scan of the
+    # layer-1 members (every node of a layer >= 1 is one of them) picks
+    # the top ``route_seeds`` entries of the layer-0 beam; on a CUDA
+    # index the scan is kernel A. "beam": the reference-shaped greedy
+    # descent through layers L-2..1 (PARITY.md D13).
+    route_mode: str = "scan"
+    # Entry seeds of the routing scan. 0 -> min(ef_search, 8). On a
+    # CUDA index at most 128 (kernel A's k; more raises).
+    route_seeds: int = 0

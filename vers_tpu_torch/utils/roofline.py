@@ -8,7 +8,8 @@ the H100 SXM at its 700 W limit. Exact f32 products are counted on their
 fastest route, the tensor cores' 3xTF32 split (three TF32 products for
 each f32 one).
 
-Used by ``chip_smoke.py`` and ``tools/time_kernel_d.py``; the counts
+Used by ``chip_smoke.py``, ``tools/time_kernel_d.py`` and
+``tools/profile_torch_search.py``; the counts
 come from the shapes of the run's own inputs.
 """
 
@@ -34,6 +35,16 @@ def distance_topk_bound(q_n: int, n_valid: int, d: int, k: int) -> dict:
     queries and valid rows read once, the (Q, k) result written."""
     return bound(3 * 2.0 * q_n * n_valid * d, TF32,
                  4.0 * (q_n * d + n_valid * d) + 8.0 * q_n * k)
+
+
+def route_scan_bound(q_n: int, n1: int, d: int, k: int) -> dict:
+    """Kernel A on HNSW's layer-1 routing scan: q.x for every (query,
+    layer-1 row) of bf16-valued operands held in f32. A bf16 product is
+    exact there, so the least work is one bf16 tensor-core product each
+    (kernel A spends three TF32 ones); the f32 queries and rows read
+    once, the (Q, k) result written."""
+    return bound(2.0 * q_n * n1 * d, BF16,
+                 4.0 * (q_n * d + n1 * d) + 8.0 * q_n * k)
 
 
 def packed_scan_bound(live_rows: int, out_rows: int, scanned: int,
