@@ -48,6 +48,36 @@ port's default device:
      and must have moved by the end: it runs the layer-1 routing scan
      of every scan-routed search, whose inputs are captured once and
      held to the plain version below.
+  7. the multi-device layer (``vers_tpu_torch.parallel``) on a mesh of
+     four shards on the one card (``make_mesh(4, device="cuda:0")``),
+     over the corpora, truths and indexes of the earlier phases:
+     ``ShardedFlatIndex`` equal to phase 1's exact search (tie-aware,
+     |d| within 1e-4; kernel A once a shard a search; median and spread
+     of five calls); ``ShardedIVFFlatIndex`` from phase 2's centroids
+     and rows equal to a single-device index of the same bins at nprobe
+     1 and 2 (kernel B once a shard; the shards bin their rows on the
+     card in the JAX package's numpy difference form, held bit for bit to
+     numpy on every row phase 2's matmul form bins otherwise and on a
+     sample; that index is phase 2's when no row moved), then built once
+     by the sharded k-means
+     (``build_index(2048, 2, 10, x, mesh)``: build seconds, recall@10 at
+     nprobe 2); ``ShardedANNIndex`` over phase 5's forest equal to its
+     search at 1 and 4 probes (kernel B 4 x 8 a search);
+     ``ShardedHNSWIndex`` over phase 6's index equal to its
+     ``route_mode="beam"`` search on a 2048-query slice;
+     ``PartitionedANNIndex.build_index(8, 100, x, mesh)`` and
+     ``PartitionedHNSWIndex.build_index(12, 100, 32, 24, x, mesh)``
+     (build seconds, recall@10 against phase 1's truth with a floor,
+     the per-shard launches: B 8 a shard, A 1 a shard); and a save/load
+     round trip of every class at 20k rows. All four counters are zeroed
+     just before the phase and read just after (kernel D: no caller
+     there). Then each path's kernel is held to its plain version on
+     inputs captured from the phase's own searches: kernel A on shard
+     0's exact scan (Q = 16384 over its 250k rows) and on the partitioned
+     HNSW's shard-0 routing scan, kernel B on shard 0's IVF scan at
+     nprobe 2, on query shard 0's first-tree scan of the sharded forest
+     at 4 probes and on shard 0's first-tree scan of the partitioned
+     forest at the auto probes.
 
 The launch counters of kernels C and D are zeroed just before phase 2
 and must have moved by its end; those of A and B likewise around phases
@@ -91,6 +121,7 @@ last is a JSON object with one entry per kernel; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -129,6 +160,14 @@ HNSW_CLUSTERS = 4096
 HNSW_RECALL_PHASE1 = 0.915
 HNSW_EFS = (48, 64, 96, 128, 192)
 HNSW_IO_ROWS = 20_000  # the save/load round trip's separate index
+# the multi-device phase: a mesh of four shards on the one card
+PARALLEL_SHARDS = 4
+PARALLEL_IO_ROWS = 20_000  # the save/load round trips of every class
+# recall@10 floors of the partitioned builds on phase 1's corpus: the
+# forest at the auto probes, HNSW at ef = 32; each the first reading on an
+# H100 (0.5189 / 0.9964) less 0.02
+PART_FOREST_RECALL = 0.498
+PART_HNSW_RECALL = 0.976
 ROOT = Path(__file__).resolve().parent
 
 
@@ -217,10 +256,72 @@ def hold_kernel_b(torch, args, kw, label, mirror, time_plain=True):
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
+@contextlib.contextmanager
+def captured_route_scan():
+    """Record the first HNSW layer-1 routing scan (``ops/beam.route_scan``,
+    kernel A) that a search makes inside the block, as (queries copied,
+    table, rows, k); every call goes through unchanged."""
+    from vers_tpu_torch.ops import beam
+
+    captured = []
+    real = beam.route_scan
+
+    def capturing(queries, l1_tab, n1, k):
+        if not captured:
+            captured.append((queries.clone(), l1_tab, n1, k))
+        return real(queries, l1_tab, n1, k)
+
+    beam.route_scan = capturing
+    try:
+        yield captured
+    finally:
+        beam.route_scan = real
+
+
+def hold_route_scan(torch, args, label):
+    """Kernel A against its plain version on one captured routing scan
+    (the queries rounded to bf16 as the scan rounds them, cosine):
+    tie-aware, distances within 1e-5, a repeat call bit-identical; its
+    time and its bounds from these inputs. Returns the scan's row for
+    the ``kernels`` line."""
+    from vers_tpu_torch.ops import cuda_topk
+    from vers_tpu_torch.ops.topk import fused_scan_topk
+    from vers_tpu_torch.utils import roofline
+    from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
+
+    q_in, l1_tab, n1, k = args
+    q_scan = q_in.to(torch.bfloat16).float().contiguous()
+    ka = cuda_topk.cuda_distance_topk(q_scan, l1_tab, n1, k, metric="cosine")
+    again = cuda_topk.cuda_distance_topk(q_scan, l1_tab, n1, k, metric="cosine")
+    assert torch.equal(ka[0], again[0]) and torch.equal(ka[1], again[1]), label
+    pa = fused_scan_topk(q_scan, l1_tab, n1, k, metric="cosine")
+    assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=1e-5)
+    err = max_abs_diff(ka[0], pa[0])
+    del ka, again, pa
+    ms = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(
+        q_scan, l1_tab, n1, k, metric="cosine"), reps=5)
+    plain = cuda_ms(torch, lambda: fused_scan_topk(q_scan, l1_tab, n1, k,
+                                                   metric="cosine"), reps=1)
+    sms = torch.cuda.get_device_properties(q_scan.device).multi_processor_count
+    n_split, split_rows = cuda_topk.split_geometry(q_scan.shape[0], n1, sms)
+    bound = roofline.route_scan_bound(q_scan.shape[0], n1, DIM, k)
+    bound3 = roofline.distance_topk_bound(q_scan.shape[0], n1, DIM, k)
+    log(f"kernel A vs plain on {label} (Q={q_scan.shape[0]} over {n1} layer-1 "
+        f"rows, k={k}, cosine, bf16-valued operands): max |d| {err:g}, "
+        f"{ms:.3f} ms vs {plain:.2f} ms; {n_split} splits of {split_rows} rows; "
+        f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}, one bf16 "
+        f"product each), {bound3['bound_ms']:.3f} ms by 3xTF32 as the kernel "
+        f"multiplies")
+    return dict(q=q_scan.shape[0], n1=n1, k=k, n_split=n_split,
+                max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                bound_3xtf32_ms=bound3["bound_ms"])
+
+
 def forest_phase(torch, vt, x, q, qd, truth_ids, dev):
     """Phase 5: the RP-forest end to end (see the module docstring).
     Returns (per-setting rows of the searches, rows of kernel B on the
-    captured scans, kernel B's launches in the phase)."""
+    captured scans, kernel B's launches in the phase, the forest)."""
     import dataclasses
 
     from vers_tpu_torch.ops import binned, cuda_binned
@@ -399,20 +500,19 @@ def forest_phase(torch, vt, x, q, qd, truth_ids, dev):
     assert rt_err <= 1e-6, rt_err
     log(f"forest save/load round trip: identical ids, max |d distance| "
         f"{rt_err:g} ({io_s:.1f} s for {size_mb:.0f} MB)")
-    return searches, b_rows, cuda_binned.LAUNCHES
+    return searches, b_rows, cuda_binned.LAUNCHES, forest
 
 
 def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     """Phase 6: HNSW end to end (see the module docstring). Returns
     (rows of the readings, kernel A's row on the captured routing scan,
-    kernel A's launches in the HNSW searches)."""
+    kernel A's launches in the HNSW searches, the main reading's index
+    with one row added, and that corpus's queries on the card)."""
     import dataclasses
 
-    from vers_tpu_torch.ops import beam, cuda_topk
-    from vers_tpu_torch.ops.topk import fused_scan_topk
-    from vers_tpu_torch.utils import roofline
+    from vers_tpu_torch.ops import cuda_topk
     from vers_tpu_torch.utils.data import synthetic_gaussian
-    from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
+    from vers_tpu_torch.utils.parity import assert_topk_match
 
     rows = {}
 
@@ -494,20 +594,10 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
 
     # -- the JAX record's workload: the main reading ----------------------
     h, rows["build"] = build(x2, f"the {HNSW_CLUSTERS}-cluster corpus")
-    captured = []
-    real_scan = beam.route_scan
-
-    def capturing(queries, l1_tab, n1, k):
-        captured.append((queries.clone(), l1_tab, n1, k))
-        return real_scan(queries, l1_tab, n1, k)
-
-    beam.route_scan = capturing
-    try:
+    with captured_route_scan() as captured:
         before = cuda_topk.LAUNCHES
         res = h.search_batch(qd2, TOP_K)
         assert cuda_topk.LAUNCHES == before + 1  # the routing scan
-    finally:
-        beam.route_scan = real_scan
     rec = vt.recall_at_k(res.ids, truth2)
     assert (np.diff(res.distances, axis=1) >= 0).all()
     direct = 1.0 - np.einsum("qkd,qd->qk", x2[res.ids[:4]], q2[:4])
@@ -554,8 +644,6 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     assert found.ids[0, 0] == N, found.ids
     log(f"hnsw add (device fast path): row {N} in {add_s * 1e3:.1f} ms, found "
         f"first by a search")
-    del h
-    torch.cuda.empty_cache()
 
     # save/load round trip on a separate small index (the format does not
     # depend on size). The loaded index answers as the saved one up to
@@ -587,36 +675,357 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     launches = cuda_topk.LAUNCHES
 
     # kernel A on the captured routing scan against its plain version
-    q_in, l1_tab, n1, k = captured[0]
-    q_scan = q_in.to(torch.bfloat16).float().contiguous()
-    ka = cuda_topk.cuda_distance_topk(q_scan, l1_tab, n1, k, metric="cosine")
-    again = cuda_topk.cuda_distance_topk(q_scan, l1_tab, n1, k, metric="cosine")
+    a_row = hold_route_scan(torch, captured[0], "the HNSW routing scan")
+    a_row["share_of_search"] = a_row["ms"] / rows["inline"]["ms_median"]
+    log(f"the routing scan is {a_row['share_of_search']:.1%} of the search's "
+        f"median")
+    return rows, a_row, launches, h, qd2
+
+
+def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
+    """Phase 7: the multi-device layer (``vers_tpu_torch.parallel``) on a
+    mesh of PARALLEL_SHARDS shards on the one card, over the corpora,
+    truths and indexes of the earlier phases (see the module docstring).
+    The caller zeroes the launch counters before and reads them after.
+    Returns (rows of the readings, the kernel inputs captured from the
+    phase's searches for ``hold_shard_kernels``), which the caller holds
+    after reading the counts."""
+    import dataclasses
+
+    from vers_tpu_torch import parallel
+    from vers_tpu_torch.ops import binned, cuda_binned, cuda_topk
+    from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
+
+    S = PARALLEL_SHARDS
+    mesh = parallel.make_mesh(S, device="cuda:0")
+    assert mesh.devices == (dev,) * S, mesh
+    rows, held = {}, {}
+
+    def timed(fn, reps=5):
+        return sorted(cuda_ms(torch, fn, reps=1) for _ in range(reps))
+
+    # -- ShardedFlatIndex: phase 1's exact search, sharded ------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sf = parallel.ShardedFlatIndex(x, mesh=mesh)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    before = cuda_topk.LAUNCHES
+    res = sf.search_batch(qd, TOP_K)
+    assert cuda_topk.LAUNCHES == before + S, cuda_topk.LAUNCHES - before
+    assert_topk_match(res.distances, res.ids, truth.distances, truth.ids,
+                      rtol=0.0, atol=TOL)
+    err = max_abs_diff(res.distances, truth.distances)
+    times = timed(lambda: sf.search_batch_device(qd, TOP_K))
+    log(f"sharded flat, {S} shards of {sf._counts.tolist()} rows ({sf._per} with "
+        f"headroom; placed in {place_s:.2f} s): equal to phase 1's exact search "
+        f"up to ties, max |d| {err:g}; median {times[2]:.2f} ms / {N_QUERIES} "
+        f"queries (min {times[0]:.2f}, max {times[4]:.2f} of 5 calls) = "
+        f"{N_QUERIES / times[2] * 1e3:.0f} qps; kernel A launches a search {S}")
+    rows["flat"] = dict(shard_rows=sf._counts.tolist(), per=sf._per,
+                        place_s=place_s, max_abs_err=err, ms_median=times[2],
+                        ms_min=times[0], ms_max=times[4],
+                        qps=N_QUERIES / times[2] * 1e3)
+    held["a_shard"] = (sf._data[0], int(sf._counts[0]))
+    del sf
+
+    # -- ShardedIVFFlatIndex from phase 2's centroids ---------------------
+    values = ivf._values  # phase 4 added a row: N + 1 rows
+    blocks = np.array_split(np.arange(values.shape[0]), S)
+    sivf = parallel.ShardedIVFFlatIndex(
+        K_CLUSTERS, ivf._centroids, [values[b[0] : b[-1] + 1] for b in blocks],
+        blocks, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sivf._ensure_state()
+    torch.cuda.synchronize()
+    state_s = time.perf_counter() - t0
+    bins = np.concatenate(sivf._state["bins"])
+    # the bins are the JAX package's numpy difference form, bit for bit:
+    # held to numpy on every row phase 2's matmul form bins otherwise and
+    # on a sample of the rest
+    moved = np.flatnonzero(bins != ivf._assignments)
+    sample = np.random.default_rng(7).choice(values.shape[0], 512, replace=False)
+    check = np.union1d(moved, sample)
+    rows_c = values[check]
+    want = np.argmin(np.stack([((rows_c - c[None, :]) ** 2).sum(-1)
+                               for c in ivf._centroids], axis=1), axis=1)
+    assert np.array_equal(bins[check], want), int((bins[check] != want).sum())
+    # the single-device reference of the same bins: phase 2's own index
+    # when no row moved
+    if moved.size:
+        order = np.argsort(bins, kind="stable")
+        members = np.split(order, np.cumsum(np.bincount(
+            bins, minlength=K_CLUSTERS))[:-1])
+        ref = vt.IVFFlatIndex(K_CLUSTERS, values, ivf._centroids, bins,
+                              [m.tolist() for m in members])
+    else:
+        ref = ivf
+    log(f"sharded ivf bins: {moved.size} rows binned otherwise than phase 2's "
+        f"matmul form; those and {sample.size} sampled rows equal to numpy's "
+        f"difference form ({check.size} rows held); the reference is "
+        f"{'a single-device index of these bins' if moved.size else 'phase 2'}")
+    rows["ivf"] = dict(state_s=state_s, rows_binned_otherwise=int(moved.size),
+                       rows_held_to_numpy=int(check.size))
+    for nprobe in (1, 2):
+        before = cuda_binned.LAUNCHES
+        with binned.captured_scans(only=(0,)) as calls:
+            got = sivf.search_batch(qd, TOP_K, nprobe=nprobe)
+        assert cuda_binned.LAUNCHES == before + S, cuda_binned.LAUNCHES - before
+        if nprobe == 2:
+            held["b_ivf"] = calls[0]
+        del calls
+        want = ref.search_batch(qd, TOP_K, nprobe=nprobe)
+        assert_topk_match(got.distances, got.ids, want.distances, want.ids,
+                          rtol=0.0, atol=TOL)
+        ms = timed(lambda: sivf._search_batch_rows(qd, TOP_K, nprobe), 3)[1]
+        single = timed(lambda: ivf.search_batch_device(qd, TOP_K, nprobe), 3)[1]
+        log(f"sharded ivf from phase 2's centroids, nprobe={nprobe}: equal to "
+            f"the single-device search up to ties; {ms:.2f} ms against the "
+            f"single device's {single:.2f} ms (medians of 3); kernel B "
+            f"launches a search {S}; shard bins and layouts {state_s:.2f} s")
+        rows["ivf"][f"nprobe{nprobe}"] = dict(ms=ms, single_ms=single)
+    del sivf, ref
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built = parallel.ShardedIVFFlatIndex.build_index(K_CLUSTERS, 2, 10, x,
+                                                     mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res = built.search_batch(qd, TOP_K, nprobe=2)
+    rec = vt.recall_at_k(res.ids, truth.ids)
+    log(f"sharded ivf build_index({K_CLUSTERS}, 2, 10) by the sharded k-means: "
+        f"{build_s:.2f} s; recall@10 {rec:.4f} at nprobe 2")
+    assert rec >= TARGET_RECALL, rec
+    rows["ivf"]["build"] = dict(build_s=build_s, recall_nprobe2=rec)
+    centroids = built._centroids
+    del built
+    torch.cuda.empty_cache()
+
+    # -- ShardedANNIndex over phase 5's forest ------------------------------
+    sa = parallel.ShardedANNIndex(forest, mesh=mesh)
+    rows["forest"] = {}
+    for probes in (1, 4):
+        before = cuda_binned.LAUNCHES
+        # query shard 0's first-tree scan, for hold_shard_kernels
+        with binned.captured_scans(only=(0,) if probes == 4 else ()) as calls:
+            got = sa.search_batch(qd, TOP_K, probes)
+        if probes == 4:
+            held["b_sharded_forest"] = calls[0]
+        del calls
+        per_search = cuda_binned.LAUNCHES - before
+        assert per_search == S * FOREST_TREES, per_search
+        want = forest.search_batch(qd, TOP_K, probes)
+        assert_topk_match(got.distances, got.ids, want.distances, want.ids,
+                          rtol=0.0, atol=TOL)
+        ms = timed(lambda: sa._search_batch_rows(qd, TOP_K, probes), 3)[1]
+        single = timed(lambda: forest.search_batch_device(qd, TOP_K, probes),
+                       3)[1]
+        log(f"sharded forest, probes_per_tree={probes}: equal to phase 5's "
+            f"search up to ties; {ms:.2f} ms against the single device's "
+            f"{single:.2f} ms (medians of 3); kernel B launches a search "
+            f"{per_search}")
+        rows["forest"][str(probes)] = dict(ms=ms, single_ms=single,
+                                           launches_per_search=per_search)
+    del sa
+
+    # -- ShardedHNSWIndex over phase 6's index (the beam route) -------------
+    h.config, h._device_cache = dataclasses.replace(h.config,
+                                                    route_mode="beam"), None
+    qs = qd2[:HNSW_SLICE]
+    sh = parallel.ShardedHNSWIndex(h, mesh=mesh)
+    before = cuda_topk.LAUNCHES
+    want = h.search_batch(qs, TOP_K)
+    got = sh.search_batch(qs, TOP_K)
+    assert cuda_topk.LAUNCHES == before  # the beam route runs no scan
+    assert_topk_match(got.distances, got.ids, want.distances, want.ids,
+                      rtol=0.0, atol=TOL)
+    ms = timed(lambda: sh._search_batch_rows(qs, TOP_K), 3)[1]
+    single = timed(lambda: h.search_batch_device(qs, TOP_K), 3)[1]
+    log(f"sharded hnsw over phase 6's index, {HNSW_SLICE} queries: equal to "
+        f"its route_mode='beam' search up to ties; {ms:.2f} ms against the "
+        f"single device's {single:.2f} ms (medians of 3)")
+    rows["hnsw"] = dict(queries=HNSW_SLICE, ms=ms, single_ms=single)
+    del sh
+    h._device_cache = None
+    torch.cuda.empty_cache()
+
+    # -- PartitionedANNIndex: one forest a shard ----------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pa = parallel.PartitionedANNIndex.build_index(FOREST_TREES, FOREST_LEAF, x,
+                                                  mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rows["part_forest"] = dict(build_s=build_s)
+    for probes in (None, 1):
+        before = cuda_binned.LAUNCHES
+        # shard 0's first-tree scan, for hold_shard_kernels
+        with binned.captured_scans(only=(0,) if probes is None else ()) as calls:
+            res = pa.search_batch(qd, TOP_K, probes_per_tree=probes)
+        if probes is None:
+            held["b_part_forest"] = calls[0]
+        del calls
+        per_search = cuda_binned.LAUNCHES - before
+        assert per_search == S * FOREST_TREES, per_search
+        rec = vt.recall_at_k(res.ids, truth.ids)
+        ms = timed(lambda: pa._search_batch_rows(qd, TOP_K, probes), 3)[1]
+        name = "auto" if probes is None else str(probes)
+        log(f"partitioned forest build_index({FOREST_TREES}, {FOREST_LEAF}) on "
+            f"{S} shards: {build_s:.2f} s; probes_per_tree={name}: recall@10 "
+            f"{rec:.4f}, {ms:.2f} ms (median of 3); kernel B launches a search "
+            f"{per_search} ({FOREST_TREES} a shard)")
+        rows["part_forest"][name] = dict(recall=rec, ms=ms,
+                                         launches_per_search=per_search)
+    assert rows["part_forest"]["auto"]["recall"] >= PART_FOREST_RECALL
+    del pa
+    torch.cuda.empty_cache()
+
+    # -- PartitionedHNSWIndex: one subgraph a shard ------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ph = parallel.PartitionedHNSWIndex.build_index(*HNSW_ARGS, x, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    secs = [s.build_seconds for s in ph.shards]
+    t0 = time.perf_counter()
+    cache = ph._ensure_device_cache()
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    before = cuda_topk.LAUNCHES
+    with captured_route_scan() as captured:  # shard 0's, for hold_shard_kernels
+        res = ph.search_batch(qd, TOP_K)
+    held["a_route"] = captured[0]
+    per_search = cuda_topk.LAUNCHES - before
+    assert per_search == S, per_search  # a routing scan a shard
+    rec = vt.recall_at_k(res.ids, truth.ids)
+    assert (np.diff(res.distances, axis=1) >= 0).all()
+    times = timed(lambda: ph.search_batch_device(qd, TOP_K), 3)
+    log(f"partitioned hnsw build_index{HNSW_ARGS} on {S} shards: {build_s:.2f} s "
+        f"(waves per shard {[s['waves'] for s in secs]} of up to "
+        f"{secs[0]['wave_cap']}, waves {sum(s['waves_s'] for s in secs):.2f} s "
+        f"on the card in all); serving tables {cache_s:.2f} s (layer-1 rows "
+        f"{cache['n1s'].tolist()}); recall@10 {rec:.4f} at ef={HNSW_EF}; "
+        f"{times[1]:.2f} ms (median of 3); kernel A launches a search "
+        f"{per_search}")
+    rows["part_hnsw"] = dict(build_s=build_s, cache_s=cache_s,
+                             waves=[s["waves"] for s in secs],
+                             wave_cap=secs[0]["wave_cap"],
+                             waves_s=sum(s["waves_s"] for s in secs),
+                             n1=cache["n1s"].tolist(), recall=rec,
+                             ms=times[1], launches_per_search=per_search)
+    assert rec >= PART_HNSW_RECALL, rec
+    del ph, cache
+    torch.cuda.empty_cache()
+
+    # -- save / load of every class at PARALLEL_IO_ROWS rows ---------------
+    xs, qs = x[:PARALLEL_IO_ROWS], qd[:HNSW_SLICE]
+    io_blocks = np.array_split(np.arange(PARALLEL_IO_ROWS), S)
+    cases = [
+        ("sharded_flat", lambda: parallel.ShardedFlatIndex(xs, mesh=mesh),
+         lambda i: i.search_batch(qs, TOP_K)),
+        ("sharded_ivf", lambda: parallel.ShardedIVFFlatIndex(
+            K_CLUSTERS, centroids, [xs[b[0] : b[-1] + 1] for b in io_blocks],
+            io_blocks, mesh=mesh),
+         lambda i: i.search_batch(qs, TOP_K, nprobe=2)),
+        ("sharded_forest", lambda: parallel.ShardedANNIndex.build_index(
+            FOREST_TREES, FOREST_LEAF, xs, mesh=mesh),
+         lambda i: i.search_batch(qs, TOP_K)),
+        ("sharded_hnsw", lambda: parallel.ShardedHNSWIndex.build_index(
+            *HNSW_ARGS, xs, mesh=mesh, batched=True),
+         lambda i: i.search_batch(qs, TOP_K)),
+        ("partitioned_forest", lambda: parallel.PartitionedANNIndex.build_index(
+            FOREST_TREES, FOREST_LEAF, xs, mesh=mesh),
+         lambda i: i.search_batch(qs, TOP_K)),
+        ("partitioned_hnsw", lambda: parallel.PartitionedHNSWIndex.build_index(
+            *HNSW_ARGS, xs, mesh=mesh),
+         lambda i: i.search_batch(qs, TOP_K)),
+    ]
+    build_dir = ROOT / "vers_tpu_torch" / "_build"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    rows["io"] = {}
+    for name, make, search in cases:
+        idx = make()
+        path = build_dir / f"smoke_{name}.index"
+        try:
+            t0 = time.perf_counter()
+            idx.save_index(str(path))
+            size_mb = sum(f.stat().st_size
+                          for f in build_dir.glob(path.name + "*")) / 1e6
+            loaded = type(idx).load_index(str(path), mesh=mesh)
+            io_s = time.perf_counter() - t0
+        finally:
+            for f in build_dir.glob(path.name + "*"):
+                f.unlink()
+        a, b = search(idx), search(loaded)
+        # graphs come back from their dict form: equal up to ties (the
+        # heap's equal distances return in another order, phase 6)
+        assert_topk_match(b.distances, b.ids, a.distances, a.ids, rtol=0.0,
+                          atol=1e-6)
+        reordered = int((a.ids != b.ids).any(axis=1).sum())
+        log(f"{name} save/load ({PARALLEL_IO_ROWS} rows, {size_mb:.1f} MB, "
+            f"{io_s:.1f} s): results equal up to ties ({reordered} of "
+            f"{HNSW_SLICE} rows ordered otherwise)")
+        rows["io"][name] = dict(mb=size_mb, s=io_s, reordered=reordered)
+        del idx, loaded
+
+    # kernels A and B at the shard-local shapes go to hold_shard_kernels,
+    # after the caller has read the counts
+    return rows, held
+
+
+def hold_shard_kernels(torch, qd, held):
+    """Each kernel of the multi-device phase against its plain version,
+    on inputs captured from that phase's own searches (see the module
+    docstring). Returns (kernel A's rows, kernel B's rows) for the
+    ``kernels`` line."""
+    from vers_tpu_torch.ops import cuda_topk
+    from vers_tpu_torch.ops.topk import fused_scan_topk
+    from vers_tpu_torch.utils import roofline
+    from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
+
+    part, count = held["a_shard"]
+    ka = cuda_topk.cuda_distance_topk(qd, part, count, TOP_K)
+    again = cuda_topk.cuda_distance_topk(qd, part, count, TOP_K)
     assert torch.equal(ka[0], again[0]) and torch.equal(ka[1], again[1])
-    pa = fused_scan_topk(q_scan, l1_tab, n1, k, metric="cosine")
-    assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=1e-5)
+    pa = fused_scan_topk(qd, part, count, TOP_K)
+    assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=TOL)
     err = max_abs_diff(ka[0], pa[0])
     del ka, again, pa
-    ms = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(
-        q_scan, l1_tab, n1, k, metric="cosine"), reps=5)
-    plain = cuda_ms(torch, lambda: fused_scan_topk(q_scan, l1_tab, n1, k,
-                                                   metric="cosine"), reps=1)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, split_rows = cuda_topk.split_geometry(q_scan.shape[0], n1, sms)
-    bound = roofline.route_scan_bound(q_scan.shape[0], n1, DIM, k)
-    bound3 = roofline.distance_topk_bound(q_scan.shape[0], n1, DIM, k)
-    log(f"kernel A vs plain on the HNSW routing scan (Q={q_scan.shape[0]} over "
-        f"{n1} layer-1 rows, k={k}, cosine, bf16-valued operands): max |d| "
-        f"{err:g}, {ms:.3f} ms vs {plain:.2f} ms; {n_split} splits of "
+    ms = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(qd, part, count,
+                                                             TOP_K), reps=3)
+    plain = cuda_ms(torch, lambda: fused_scan_topk(qd, part, count, TOP_K),
+                    reps=1)
+    sms = torch.cuda.get_device_properties(qd.device).multi_processor_count
+    n_split, split_rows = cuda_topk.split_geometry(qd.shape[0], count, sms)
+    bound = roofline.distance_topk_bound(qd.shape[0], count, DIM, TOP_K)
+    log(f"kernel A vs plain on one shard (Q={qd.shape[0]} over {count} rows): "
+        f"max |d| {err:g}, {ms:.3f} ms vs {plain:.2f} ms; {n_split} splits of "
         f"{split_rows} rows; bound {bound['bound_ms']:.3f} ms "
-        f"({bound['bound_by']}, one bf16 product each), {bound3['bound_ms']:.3f} "
-        f"ms by 3xTF32 as the kernel multiplies; {ms / rows['inline']['ms_median']:.1%}"
-        f" of the search's median")
-    a_row = dict(q=q_scan.shape[0], n1=n1, k=k, n_split=n_split,
-                 max_abs_err=err, ms=ms, plain_ms=plain,
-                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                 bound_3xtf32_ms=bound3["bound_ms"],
-                 share_of_search=ms / rows["inline"]["ms_median"])
-    return rows, a_row, launches
+        f"({bound['bound_by']})")
+    a_row = dict(q=qd.shape[0], rows=count, n_split=n_split, max_abs_err=err,
+                 ms=ms, plain_ms=plain, bound_ms=bound["bound_ms"],
+                 bound_by=bound["bound_by"])
+    a_rows = {"shard_scan": a_row,
+              "partitioned_hnsw_route_scan": hold_route_scan(
+                  torch, held["a_route"],
+                  "the partitioned HNSW's shard-0 routing scan")}
+    b_rows = {
+        "sharded_ivf": hold_kernel_b(
+            torch, *held["b_ivf"], "sharded ivf, shard 0, nprobe=2",
+            mirror=False),
+        "sharded_forest": hold_kernel_b(
+            torch, *held["b_sharded_forest"],
+            "sharded forest, query shard 0, probes_per_tree=4, tree 0",
+            mirror=True),
+        "partitioned_forest": hold_kernel_b(
+            torch, *held["b_part_forest"],
+            "partitioned forest, shard 0, probes_per_tree=auto, tree 0",
+            mirror=True),
+    }
+    return a_rows, b_rows
 
 
 def main():
@@ -797,17 +1206,37 @@ def main():
     assert all(n > 0 for n in launches.values()), launches
 
     # -- the forest, kernel B's second caller, counted on its own -----
-    forest_rows, forest_scans, forest_launches = forest_phase(
+    forest_rows, forest_scans, forest_launches, forest = forest_phase(
         torch, vt, x, q, qd, truth.ids, dev)
     log(f"kernel B launches in the forest phase: {forest_launches}")
     assert forest_launches > 0
     torch.cuda.empty_cache()
 
     # -- HNSW, kernel A's second caller, counted on its own -----------
-    hnsw_rows, hnsw_scan, hnsw_launches = hnsw_phase(
+    hnsw_rows, hnsw_scan, hnsw_launches, hnsw_index, qd2 = hnsw_phase(
         torch, vt, x, q, qd, truth.ids, dev)
     log(f"kernel A launches in the HNSW phase: {hnsw_launches}")
     assert hnsw_launches > 0
+    torch.cuda.empty_cache()
+
+    # -- the multi-device layer: kernels A, B and C at shard-local ----
+    # -- shapes, counted on its own -----------------------------------
+    cuda_topk.LAUNCHES = cuda_topk.LAUNCHES_VALUES = 0
+    cuda_binned.LAUNCHES = cuda_bucket.LAUNCHES = 0
+    parallel_rows, held = parallel_phase(
+        torch, vt, x, qd, truth, dev, ivf, forest, hnsw_index, qd2)
+    parallel_launches = {"distance_topk": cuda_topk.LAUNCHES,
+                         "packed_scan": cuda_binned.LAUNCHES,
+                         "topk_values": cuda_topk.LAUNCHES_VALUES,
+                         "bucket_scan": cuda_bucket.LAUNCHES}
+    log(f"kernel launches in the multi-device phase: {parallel_launches}")
+    assert all(parallel_launches[k] > 0 for k in
+               ("distance_topk", "packed_scan", "topk_values")), parallel_launches
+    assert parallel_launches["bucket_scan"] == 0  # no caller in parallel/
+    del forest, hnsw_index, qd2
+    torch.cuda.empty_cache()
+    shard_a, shard_b = hold_shard_kernels(torch, qd, held)
+    del held
     torch.cuda.empty_cache()
 
     # -- each kernel against its plain version, on the card, at the --
@@ -972,34 +1401,45 @@ def main():
         {"name": "distance_topk", "route": "cuda",
          "source": "vers_tpu_torch/csrc/distance_topk.cu",
          "replaces": "vers_tpu/ops/pallas_topk.py:294",
-         "launches": launches["distance_topk"] + hnsw_launches,
+         "launches": launches["distance_topk"] + hnsw_launches
+                     + parallel_launches["distance_topk"],
          "launches_flat": launches["distance_topk"],
          "launches_hnsw": hnsw_launches,
-         "max_abs_err": max(err_a, hnsw_scan["max_abs_err"]),
+         "launches_parallel": parallel_launches["distance_topk"],
+         "max_abs_err": max(err_a, hnsw_scan["max_abs_err"],
+                            *(r["max_abs_err"] for r in shard_a.values())),
          "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a["bound_ms"],
          "bound_by": bound_a["bound_by"], "library_ms": None,
          "shape": f"Q={N_QUERIES} N={N} d={DIM} k={TOP_K}",
          "by_q": a_rows, "search_approximate_ms": single_ms,
-         "hnsw_route_scan": hnsw_scan, "hnsw": hnsw_rows},
+         "hnsw_route_scan": hnsw_scan, "hnsw": hnsw_rows,
+         "parallel_scans": shard_a, "parallel": parallel_rows},
         {"name": "packed_scan", "route": "cuda",
          "source": "vers_tpu_torch/csrc/packed_scan.cu",
          "replaces": "vers_tpu/ops/pallas_binned.py:235",
-         "launches": launches["packed_scan"] + forest_launches,
+         "launches": launches["packed_scan"] + forest_launches
+                     + parallel_launches["packed_scan"],
          "launches_ivf": launches["packed_scan"],
          "launches_forest": forest_launches,
+         "launches_parallel": parallel_launches["packed_scan"],
          "max_abs_err": max(r["max_abs_err"] for r in
-                            (*b_rows.values(), *forest_scans.values())),
+                            (*b_rows.values(), *forest_scans.values(),
+                             *shard_b.values())),
          "ms": b_rows[operating]["ms"], "plain_ms": b_rows[operating]["plain_ms"],
          "bound_ms": b_rows[operating]["bound_ms"],
          "bound_by": b_rows[operating]["bound_by"], "library_ms": None,
          "shape": f"Q={N_QUERIES} nprobe={operating} k={TOP_K} of the "
                   f"{K_CLUSTERS}-cluster layout",
          "by_nprobe": b_rows, "by_forest_scan": forest_scans,
-         "forest": forest_rows},
+         "forest": forest_rows, "parallel_scans": shard_b},
         {"name": "topk_values", "route": "cuda",
          "source": "vers_tpu_torch/csrc/topk_values.cu",
          "replaces": "vers_tpu/ops/pallas_topk.py:230",
-         "launches": engine_launches["topk_values"], "max_abs_err": 0.0,
+         "launches": engine_launches["topk_values"]
+                     + parallel_launches["topk_values"],
+         "launches_flat_engines": engine_launches["topk_values"],
+         "launches_parallel": parallel_launches["topk_values"],
+         "max_abs_err": 0.0,
          "ms": c_rows[TOP_K]["ms"], "plain_ms": c_rows[TOP_K]["plain_ms"],
          "bound_ms": c_rows[TOP_K]["bound_ms"],
          "bound_by": c_rows[TOP_K]["bound_by"],
@@ -1010,6 +1450,7 @@ def main():
          "source": "vers_tpu_torch/csrc/bucket_scan.cu",
          "replaces": "vers_tpu/ops/pallas_bucket.py:109",
          "launches": engine_launches["bucket_scan"],
+         "launches_parallel": parallel_launches["bucket_scan"],
          "max_abs_err": max(r["max_abs_err"] for r in d_rows.values()),
          "ms": d_rows[N_QUERIES]["ms"], "plain_ms": d_rows[N_QUERIES]["plain_ms"],
          "bound_ms": d_rows[N_QUERIES]["bound_ms"],

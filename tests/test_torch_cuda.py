@@ -22,7 +22,13 @@ build on the card searched there and on the CPU over the same graph
 (classic, inline and beam routes; rows may differ only at near-ties of
 nav distances, counted), kernel A launched once by a scan-routed search
 and held to its plain version on the routing scan, the build from a
-CUDA tensor, ``add`` on the card, and bad routing-scan inputs raising.
+CUDA tensor, ``add`` on the card, and bad routing-scan inputs raising,
+and the multi-device layer: ``make_mesh`` on the card, the sharded flat,
+IVF and forest and the partitioned forest and HNSW over four shards of
+one card against the single-device indexes (or the same partitioned
+index on the CPU) with their launches per shard, the sharded HNSW
+against the beam route, and every class over one shard per card where
+there are two cards or more.
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips without one. This file imports neither jax nor vers_tpu, so it
@@ -896,3 +902,243 @@ def test_hnsw_route_scan_raises_on_bad_input(hnsw_card):
     before = cuda_topk.LAUNCHES
     idx.search_batch(q[:4], 10)
     assert cuda_topk.LAUNCHES == before + 1
+
+
+# -- the multi-device layer: four shards on one card ----------------------
+
+
+def _mesh4(cuda):
+    from vers_tpu_torch.parallel import make_mesh
+
+    return make_mesh(4, device="cuda:0")
+
+
+def test_make_mesh_on_the_card(cuda):
+    from vers_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    assert mesh.size == torch.cuda.device_count()
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(torch.cuda.device_count()))
+    four = make_mesh(4, device="cuda:0")
+    assert four.devices == (torch.device("cuda", 0),) * 4
+    assert make_mesh(1).devices == (torch.device("cuda", 0),)
+
+
+def _unit_clusters(n, d, q_n, seed):
+    from vers_tpu_torch.utils.data import synthetic_gaussian
+
+    return synthetic_gaussian(n, d, n_clusters=64, n_queries=q_n, seed=seed,
+                              normalized=True, query_noise=0.5)
+
+
+@pytest.mark.parametrize("metric", ["sq_euclidean", "cosine"])
+def test_sharded_flat_on_cuda_matches_single(cuda, metric):
+    import vers_tpu_torch as vt
+
+    x, q = _unit_clusters(30_001, 64, 300, 1)
+    mesh = _mesh4(cuda)
+    sharded = vt.ShardedFlatIndex(x, ids=np.arange(30_001) + 7, mesh=mesh,
+                                  metric=metric)
+    assert all(p.is_cuda for p in sharded._data)
+    single = vt.FlatIndex(x, ids=np.arange(30_001) + 7,
+                          config=vt.FlatConfig(metric=metric), device="cuda")
+    before = cuda_topk.LAUNCHES
+    got = sharded.search_batch(q, 10)
+    assert cuda_topk.LAUNCHES == before + 4  # kernel A once a shard
+    want = single.search_batch(q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+    d, ids = sharded.search_batch_device(torch.from_numpy(q).cuda(), 10)
+    assert ids.is_cuda and ids.dtype == torch.int32
+    np.testing.assert_array_equal(ids.cpu().numpy(), got.ids)
+    sharded.add(q[0], 99)  # in place into a shard's headroom
+    assert sharded.search_batch(q[:1], 1).ids[0, 0] == 99
+
+
+def test_sharded_ivf_on_cuda_matches_single(cuda):
+    import vers_tpu_torch as vt
+
+    x, q = _unit_clusters(40_000, 64, 512, 2)
+    single = vt.IVFFlatIndex.build_index(64, 1, 5, x, device="cuda")
+    counts = [10_000] * 4
+    offs = np.cumsum([0] + counts)
+    sharded = vt.ShardedIVFFlatIndex(
+        64, single._centroids, [x[offs[s]:offs[s + 1]] for s in range(4)],
+        [np.arange(offs[s], offs[s + 1]) for s in range(4)], mesh=_mesh4(cuda))
+    # the shards bin their rows as the JAX package's numpy difference form
+    # does, bit for bit; the single index, which bins by the matmul form,
+    # is rebuilt on those bins, so that both scan the same clusters
+    bins = np.concatenate([sharded._assign(s) for s in range(4)])
+    c = single._centroids
+    want_bins = np.argmin(np.stack([((x - c[j][None, :]) ** 2).sum(-1)
+                                    for j in range(64)], axis=1), axis=1)
+    np.testing.assert_array_equal(bins, want_bins)
+    members = [np.flatnonzero(bins == j).tolist() for j in range(64)]
+    single = vt.IVFFlatIndex(64, x, c, bins, members, device="cuda")
+    for nprobe in (1, 2, 5):
+        before = cuda_binned.LAUNCHES
+        got = sharded.search_batch(q, 10, nprobe=nprobe)
+        assert cuda_binned.LAUNCHES == before + 4  # kernel B once a shard
+        want = single.search_batch(q, 10, nprobe=nprobe)
+        _check((got.distances, got.ids), (want.distances, want.ids))
+
+
+@pytest.mark.parametrize("d", [7, 37, 300])
+def test_difference_form_bins_on_cuda_match_numpy(cuda, d):
+    from vers_tpu_torch.parallel.ivf import assign_difference_form
+
+    v, c = _near_tie_rows(d)
+    got = assign_difference_form(torch.from_numpy(v).cuda(),
+                                 torch.from_numpy(c).cuda(), chunk_elems=4096)
+    want = np.argmin(((v[:, None, :] - c[None]) ** 2).sum(-1), axis=1)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _near_tie_rows(d, seed=0):
+    """Rows within float32 rounding of the midpoint of two close
+    centroids, and some far rows: the two distance forms bin many of
+    the near rows apart."""
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((6, d)).astype(np.float32)
+    c[1] = c[0] + 1e-3 * rng.standard_normal(d).astype(np.float32)
+    v = ((c[0] + c[1]) / 2 + 1e-5 * rng.standard_normal((400, d)))
+    far = 3 * rng.standard_normal((100, d))
+    return np.concatenate([v, far]).astype(np.float32), c
+
+
+def test_sharded_ivf_build_on_cuda(cuda):
+    import vers_tpu_torch as vt
+
+    x, q = _unit_clusters(20_000, 32, 256, 3)
+    idx = vt.ShardedIVFFlatIndex.build_index(32, 2, 5, x, mesh=_mesh4(cuda))
+    assert idx._centroids.shape == (32, 32)
+    truth = vt.FlatIndex(x, device="cuda").search_batch(q, 10).ids
+    assert vt.recall_at_k(idx.search_batch(q, 10, nprobe=4).ids, truth) > 0.9
+
+
+@pytest.mark.parametrize("probes", [None, 1, 3])
+def test_sharded_forest_on_cuda_matches_single(cuda, probes):
+    import vers_tpu_torch as vt
+
+    idx, x, q = _forest_on(cuda, 20_000, 48, 40, trees=5)
+    sharded = vt.ShardedANNIndex(idx, mesh=_mesh4(cuda))
+    before = cuda_binned.LAUNCHES
+    got = sharded.search_batch(q, 10, probes)
+    assert cuda_binned.LAUNCHES == before + 4 * 5  # a shard and tree each
+    want = idx.search_batch(q, 10, probes)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+
+
+def test_partitioned_forest_on_cuda_matches_cpu(cuda):
+    import vers_tpu_torch as vt
+    from vers_tpu_torch.parallel import make_mesh
+
+    x, q = _unit_clusters(20_000, 48, 256, 4)
+    card = vt.PartitionedANNIndex.build_index(4, 40, x, mesh=_mesh4(cuda))
+    assert all(s.device.type == "cuda" for s in card.shards)
+    cpu = vt.PartitionedANNIndex(
+        [vt.ANNIndex.from_numpy(40, s._trees, s._values, s._ids, device="cpu")
+         for s in card.shards], gids=card.gids, mesh=make_mesh(4, device="cpu"))
+    before = cuda_binned.LAUNCHES
+    got = card.search_batch(q, 10, probes_per_tree=2)
+    assert cuda_binned.LAUNCHES == before + 4 * 4
+    want = cpu.search_batch(q, 10, probes_per_tree=2)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+
+
+def test_partitioned_hnsw_on_cuda_matches_cpu(cuda):
+    import vers_tpu_torch as vt
+    from vers_tpu_torch.parallel import make_mesh
+
+    x, q = _unit_clusters(4_000, 32, 128, 5)
+    card = vt.PartitionedHNSWIndex.build_index(3, 32, 32, 8, x,
+                                               mesh=_mesh4(cuda), batched=False)
+    cpu = vt.PartitionedHNSWIndex.build_index(3, 32, 32, 8, x,
+                                              mesh=make_mesh(4, device="cpu"),
+                                              batched=False)
+    before = cuda_topk.LAUNCHES
+    got = card.search_batch(q, 10)
+    assert cuda_topk.LAUNCHES == before + 4  # a routing scan a shard
+    want = cpu.search_batch(q, 10)
+    # as the single-device HNSW test: rows may differ only at near-ties
+    # of bf16 nav distances
+    xn = torch.from_numpy(x).to(torch.bfloat16).double().numpy()
+    qn = torch.from_numpy(q).to(torch.bfloat16).double().numpy()
+    for r in np.flatnonzero((got.ids != want.ids).any(axis=1)):
+        a, b = set(got.ids[r].tolist()), set(want.ids[r].tolist())
+        if a != b:
+            d = np.sort(1.0 - xn[sorted(a | b)] @ qn[r])
+            assert np.diff(d).min() < 1e-5, r
+    same = (got.ids == want.ids).all(axis=1)
+    assert same.mean() >= 0.98
+    assert np.allclose(got.distances[same], want.distances[same], rtol=0.0,
+                       atol=1e-5)
+
+
+def test_sharded_hnsw_on_cuda_matches_beam_route(hnsw_card):
+    import vers_tpu_torch as vt
+    from vers_tpu_torch.parallel import make_mesh
+
+    x, q, _ = hnsw_card
+    card, _ = _hnsw_pair(hnsw_card, route_mode="beam")
+    sharded = vt.ShardedHNSWIndex(card, mesh=make_mesh(4, device="cuda:0"))
+    got = sharded.search_batch(q, 10)
+    want = card.search_batch(q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+
+
+def test_parallel_across_cards(cuda):
+    """Every class on a mesh of one shard per card (``make_mesh()``),
+    the replicated indexes copied from cuda:0 to the other cards, equal
+    to the single-device search. Needs two cards or more."""
+    import dataclasses
+
+    import vers_tpu_torch as vt
+    from vers_tpu_torch.parallel import make_mesh
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two CUDA devices or more")
+    mesh = make_mesh()
+    assert mesh.size == cards and len(set(mesh.devices)) == cards
+    x, q = _unit_clusters(20_000, 48, 256, 6)
+    got = vt.ShardedFlatIndex(x, mesh=mesh).search_batch(q, 10)
+    want = vt.FlatIndex(x, device="cuda:0").search_batch(q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+
+    single = vt.IVFFlatIndex.build_index(32, 1, 5, x, device="cuda:0")
+    blocks = np.array_split(np.arange(len(x)), cards)
+    sivf = vt.ShardedIVFFlatIndex(32, single._centroids,
+                                  [x[b] for b in blocks], blocks, mesh=mesh)
+    got, want = sivf.search_batch(q, 10, nprobe=2), single.search_batch(q, 10, 2)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+    built = vt.ShardedIVFFlatIndex.build_index(32, 1, 5, x, mesh=mesh)
+    truth = vt.FlatIndex(x, device="cuda:0").search_batch(q, 10).ids
+    assert vt.recall_at_k(built.search_batch(q, 10, nprobe=4).ids, truth) > 0.9
+
+    forest = vt.ANNIndex.build_index(4, 40, x, np.arange(len(x)),
+                                     device="cuda:0")
+    got = vt.ShardedANNIndex(forest, mesh=mesh).search_batch(q, 10)
+    want = forest.search_batch(q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+
+    h = vt.HNSWIndex.build_index(3, 32, 32, 8, x[:3000], device="cuda:0")
+    h.config = dataclasses.replace(h.config, route_mode="beam")
+    got = vt.ShardedHNSWIndex(h, mesh=mesh).search_batch(q, 10)
+    want = h.search_batch(q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+
+    pa = vt.PartitionedANNIndex.build_index(4, 40, x, mesh=mesh)
+    assert [s.device for s in pa.shards] == list(mesh.devices)
+    cpu = vt.PartitionedANNIndex(
+        [vt.ANNIndex.from_numpy(40, s._trees, s._values, s._ids, device="cpu")
+         for s in pa.shards], gids=pa.gids, mesh=make_mesh(cards, device="cpu"))
+    got, want = pa.search_batch(q, 10), cpu.search_batch(q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+
+    ph = vt.PartitionedHNSWIndex.build_index(3, 32, 32, 8, x[:4000], mesh=mesh,
+                                             batched=False)
+    assert [c.device for c in ph._ensure_device_cache()["vecs"]] == list(
+        mesh.devices)
+    res = ph.search_batch(x[:64], 5)
+    assert (res.ids[:, 0] == np.arange(64)).all()

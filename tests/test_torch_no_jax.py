@@ -27,6 +27,10 @@ def test_no_jax_or_vers_tpu_imports():
     assert {"lsh.py", "rpforest.py", "forest_shared.py", "time_kernel_b.py",
             "chip_smoke.py", "beam.py", "beam_inline.py", "hnsw_build.py",
             "hnsw.py", "config.py"} <= {f.name for f in files}
+    # the multi-device layer: the ten modules of vers_tpu/parallel/
+    parallel = {f.name for f in (PKG / "parallel").glob("*.py")}
+    assert parallel == {f.name for f in (root / "vers_tpu" / "parallel").glob(
+        "*.py")}, parallel
     bad = [
         (str(f.relative_to(root)), name)
         for f in files
@@ -45,7 +49,14 @@ def test_import_loads_neither_jax_nor_vers_tpu():
         "vers_tpu_torch.ops.kmeans, vers_tpu_torch.utils.parity, "
         "vers_tpu_torch.index.lsh, vers_tpu_torch.ops.forest_shared, "
         "vers_tpu_torch.index.hnsw, vers_tpu_torch.ops.beam, "
-        "vers_tpu_torch.ops.beam_inline, vers_tpu_torch.ops.hnsw_build; "
+        "vers_tpu_torch.ops.beam_inline, vers_tpu_torch.ops.hnsw_build, "
+        "vers_tpu_torch.parallel, vers_tpu_torch.parallel.mesh, "
+        "vers_tpu_torch.parallel.search, vers_tpu_torch.parallel.kmeans, "
+        "vers_tpu_torch.parallel.sharded_index, vers_tpu_torch.parallel.ivf, "
+        "vers_tpu_torch.parallel.lsh, vers_tpu_torch.parallel.lsh_partitioned, "
+        "vers_tpu_torch.parallel.partitioned, vers_tpu_torch.parallel.hnsw, "
+        "vers_tpu_torch.parallel.hnsw_partitioned; "
+        "vers_tpu_torch.ShardedFlatIndex, vers_tpu_torch.PartitionedHNSWIndex; "
         "print(sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'vers_tpu')))"
     )

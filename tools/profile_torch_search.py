@@ -10,7 +10,8 @@ each search path -- IVF at nprobe 1, 2 and the adaptive 0, the forest
 at ``probes_per_tree`` 1, 4 and the default auto depth, the exact flat
 scan, the flat "bucket" (no rescore) and "approx" engines, and HNSW at
 ef = 32 with the default inline beam and with the classic gather beam
-on the first 2048 queries -- it
+on the first 2048 queries, and the sharded IVF (nprobe 2), forest (1
+probe) and flat searches over a mesh of 4 shards on the card -- it
 times ``--reps`` calls with CUDA events, profiles ``--reps`` more with
 ``torch.profiler``, and prints per call:
 
@@ -29,7 +30,8 @@ Usage, from the repository root:
         [--paths PREFIX,...] [--hnsw-io]
 
 ``--paths`` keeps the paths whose names start with one of the prefixes
-(``hnsw`` alone builds only the HNSW index); ``--hnsw-io`` also times
+(``hnsw`` alone builds only the HNSW index; ``sharded`` builds the IVF
+index and the forest it shards); ``--hnsw-io`` also times
 ``save_index`` and ``load_index`` of the HNSW index (host clock).
 ``--out`` writes every path's numbers and all of its device activities
 as JSON. Needs one CUDA card; exits 2 without one.
@@ -161,18 +163,18 @@ def main(argv=None):
     k = args.top_k
     paths = {}
     extra = {}
-    if any(wanted(n) for n in ("ivf", "forest", "flat")):
+    if any(wanted(n) for n in ("ivf", "forest", "flat", "sharded")):
         x, q = synthetic_gaussian(args.n, args.dim, n_clusters=1024,
                                   n_queries=args.queries, seed=0,
                                   normalized=True, query_noise=0.5)
         qd = torch.from_numpy(q).to(dev)
-    if wanted("ivf"):
+    if wanted("ivf") or wanted("sharded"):
         ivf = vt.IVFFlatIndex.build_index(args.clusters, 2, 10, x, device=dev)
         ivf._ensure_layout()
         paths["ivf nprobe=1"] = lambda: ivf.search_batch_device(qd, k, 1)
         paths["ivf nprobe=2"] = lambda: ivf.search_batch_device(qd, k, 2)
         paths["ivf nprobe=0 (adaptive)"] = lambda: ivf.search_batch_device(qd, k, 0)
-    if wanted("forest"):
+    if wanted("forest") or wanted("sharded"):
         forest = vt.ANNIndex.build_index(8, 100, x, np.arange(len(x)), device=dev)
         paths["forest probes_per_tree=1"] = lambda: forest.search_batch_device(qd, k, 1)
         paths["forest probes_per_tree=4"] = lambda: forest.search_batch_device(qd, k, 4)
@@ -184,6 +186,22 @@ def main(argv=None):
         paths["flat exact"] = lambda: flat.search_batch_device(qd, k)
         paths["flat bucket"] = lambda: bucket.search_batch_device(qd, k)
         paths["flat approx"] = lambda: approx.search_batch_device(qd, k)
+    if wanted("sharded"):
+        from vers_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(4, device=dev)
+        blocks = np.array_split(np.arange(len(x)), 4)
+        sivf = vt.ShardedIVFFlatIndex(
+            args.clusters, ivf._centroids, [x[b[0] : b[-1] + 1] for b in blocks],
+            blocks, mesh=mesh)
+        sivf._ensure_state()
+        sforest = vt.ShardedANNIndex(forest, mesh=mesh)
+        sflat = vt.ShardedFlatIndex(x, mesh=mesh)
+        paths["sharded ivf nprobe=2"] = (
+            lambda: sivf._search_batch_rows(qd, k, 2))
+        paths["sharded forest probes_per_tree=1"] = (
+            lambda: sforest._search_batch_rows(qd, k, 1))
+        paths["sharded flat exact"] = lambda: sflat.search_batch_device(qd, k)
     if wanted("hnsw"):
         import dataclasses
 
@@ -228,7 +246,8 @@ def main(argv=None):
     torch.cuda.synchronize()
 
     def reps_of(name):
-        return 1 if name in ("flat exact", "flat approx") else args.reps
+        return 1 if name in ("flat exact", "flat approx",
+                             "sharded flat exact") else args.reps
 
     # every unprofiled wall time first: once the profiler has run,
     # its tracing stays attached to the process and every later launch

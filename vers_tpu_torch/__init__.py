@@ -15,8 +15,11 @@ save/load. Four CUDA kernels, one for each Pallas kernel of
 the distance + top-k scan, also HNSW's layer-1 routing scan, and C, the
 values top-k), ``ops/cuda_binned.py`` (B, the packed binned scan behind
 IVFFlat and the forest) and ``ops/cuda_bucket.py`` (D, the bucket-min
-scan). Not ported yet: the multi-device layers, the
-``compat``/``demo`` surface, the bf16 flat store and the native IO.
+scan). The multi-device layer (``parallel/``: the sharded Flat,
+IVFFlat, forest and HNSW indexes and the partitioned forest and HNSW)
+drives a mesh of devices from one process; its classes load lazily, as
+in ``vers_tpu``. Not ported yet: the ``compat``/``demo`` surface, the
+bf16 flat store and the native IO.
 
 Dispatch follows the input tensor's device: a CUDA tensor runs the
 kernel, a CPU tensor the plain version. Nothing here imports JAX.
@@ -41,3 +44,23 @@ __all__ = [
     "recall_at_k",
     "search_exhaustive",
 ]
+
+_PARALLEL = {
+    "ShardedFlatIndex": "sharded_index",
+    "ShardedIVFFlatIndex": "ivf",
+    "ShardedHNSWIndex": "hnsw",
+    "PartitionedHNSWIndex": "hnsw_partitioned",
+    "ShardedANNIndex": "lsh",
+    "PartitionedANNIndex": "lsh_partitioned",
+}
+
+
+def __getattr__(name):
+    # the multi-device classes load on first use, as in vers_tpu
+    if name in _PARALLEL:
+        import importlib
+
+        module = importlib.import_module(
+            f"vers_tpu_torch.parallel.{_PARALLEL[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
