@@ -78,6 +78,26 @@ port's default device:
      nprobe 2, on query shard 0's first-tree scan of the sharded forest
      at 4 probes and on shard 0's first-tree scan of the partitioned
      forest at the auto probes.
+  8. kernel A's other routes and their callers, then the user-facing
+     surface, with the counters of kernels A (by route), C and D zeroed
+     just before and read just after: ``FlatIndex(dtype="bfloat16")``
+     over phase 1's corpus (the store's bytes beside the f32 store's;
+     the exact engine, kernel A's bf16-corpus route at "highest",
+     recall@10 against phase 1's f32 truth with a floor; bucket +
+     rescore, kernels D and C over the bf16 rows, recall with a floor);
+     ``distance_topk`` at precision "default" and "high" over phase 1's
+     f32 corpus and over the bf16 store at 2048 and 16384 queries; the
+     README flow (``load_wiki()``, ``HNSW(100, 8, 32, 8)`` built on the
+     card, the queen's neighbours printed) and ``demo.main(["--index",
+     "ivfflat"])`` on the card. Then each route of kernel A is held to
+     its plain version at the same setting (tie-aware, distances within
+     1e-4, a repeat call bit-identical) and timed beside its bound; and
+     a 100k x 300 `.vec` file and a saved 100k-row HNSW index are read
+     by the native and the Python readers, equal, both times printed.
+     (Phase 6's routing scan runs the bf16 route at "default" over a
+     bf16 table; it is held there to its plain version and timed beside
+     the route it took before, 3xTF32 over an f32 copy of the same
+     table, timed in the same run.)
 
 The launch counters of kernels C and D are zeroed just before phase 2
 and must have moved by its end; those of A and B likewise around phases
@@ -109,8 +129,13 @@ the products its probes need, the masked share); at the operating
 nprobe, and for the forest's first tree at each probe setting, the
 host mirror of the walk is held to that report block by block. Kernel
 A is also held on HNSW's captured routing scan (Q = 16384 over the
-layer-1 members, k = 8, cosine, bf16-valued f32 operands): tie-aware,
-distances within 1e-5, a repeat call bit-identical. Each kernel's bound, the least time the card
+layer-1 members, k = 8, cosine, its bf16 route at "default" over the
+bf16 table): tie-aware, distances within 1e-5, a repeat call
+bit-identical. The ``kernels`` line lists kernel A's f32 "highest"
+route as ``distance_topk`` and each other route as
+``distance_topk[<corpus>/<precision>]``: each entry's launches, error
+and times are that route's alone, its launches summed over the counted
+phases. Each kernel's bound, the least time the card
 could take for its work, comes from ``vers_tpu_torch/utils/roofline.py``
 and this run's inputs (kernel B's from the probes it captured).
 
@@ -168,6 +193,16 @@ PARALLEL_IO_ROWS = 20_000  # the save/load round trips of every class
 # H100 (0.5189 / 0.9964) less 0.02
 PART_FOREST_RECALL = 0.498
 PART_HNSW_RECALL = 0.976
+# phase 8: kernel A's other routes, the bf16 flat store, the README flow,
+# the demo and the native IO
+A8_QUERIES = (2048, N_QUERIES)  # query counts of the default/high readings
+# recall@10 floors of the bf16 store against phase 1's f32 truth: the
+# exact engine and bucket + rescore, each the first reading on an H100
+# (0.9937 / 0.9934) less 0.02
+BF16_EXACT_RECALL = 0.973
+BF16_BUCKET_RECALL = 0.973
+NATIVE_ROWS = 100_000  # the .vec file's rows and the saved HNSW index's
+NATIVE_HNSW_ARGS = (6, 40, 32, 8)  # that index's (layers, efc, ef, M)
 ROOT = Path(__file__).resolve().parent
 
 
@@ -278,44 +313,70 @@ def captured_route_scan():
         beam.route_scan = real
 
 
-def hold_route_scan(torch, args, label):
-    """Kernel A against its plain version on one captured routing scan
-    (the queries rounded to bf16 as the scan rounds them, cosine):
-    tie-aware, distances within 1e-5, a repeat call bit-identical; its
-    time and its bounds from these inputs. Returns the scan's row for
-    the ``kernels`` line."""
+def hold_kernel_a(torch, q, corpus, n, k, label, metric="sq_euclidean",
+                  precision="highest", reps=5, atol=TOL):
+    """Kernel A at one route (the corpus dtype and ``precision``) against
+    its plain version on the same inputs: a repeat call bit-identical,
+    tie-aware at rtol 0 and ``atol``; the kernel's and the plain
+    version's times and the route's bound from these inputs. Returns the
+    row for the ``kernels`` line."""
     from vers_tpu_torch.ops import cuda_topk
     from vers_tpu_torch.ops.topk import fused_scan_topk
     from vers_tpu_torch.utils import roofline
     from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
 
-    q_in, l1_tab, n1, k = args
-    q_scan = q_in.to(torch.bfloat16).float().contiguous()
-    ka = cuda_topk.cuda_distance_topk(q_scan, l1_tab, n1, k, metric="cosine")
-    again = cuda_topk.cuda_distance_topk(q_scan, l1_tab, n1, k, metric="cosine")
+    def call():
+        return cuda_topk.cuda_distance_topk(q, corpus, n, k, metric=metric,
+                                            precision=precision)
+
+    def plain_call():
+        return fused_scan_topk(q, corpus, n, k, metric=metric,
+                               precision=precision)
+
+    ka, again = call(), call()
     assert torch.equal(ka[0], again[0]) and torch.equal(ka[1], again[1]), label
-    pa = fused_scan_topk(q_scan, l1_tab, n1, k, metric="cosine")
-    assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=1e-5)
+    pa = plain_call()
+    assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=atol)
     err = max_abs_diff(ka[0], pa[0])
     del ka, again, pa
-    ms = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(
-        q_scan, l1_tab, n1, k, metric="cosine"), reps=5)
-    plain = cuda_ms(torch, lambda: fused_scan_topk(q_scan, l1_tab, n1, k,
-                                                   metric="cosine"), reps=1)
-    sms = torch.cuda.get_device_properties(q_scan.device).multi_processor_count
-    n_split, split_rows = cuda_topk.split_geometry(q_scan.shape[0], n1, sms)
-    bound = roofline.route_scan_bound(q_scan.shape[0], n1, DIM, k)
-    bound3 = roofline.distance_topk_bound(q_scan.shape[0], n1, DIM, k)
-    log(f"kernel A vs plain on {label} (Q={q_scan.shape[0]} over {n1} layer-1 "
-        f"rows, k={k}, cosine, bf16-valued operands): max |d| {err:g}, "
-        f"{ms:.3f} ms vs {plain:.2f} ms; {n_split} splits of {split_rows} rows; "
-        f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}, one bf16 "
-        f"product each), {bound3['bound_ms']:.3f} ms by 3xTF32 as the kernel "
-        f"multiplies")
-    return dict(q=q_scan.shape[0], n1=n1, k=k, n_split=n_split,
-                max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                bound_3xtf32_ms=bound3["bound_ms"])
+    ms = cuda_ms(torch, call, reps=reps)
+    plain = cuda_ms(torch, plain_call, reps=1)
+    q_n, d = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split, split_rows = cuda_topk.split_geometry(q_n, n, sms)
+    route = cuda_topk.route_name(corpus.dtype, precision)
+    bound = roofline.distance_topk_bound(q_n, n, d, k,
+                                         corpus=route.split("/")[0],
+                                         precision=precision)
+    log(f"kernel A {route} vs plain on {label} (Q={q_n} over {n} rows, k={k}, "
+        f"{metric}): max |d| {err:g}, {ms:.3f} ms vs {plain:.2f} ms; "
+        f"{n_split} splits of {split_rows} rows; bound {bound['bound_ms']:.3f} "
+        f"ms ({bound['bound_by']}), {bound['bound_ms'] / ms:.0%} of it")
+    return dict(q=q_n, rows=n, k=k, route=route, n_split=n_split,
+                split_rows=split_rows, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+
+
+def hold_route_scan(torch, args, label):
+    """Kernel A's bf16 route at precision "default" on one captured
+    routing scan (the bf16 layer-1 table, the queries as the scan passes
+    them, cosine) by ``hold_kernel_a`` at atol 1e-5; beside it, timed in
+    this run, the route the scan took before: 3xTF32 ("f32/highest")
+    over an f32 copy of the same table. Returns the scan's row."""
+    from vers_tpu_torch.ops import cuda_topk
+
+    q_in, l1_tab, n1, k = args
+    assert l1_tab.dtype == torch.bfloat16, l1_tab.dtype
+    q_scan = q_in.float().contiguous()
+    row = hold_kernel_a(torch, q_scan, l1_tab, n1, k, label, metric="cosine",
+                        precision="default", atol=1e-5)
+    l1_f32 = l1_tab.float()
+    row["ms_3xtf32"] = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(
+        q_scan, l1_f32, n1, k, metric="cosine"), reps=5)
+    del l1_f32
+    log(f"  the same scan by 3xTF32 over an f32 copy of the table: "
+        f"{row['ms_3xtf32']:.3f} ms")
+    return row
 
 
 def forest_phase(torch, vt, x, q, qd, truth_ids, dev):
@@ -569,7 +630,7 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     log(f"hnsw corpus of {HNSW_CLUSTERS} clusters and its exact truth "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    cuda_topk.LAUNCHES = 0
+    cuda_topk.LAUNCHES_BY_ROUTE.clear()
 
     # -- phase 1's corpus -------------------------------------------------
     h, rows["phase1_build"] = build(x, "phase 1's corpus")
@@ -595,9 +656,9 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     # -- the JAX record's workload: the main reading ----------------------
     h, rows["build"] = build(x2, f"the {HNSW_CLUSTERS}-cluster corpus")
     with captured_route_scan() as captured:
-        before = cuda_topk.LAUNCHES
+        before = cuda_topk.launches()
         res = h.search_batch(qd2, TOP_K)
-        assert cuda_topk.LAUNCHES == before + 1  # the routing scan
+        assert cuda_topk.launches() == before + 1  # the routing scan
     rec = vt.recall_at_k(res.ids, truth2)
     assert (np.diff(res.distances, axis=1) >= 0).all()
     direct = 1.0 - np.einsum("qkd,qd->qk", x2[res.ids[:4]], q2[:4])
@@ -621,9 +682,9 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     for name, cfg in (("classic", dataclasses.replace(base, nav_inline_dp=None)),
                       ("beam_route", dataclasses.replace(base, route_mode="beam"))):
         h.config, h._device_cache = cfg, None
-        before = cuda_topk.LAUNCHES
+        before = cuda_topk.launches()
         rec_s = recall(h, qs, ts)
-        scans = cuda_topk.LAUNCHES - before
+        scans = cuda_topk.launches() - before
         assert scans == (1 if name == "classic" else 0), (name, scans)
         assert h._device_cache["inline"] is None
         ms = cuda_ms(torch, lambda: h.search_batch_device(qs, TOP_K), reps=1)
@@ -672,7 +733,10 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
         f"{io_s:.1f} s): same layers and vectors, results equal up to ties "
         f"({int((a.ids != b.ids).any(axis=1).sum())} of {HNSW_SLICE} rows "
         f"ordered otherwise)")
-    launches = cuda_topk.LAUNCHES
+    launches = cuda_topk.launches()
+    rows["launches_by_route"] = dict(cuda_topk.LAUNCHES_BY_ROUTE)
+    assert rows["launches_by_route"] == {"bf16/default": launches}, \
+        rows["launches_by_route"]
 
     # kernel A on the captured routing scan against its plain version
     a_row = hold_route_scan(torch, captured[0], "the HNSW routing scan")
@@ -680,6 +744,189 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     log(f"the routing scan is {a_row['share_of_search']:.1%} of the search's "
         f"median")
     return rows, a_row, launches, h, qd2
+
+
+def bf16_phase(torch, vt, x, qd, truth, xd):
+    """Phase 8 (see the module docstring): the path's own calls with the
+    counters of kernels A (by route), C and D zeroed just before and read
+    just after, then the held readings. Returns (rows of the readings,
+    kernel A's rows by route for the ``kernels`` line, the path's
+    launches)."""
+    import io
+
+    from vers_tpu_torch import demo, native
+    from vers_tpu_torch.index.hnsw import HNSWIndex
+    from vers_tpu_torch.ops import cuda_binned, cuda_bucket, cuda_topk
+    from vers_tpu_torch.utils.data import (
+        ROYAL_WORDS,
+        load_vec_file,
+        parse_vec_python,
+    )
+
+    dev = qd.device
+    rows = {}
+    cuda_topk.LAUNCHES_VALUES = 0
+    cuda_topk.LAUNCHES_BY_ROUTE.clear()
+    cuda_binned.LAUNCHES = cuda_bucket.LAUNCHES = 0
+
+    # -- the bf16 flat store: exact, then bucket + rescore ---------------
+    flat = vt.FlatIndex(x, config=vt.FlatConfig(dtype="bfloat16"))
+    assert flat.device == dev, flat.device
+    store = flat._store.data
+    assert store.dtype == torch.bfloat16 and store.is_contiguous()
+    bf16_mb = store.numel() * store.element_size() / 1e6
+    f32_mb = xd.numel() * xd.element_size() / 1e6
+    res = flat.search_batch(qd, TOP_K)
+    assert res.ids.shape == (N_QUERIES, TOP_K) and (res.ids >= 0).all()
+    assert np.isfinite(res.distances).all()
+    rec = vt.recall_at_k(res.ids, truth.ids)
+    ms = cuda_ms(torch, lambda: flat.search_batch_device(qd, TOP_K), reps=2)
+    log(f"bf16 flat store: {bf16_mb:.1f} MB beside the f32 store's "
+        f"{f32_mb:.1f} MB; exact engine recall@10 {rec:.4f} against phase 1's "
+        f"f32 truth, {ms:.2f} ms / {N_QUERIES} queries = "
+        f"{N_QUERIES / ms * 1e3:.0f} qps")
+    assert rec >= BF16_EXACT_RECALL, rec
+    rows["exact"] = dict(store_mb=bf16_mb, f32_store_mb=f32_mb, recall=rec,
+                         ms=ms, qps=N_QUERIES / ms * 1e3)
+    bidx = vt.FlatIndex(x, config=vt.FlatConfig(
+        dtype="bfloat16", engine="bucket", bucket_rescore=True))
+    bres = bidx.search_batch(qd, TOP_K)
+    assert (bres.ids >= 0).all() and np.isfinite(bres.distances).all()
+    brec = vt.recall_at_k(bres.ids, truth.ids)
+    bms = cuda_ms(torch, lambda: bidx.search_batch_device(qd, TOP_K), reps=2)
+    log(f"bf16 flat store, bucket + rescore: recall@10 {brec:.4f}, {bms:.2f} "
+        f"ms / {N_QUERIES} queries")
+    assert brec >= BF16_BUCKET_RECALL, brec
+    rows["bucket_rescore"] = dict(recall=brec, ms=bms)
+    del bidx, bres
+    torch.cuda.empty_cache()
+
+    # -- distance_topk at "default" and "high": the f32 corpus and the --
+    # -- bf16 store ------------------------------------------------------
+    corpora = {"f32": xd, "bf16": store}
+    settings = [(c, p, qn) for c in corpora for p in ("default", "high")
+                for qn in A8_QUERIES]
+    for c, p, qn in settings:
+        d, i = cuda_topk.distance_topk(qd[:qn], corpora[c], N, TOP_K,
+                                       precision=p)
+        assert (i >= 0).all() and bool(torch.isfinite(d).all()), (c, p, qn)
+
+    # -- the README flow and the demo, on the card -----------------------
+    emb = vt.load_wiki()  # no file here: the synthetic royal-words corpus
+    t0 = time.perf_counter()
+    readme = vt.HNSW(ef_construction=100, num_layers=8, ef_search=32,
+                     num_neighbours=8)
+    readme.build_index(emb)
+    build_s = time.perf_counter() - t0
+    assert readme.index.device == dev, readme.index.device
+    found = readme.search(emb.get("queen"), top_k=TOP_K)
+    log(f"README flow: load_wiki() ({len(emb)} x {emb.vectors.shape[1]}), "
+        f"HNSW(100, 8, 32, 8) built on the card in {build_s:.2f} s; the "
+        f"queen's neighbours: {', '.join(f'{w} {d:.4f}' for w, d in found)}")
+    words = [w for w, _ in found]
+    assert words[0] == "queen" and len(set(words) & set(ROYAL_WORDS)) >= 5
+    rows["readme"] = dict(build_s=build_s, neighbours=found)
+    del readme
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        demo_res = demo.main(["--index", "ivfflat"])
+    for line in out.getvalue().splitlines():
+        log(f"  demo: {line}")
+    assert f"on {dev}" in out.getvalue(), out.getvalue()
+    words = [w for w, _ in demo_res]
+    assert words[0] == "queen" and len(set(words) & set(ROYAL_WORDS)) >= 5
+    rows["demo_ivfflat"] = [w for w, _ in demo_res]
+
+    launches = dict(routes=dict(cuda_topk.LAUNCHES_BY_ROUTE),
+                    topk_values=cuda_topk.LAUNCHES_VALUES,
+                    bucket_scan=cuda_bucket.LAUNCHES,
+                    packed_scan=cuda_binned.LAUNCHES)
+    log(f"kernel launches in phase 8: {launches}")
+    for route in ("bf16/highest", "bf16/default", "bf16/high", "f32/default",
+                  "f32/high"):
+        assert launches["routes"].get(route, 0) > 0, (route, launches)
+    # the demo's harness searches on the host (search_approximate): no
+    # kernel B there
+    assert launches["topk_values"] > 0 and launches["bucket_scan"] > 0, launches
+
+    # -- kernel A's routes against their plain versions ------------------
+    def hold(c, p, qn):
+        return hold_kernel_a(torch, qd[:qn], corpora[c], N, TOP_K,
+                             f"phase 8's {c} corpus", precision=p,
+                             reps=2 if qn >= N_QUERIES else 5)
+
+    a_rows = {"bf16/highest": {N_QUERIES: hold("bf16", "highest", N_QUERIES)}}
+    for c, p, qn in settings:
+        a_rows.setdefault(f"{c}/{p}", {})[qn] = hold(c, p, qn)
+    del flat, store, corpora
+    torch.cuda.empty_cache()
+
+    # -- the native IO against the Python readers ------------------------
+    assert native.available(), "the native IO library did not build"
+    io_dir = ROOT / "vers_tpu_torch" / "_build"
+    vec_path, idx_path = io_dir / "smoke_native.vec", io_dir / "smoke_native.index"
+    try:
+        # the text write_vec_file writes (4 decimals), a row per format
+        words = [f"w{j}" for j in range(NATIVE_ROWS)]
+        t0 = time.perf_counter()
+        fmt = " ".join(["%.4f"] * DIM)
+        with open(vec_path, "w", encoding="utf-8") as fp:
+            fp.write(f"{NATIVE_ROWS} {DIM}\n")
+            fp.writelines(f"{w} {fmt % tuple(r)}\n" for w, r in
+                          zip(words, x[:NATIVE_ROWS].tolist()))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nw, ne = load_vec_file(str(vec_path), DIM)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pw, pe = parse_vec_python(str(vec_path), DIM)
+        python_s = time.perf_counter() - t0
+        assert nw == pw == words and np.array_equal(ne, pe), "vec readers differ"
+        assert np.allclose(ne, x[:NATIVE_ROWS], rtol=0.0, atol=6e-5)
+        log(f"native .vec parser, {NATIVE_ROWS} x {DIM} "
+            f"({vec_path.stat().st_size / 1e6:.0f} MB, written in "
+            f"{write_s:.1f} s): equal to the Python reader; {native_s:.2f} s "
+            f"vs {python_s:.2f} s")
+        rows["vec"] = dict(rows=NATIVE_ROWS, native_s=native_s,
+                           python_s=python_s)
+        t0 = time.perf_counter()
+        h = HNSWIndex.build_index_batched(*NATIVE_HNSW_ARGS, x[:NATIVE_ROWS])
+        torch.cuda.synchronize()
+        hb_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h.save_index(str(idx_path))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        a = HNSWIndex.load_index(str(idx_path))
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = HNSWIndex._load_index_python(str(idx_path), DIM)
+        python_s = time.perf_counter() - t0
+        assert a.device == b.device == dev
+        assert a.get_num_nodes_in_layers() == b.get_num_nodes_in_layers() == \
+            h.get_num_nodes_in_layers()
+        for la, lb in zip(a.layers, b.layers):
+            assert la.adjacency.keys() == lb.adjacency.keys()
+            assert all(la.adjacency[n].neighbours == lb.adjacency[n].neighbours
+                       for n in lb.adjacency)
+        assert a._id_row == b._id_row
+        assert np.array_equal(a._vecs[: a._rows_used], b._vecs[: b._rows_used])
+        ra = a.search_batch(qd[:HNSW_SLICE], TOP_K)
+        rb = b.search_batch(qd[:HNSW_SLICE], TOP_K)
+        assert np.array_equal(ra.ids, rb.ids)
+        assert np.array_equal(ra.distances, rb.distances)
+        log(f"native HNSW scanner, {NATIVE_ROWS}-row index "
+            f"{NATIVE_HNSW_ARGS} ({idx_path.stat().st_size / 1e6:.0f} MB; "
+            f"built {hb_s:.1f} s, saved {save_s:.1f} s): the same layers, "
+            f"vectors and searches as the Python reader; {native_s:.2f} s vs "
+            f"{python_s:.2f} s")
+        rows["hnsw_file"] = dict(rows=NATIVE_ROWS, native_s=native_s,
+                                 python_s=python_s, save_s=save_s)
+        del h, a, b
+    finally:
+        vec_path.unlink(missing_ok=True)
+        idx_path.unlink(missing_ok=True)
+    return rows, a_rows, launches
 
 
 def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
@@ -710,9 +957,9 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
     sf = parallel.ShardedFlatIndex(x, mesh=mesh)
     torch.cuda.synchronize()
     place_s = time.perf_counter() - t0
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     res = sf.search_batch(qd, TOP_K)
-    assert cuda_topk.LAUNCHES == before + S, cuda_topk.LAUNCHES - before
+    assert cuda_topk.launches() == before + S, cuda_topk.launches() - before
     assert_topk_match(res.distances, res.ids, truth.distances, truth.ids,
                       rtol=0.0, atol=TOL)
     err = max_abs_diff(res.distances, truth.distances)
@@ -836,10 +1083,10 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
                                                     route_mode="beam"), None
     qs = qd2[:HNSW_SLICE]
     sh = parallel.ShardedHNSWIndex(h, mesh=mesh)
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     want = h.search_batch(qs, TOP_K)
     got = sh.search_batch(qs, TOP_K)
-    assert cuda_topk.LAUNCHES == before  # the beam route runs no scan
+    assert cuda_topk.launches() == before  # the beam route runs no scan
     assert_topk_match(got.distances, got.ids, want.distances, want.ids,
                       rtol=0.0, atol=TOL)
     ms = timed(lambda: sh._search_batch_rows(qs, TOP_K), 3)[1]
@@ -894,11 +1141,11 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
     cache = ph._ensure_device_cache()
     torch.cuda.synchronize()
     cache_s = time.perf_counter() - t0
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     with captured_route_scan() as captured:  # shard 0's, for hold_shard_kernels
         res = ph.search_batch(qd, TOP_K)
     held["a_route"] = captured[0]
-    per_search = cuda_topk.LAUNCHES - before
+    per_search = cuda_topk.launches() - before
     assert per_search == S, per_search  # a routing scan a shard
     rec = vt.recall_at_k(res.ids, truth.ids)
     assert (np.diff(res.distances, axis=1) >= 0).all()
@@ -981,33 +1228,8 @@ def hold_shard_kernels(torch, qd, held):
     on inputs captured from that phase's own searches (see the module
     docstring). Returns (kernel A's rows, kernel B's rows) for the
     ``kernels`` line."""
-    from vers_tpu_torch.ops import cuda_topk
-    from vers_tpu_torch.ops.topk import fused_scan_topk
-    from vers_tpu_torch.utils import roofline
-    from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
-
     part, count = held["a_shard"]
-    ka = cuda_topk.cuda_distance_topk(qd, part, count, TOP_K)
-    again = cuda_topk.cuda_distance_topk(qd, part, count, TOP_K)
-    assert torch.equal(ka[0], again[0]) and torch.equal(ka[1], again[1])
-    pa = fused_scan_topk(qd, part, count, TOP_K)
-    assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=TOL)
-    err = max_abs_diff(ka[0], pa[0])
-    del ka, again, pa
-    ms = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(qd, part, count,
-                                                             TOP_K), reps=3)
-    plain = cuda_ms(torch, lambda: fused_scan_topk(qd, part, count, TOP_K),
-                    reps=1)
-    sms = torch.cuda.get_device_properties(qd.device).multi_processor_count
-    n_split, split_rows = cuda_topk.split_geometry(qd.shape[0], count, sms)
-    bound = roofline.distance_topk_bound(qd.shape[0], count, DIM, TOP_K)
-    log(f"kernel A vs plain on one shard (Q={qd.shape[0]} over {count} rows): "
-        f"max |d| {err:g}, {ms:.3f} ms vs {plain:.2f} ms; {n_split} splits of "
-        f"{split_rows} rows; bound {bound['bound_ms']:.3f} ms "
-        f"({bound['bound_by']})")
-    a_row = dict(q=qd.shape[0], rows=count, n_split=n_split, max_abs_err=err,
-                 ms=ms, plain_ms=plain, bound_ms=bound["bound_ms"],
-                 bound_by=bound["bound_by"])
+    a_row = hold_kernel_a(torch, qd, part, count, TOP_K, "one shard", reps=3)
     a_rows = {"shard_scan": a_row,
               "partitioned_hnsw_route_scan": hold_route_scan(
                   torch, held["a_route"],
@@ -1072,7 +1294,7 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
 
     # -- the main path, counted --------------------------------------
-    cuda_topk.LAUNCHES = 0
+    cuda_topk.LAUNCHES_BY_ROUTE.clear()
     cuda_binned.LAUNCHES = 0
 
     flat = vt.FlatIndex(x)
@@ -1200,10 +1422,13 @@ def main():
     log(f"save/load round trip: identical ids, max |d distance| {rt_err:g} "
         f"({io_s:.1f} s for {path.name})")
 
-    launches = {"distance_topk": cuda_topk.LAUNCHES,
+    launches = {"distance_topk": cuda_topk.launches(),
                 "packed_scan": cuda_binned.LAUNCHES}
-    log(f"kernel launches on the main path: {launches}")
+    main_routes = dict(cuda_topk.LAUNCHES_BY_ROUTE)
+    log(f"kernel launches on the main path: {launches}, kernel A by route "
+        f"{main_routes}")
     assert all(n > 0 for n in launches.values()), launches
+    assert main_routes == {"f32/highest": launches["distance_topk"]}
 
     # -- the forest, kernel B's second caller, counted on its own -----
     forest_rows, forest_scans, forest_launches, forest = forest_phase(
@@ -1221,15 +1446,20 @@ def main():
 
     # -- the multi-device layer: kernels A, B and C at shard-local ----
     # -- shapes, counted on its own -----------------------------------
-    cuda_topk.LAUNCHES = cuda_topk.LAUNCHES_VALUES = 0
+    cuda_topk.LAUNCHES_VALUES = 0
+    cuda_topk.LAUNCHES_BY_ROUTE.clear()
     cuda_binned.LAUNCHES = cuda_bucket.LAUNCHES = 0
     parallel_rows, held = parallel_phase(
         torch, vt, x, qd, truth, dev, ivf, forest, hnsw_index, qd2)
-    parallel_launches = {"distance_topk": cuda_topk.LAUNCHES,
+    parallel_launches = {"distance_topk": cuda_topk.launches(),
                          "packed_scan": cuda_binned.LAUNCHES,
                          "topk_values": cuda_topk.LAUNCHES_VALUES,
                          "bucket_scan": cuda_bucket.LAUNCHES}
-    log(f"kernel launches in the multi-device phase: {parallel_launches}")
+    parallel_routes = dict(cuda_topk.LAUNCHES_BY_ROUTE)
+    log(f"kernel launches in the multi-device phase: {parallel_launches}, "
+        f"kernel A by route {parallel_routes}")
+    assert set(parallel_routes) == {"f32/highest", "bf16/default"}, \
+        parallel_routes
     assert all(parallel_launches[k] > 0 for k in
                ("distance_topk", "packed_scan", "topk_values")), parallel_launches
     assert parallel_launches["bucket_scan"] == 0  # no caller in parallel/
@@ -1237,6 +1467,12 @@ def main():
     torch.cuda.empty_cache()
     shard_a, shard_b = hold_shard_kernels(torch, qd, held)
     del held
+    torch.cuda.empty_cache()
+
+    # -- kernel A's other routes, the bf16 store, the README flow, the --
+    # -- demo and the native IO, counted on their own -----------------
+    bf16_rows, route_rows, bf16_launches = bf16_phase(
+        torch, vt, x, qd, truth, flat._store.data)
     torch.cuda.empty_cache()
 
     # -- each kernel against its plain version, on the card, at the --
@@ -1397,23 +1633,60 @@ def main():
     del scans
 
     bound_a = roofline.distance_topk_bound(N_QUERIES, N, DIM, TOP_K)
+    by_route = {"flat": main_routes, "hnsw": hnsw_rows["launches_by_route"],
+                "parallel": parallel_routes, "phase8": bf16_launches["routes"]}
+
+    def route_launches(route):
+        return sum(r.get(route, 0) for r in by_route.values())
+
+    # kernel A, an entry a route: f32/highest (``distance_topk``) held at
+    # phase 1's query counts and on one shard; every other route at Q =
+    # 16384 over phase 1's corpus (f32) or the bf16 store, bf16/default
+    # also on the two routing scans of HNSW
+    shard_scan = shard_a["shard_scan"]
+    part_scan = shard_a["partitioned_hnsw_route_scan"]
+
+    def by_phase(route):
+        return {ph: r.get(route, 0) for ph, r in by_route.items()}
+
+    route_entries = [
+        {"name": f"distance_topk[{route}]", "route": "cuda",
+         "source": "vers_tpu_torch/csrc/distance_topk.cu",
+         "replaces": "vers_tpu/ops/pallas_topk.py:294",
+         "launches": route_launches(route),
+         "launches_by_phase": by_phase(route),
+         "max_abs_err": max(r["max_abs_err"] for r in by_q.values()),
+         "ms": by_q[N_QUERIES]["ms"], "plain_ms": by_q[N_QUERIES]["plain_ms"],
+         "bound_ms": by_q[N_QUERIES]["bound_ms"],
+         "bound_by": by_q[N_QUERIES]["bound_by"], "library_ms": None,
+         "shape": f"Q={N_QUERIES} N={N} d={DIM} k={TOP_K} "
+                  f"{route.split('/')[0]} corpus, precision "
+                  f"{route.split('/')[1]}",
+         "by_q": by_q}
+        for route, by_q in route_rows.items()]
+    for e in route_entries:
+        if e["name"] == "distance_topk[bf16/highest]":
+            e["phase8"] = bf16_rows
+        if e["name"] == "distance_topk[bf16/default]":
+            e["max_abs_err"] = max(e["max_abs_err"], hnsw_scan["max_abs_err"],
+                                   part_scan["max_abs_err"])
+            e["hnsw_route_scan"] = hnsw_scan
+            e["partitioned_hnsw_route_scan"] = part_scan
+            e["hnsw"] = hnsw_rows
     kernels = [
         {"name": "distance_topk", "route": "cuda",
          "source": "vers_tpu_torch/csrc/distance_topk.cu",
          "replaces": "vers_tpu/ops/pallas_topk.py:294",
-         "launches": launches["distance_topk"] + hnsw_launches
-                     + parallel_launches["distance_topk"],
-         "launches_flat": launches["distance_topk"],
-         "launches_hnsw": hnsw_launches,
-         "launches_parallel": parallel_launches["distance_topk"],
-         "max_abs_err": max(err_a, hnsw_scan["max_abs_err"],
-                            *(r["max_abs_err"] for r in shard_a.values())),
+         "launches": route_launches("f32/highest"),
+         "launches_by_phase": by_phase("f32/highest"),
+         "max_abs_err": max(err_a, shard_scan["max_abs_err"]),
          "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a["bound_ms"],
          "bound_by": bound_a["bound_by"], "library_ms": None,
-         "shape": f"Q={N_QUERIES} N={N} d={DIM} k={TOP_K}",
+         "shape": f"Q={N_QUERIES} N={N} d={DIM} k={TOP_K} f32 corpus, "
+                  f"precision highest",
          "by_q": a_rows, "search_approximate_ms": single_ms,
-         "hnsw_route_scan": hnsw_scan, "hnsw": hnsw_rows,
-         "parallel_scans": shard_a, "parallel": parallel_rows},
+         "shard_scan": shard_scan, "parallel": parallel_rows},
+        *route_entries,
         {"name": "packed_scan", "route": "cuda",
          "source": "vers_tpu_torch/csrc/packed_scan.cu",
          "replaces": "vers_tpu/ops/pallas_binned.py:235",
@@ -1436,9 +1709,11 @@ def main():
          "source": "vers_tpu_torch/csrc/topk_values.cu",
          "replaces": "vers_tpu/ops/pallas_topk.py:230",
          "launches": engine_launches["topk_values"]
-                     + parallel_launches["topk_values"],
+                     + parallel_launches["topk_values"]
+                     + bf16_launches["topk_values"],
          "launches_flat_engines": engine_launches["topk_values"],
          "launches_parallel": parallel_launches["topk_values"],
+         "launches_phase8": bf16_launches["topk_values"],
          "max_abs_err": 0.0,
          "ms": c_rows[TOP_K]["ms"], "plain_ms": c_rows[TOP_K]["plain_ms"],
          "bound_ms": c_rows[TOP_K]["bound_ms"],
@@ -1449,8 +1724,10 @@ def main():
         {"name": "bucket_scan", "route": "cuda",
          "source": "vers_tpu_torch/csrc/bucket_scan.cu",
          "replaces": "vers_tpu/ops/pallas_bucket.py:109",
-         "launches": engine_launches["bucket_scan"],
+         "launches": engine_launches["bucket_scan"]
+                     + bf16_launches["bucket_scan"],
          "launches_parallel": parallel_launches["bucket_scan"],
+         "launches_phase8": bf16_launches["bucket_scan"],
          "max_abs_err": max(r["max_abs_err"] for r in d_rows.values()),
          "ms": d_rows[N_QUERIES]["ms"], "plain_ms": d_rows[N_QUERIES]["plain_ms"],
          "bound_ms": d_rows[N_QUERIES]["bound_ms"],

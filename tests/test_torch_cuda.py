@@ -84,10 +84,10 @@ def test_distance_topk_kernel_matches_plain(cuda, metric, q_n, n, n_valid, d, k)
     if metric == "cosine":
         x = torch.nn.functional.normalize(x, dim=1)
         q = torch.nn.functional.normalize(q, dim=1)
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     got = cuda_topk.cuda_distance_topk(q, x, n_valid, k, metric=metric)
     torch.cuda.synchronize()
-    assert cuda_topk.LAUNCHES == before + 1
+    assert cuda_topk.launches() == before + 1
     _check(got, fused_scan_topk(q, x, n_valid, k, metric=metric, chunk_size=256))
 
 
@@ -114,10 +114,10 @@ def _corpus(cuda, n, d, seed, scale=1.0):
 
 def _count(fn):
     """fn()'s result and the launches of kernels A and C it made."""
-    a, c = cuda_topk.LAUNCHES, cuda_topk.LAUNCHES_VALUES
+    a, c = cuda_topk.launches(), cuda_topk.LAUNCHES_VALUES
     out = fn()
     torch.cuda.synchronize()
-    return out, cuda_topk.LAUNCHES - a, cuda_topk.LAUNCHES_VALUES - c
+    return out, cuda_topk.launches() - a, cuda_topk.LAUNCHES_VALUES - c
 
 
 @pytest.mark.parametrize("metric", ["sq_euclidean", "cosine"])
@@ -192,12 +192,143 @@ def test_distance_topk_wide_rows(cuda, d, k):
     _check(got, fused_scan_topk(q, x, 19_999, k))
 
 
+ROUTES = [(dtype, precision) for dtype in (torch.float32, torch.bfloat16)
+          for precision in ("highest", "high", "default")]
+
+
+@pytest.mark.parametrize("dtype,precision", ROUTES)
+@pytest.mark.parametrize("q_n,n,n_valid,d,k,metric", [
+    (100, 3000, 2999, 37, 10, "sq_euclidean"),  # odd d: 2-byte bf16 loads
+    (130, 1000, 900, 300, cuda_topk.MAX_K, "cosine"),  # queries through L1
+    (70, 5000, 5000, 64, 8, "cosine"),  # 16-byte rows: one copy a unit
+    (200, 4000, 3999, 300, 10, "sq_euclidean"),  # 4-byte bf16 copies
+    (7, 200, 5, 8, 9, "sq_euclidean"),  # k > n_valid: (+inf, -1) tail
+])
+def test_distance_topk_routes_match_plain(cuda, dtype, precision, q_n, n,
+                                          n_valid, d, k, metric):
+    """Each of kernel A's six routes (corpus f32 or bf16, precision
+    highest, high or default) against the plain version at the same
+    setting: exact products summed in f32 on both sides."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32)).to(cuda)
+    if metric == "cosine":
+        x = torch.nn.functional.normalize(x, dim=1)
+        q = torch.nn.functional.normalize(q, dim=1)
+    x = x.to(dtype)
+    route = cuda_topk.route_name(dtype, precision)
+    before = cuda_topk.LAUNCHES_BY_ROUTE.get(route, 0)
+    got = cuda_topk.cuda_distance_topk(q, x, n_valid, k, metric=metric,
+                                       precision=precision)
+    torch.cuda.synchronize()
+    assert cuda_topk.LAUNCHES_BY_ROUTE[route] == before + 1
+    want = fused_scan_topk(q, x, n_valid, k, metric=metric, chunk_size=256,
+                           precision=precision)
+    _check(got, want)
+    if precision == "default" and d == 300:  # the products really round
+        exact = fused_scan_topk(q, x, n_valid, k, metric=metric,
+                                precision="highest")
+        near = float((got[0] - want[0]).abs().max())
+        far = float((got[0] - exact[0]).abs().max())
+        assert far > 10 * near, (near, far)
+
+
+# Rows whose every value is hi + lo + r, three bf16 parts: hi = bf16(v),
+# lo = bf16(v - hi) = SEP_LO > 0, r = v - hi - lo = SEP_R > 0. Then each
+# setting's q . x differs from its neighbour's by a sum of same-signed
+# terms over d: "high" drops lo_q lo_x and r_q hi_x of "highest"; over a
+# bf16 corpus (lo_x = 0) it drops r_q hi_x; "default" drops lo_q hi_x.
+# The corpus's hi lie in [1.4, 1.6); the query's come in pairs (a, -a)
+# of adjacent features, so q . x and its partial sums stay small (|d| <
+# 8): the tensor cores' f32 accumulation, which rounds toward zero, then
+# stays well inside SEP_ATOL of the plain version, while the settings lie
+# ~3e-3 apart at d = 300 (~7.5e-3 for "high" against "highest" over the
+# f32 corpus).
+SEP_LO, SEP_R = 1.9375 * 2.0**-9, 1.875 * 2.0**-18
+SEP_ATOL = 1e-4  # kernel vs plain at one setting on these rows
+
+
+def _three_part_rows(rng, n, d, paired):
+    if paired:
+        a = rng.uniform(1.01, 1.99, size=(n, d // 2))
+        a *= rng.choice([-1.0, 1.0], size=a.shape)
+        hi = np.stack([a, -a], axis=2).reshape(n, d)
+    else:
+        hi = rng.uniform(1.4, 1.6, size=(n, d))
+    hi = torch.from_numpy(hi.astype(np.float32)).to(torch.bfloat16).float()
+    return hi + SEP_LO + SEP_R
+
+
+@pytest.mark.parametrize("dtype,precision", ROUTES)
+def test_distance_topk_routes_are_distinct(cuda, dtype, precision):
+    """Each route is held to its own plain version at rtol 0, and each
+    neighbouring setting's plain result is further from the kernel's,
+    at every rank, than ten times that gap: a kernel that ran "high" as
+    "highest" (or the reverse), or a bf16 corpus at "highest" with two
+    query parts, fails."""
+    rng = np.random.default_rng(16)
+    x = _three_part_rows(rng, 4000, 300, paired=False)
+    q = _three_part_rows(rng, 200, 300, paired=True)
+    xh = x.to(torch.bfloat16).float()
+    assert bool(((x - xh).to(torch.bfloat16).float() == SEP_LO).all())
+    assert bool((x - xh - SEP_LO == SEP_R).all())
+    x, q = x.to(cuda).to(dtype), q.to(cuda)
+    got = cuda_topk.cuda_distance_topk(q, x, 3999, 10, metric="cosine",
+                                       precision=precision)
+    plain = {p: fused_scan_topk(q, x, 3999, 10, metric="cosine",
+                                precision=p)
+             for p in ("highest", "high", "default")}
+    want = plain.pop(precision)
+    assert_topk_match(got[0], got[1], want[0], want[1], rtol=0.0,
+                      atol=SEP_ATOL)
+    near = float((got[0] - want[0]).abs().max())
+    for other, res in plain.items():
+        far = float((got[0] - res[0]).abs().min())
+        assert far > 10 * near and far > 2 * SEP_ATOL, (other, near, far)
+
+
+@pytest.mark.parametrize("dtype,precision", ROUTES[1:])
+def test_distance_topk_routes_split_corpus(cuda, dtype, precision):
+    """The routes over 200k x 300 rows at small Q: split across blocks,
+    kernel C over the splits, ties across split boundaries to the lower
+    row (rows r and r + 100000 are equal), repeat calls bit-identical."""
+    base, rng = _corpus(cuda, 100_000, 300, 13)
+    x = torch.cat([base, base]).to(dtype).contiguous()
+    q = base[rng.integers(0, 100_000, 65)] + 0.05 * torch.from_numpy(
+        rng.normal(size=(65, 300)).astype(np.float32)).to(cuda)
+    n_valid = 200_000 - 77
+    got, a, c = _count(lambda: cuda_topk.cuda_distance_topk(
+        q, x, n_valid, 10, precision=precision))
+    assert (a, c) == (1, 1)
+    d, i = got[0].cpu().numpy(), got[1].cpu().numpy()
+    same = d[:, 1:] == d[:, :-1]
+    assert same.any()
+    assert (i[:, 1:][same] > i[:, :-1][same]).all()
+    _check(got, fused_scan_topk(q, x, n_valid, 10, precision=precision))
+    again = cuda_topk.cuda_distance_topk(q, x, n_valid, 10, precision=precision)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_distance_topk_bf16_unaligned_rows(cuda):
+    """A bf16 corpus view starting one row in (d = 300: rows 8-byte
+    aligned, the base not 16) takes the 4-byte copies and agrees."""
+    x, rng = _corpus(cuda, 3001, 300, 14)
+    xb = x.to(torch.bfloat16)[1:]
+    q = torch.from_numpy(rng.normal(size=(80, 300)).astype(np.float32)).to(cuda)
+    got = cuda_topk.cuda_distance_topk(q, xb, 3000, 10)
+    _check(got, fused_scan_topk(q, xb, 3000, 10))
+
+
 def test_kernel_wrappers_reject_bad_inputs(cuda):
     x = torch.zeros((256, 8), device=cuda)
     with pytest.raises(TypeError):
         cuda_topk.cuda_distance_topk(x.double(), x.double(), 256, 4)
     with pytest.raises(ValueError):
         cuda_topk.cuda_distance_topk(x.cpu(), x, 256, 4)
+    with pytest.raises(TypeError):  # queries are f32 on every route
+        cuda_topk.cuda_distance_topk(x.bfloat16(), x.bfloat16(), 256, 4)
+    with pytest.raises(ValueError):
+        cuda_topk.cuda_distance_topk(x, x, 256, 4, precision="fastest")
     with pytest.raises(ValueError):
         cuda_topk.cuda_distance_topk(x, x, 256, cuda_topk.MAX_K + 1)
 
@@ -396,6 +527,36 @@ def test_flat_bucket_engine_add_drops_prepared_corpus(cuda):
     assert idx._bucket_corpus is None
     assert idx.search_batch(v[None, :], 1).ids[0, 0] == 777
     assert idx.bucket_corpus() is not prep
+
+
+@pytest.mark.parametrize("d", [64, 300])
+@pytest.mark.parametrize("engine,rescore", [("exact", False),
+                                            ("bucket", False),
+                                            ("bucket", True)])
+def test_flat_bf16_store_on_cuda_matches_cpu(cuda, d, engine, rescore):
+    """``FlatIndex(dtype="bfloat16")`` on the card (kernel A's bf16
+    route; kernels D and C over the store, itself kernel D's corpus at d
+    = 64, a padded copy at d = 300) against the same index on the CPU."""
+    import vers_tpu_torch as vt
+
+    x, rng = _corpus(cuda, 5000, d, 15)
+    x = x.cpu().numpy()
+    q = x[rng.integers(0, 5000, 70)] + 0.05 * rng.normal(
+        size=(70, d)).astype(np.float32)
+    cfg = vt.FlatConfig(dtype="bfloat16", engine=engine,
+                        bucket_rescore=rescore)
+    card = vt.FlatIndex(x, config=cfg)
+    before = dict(cuda_topk.LAUNCHES_BY_ROUTE)
+    got = card.search_batch(q, 10)
+    if engine == "exact":
+        assert (cuda_topk.LAUNCHES_BY_ROUTE["bf16/highest"]
+                == before.get("bf16/highest", 0) + 1)
+    else:
+        prep = card.bucket_corpus()
+        store = card._store.data
+        assert (prep.rows.data_ptr() == store.data_ptr()) == (d % 16 == 0)
+    want = vt.FlatIndex(x, config=cfg, device="cpu").search_batch(q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))
 
 
 def test_bucket_table_kernel_tie_order(cuda):
@@ -828,10 +989,10 @@ def test_hnsw_scan_route_launches_kernel_a(hnsw_card):
     from vers_tpu_torch.ops import beam
     from vers_tpu_torch.utils.harness import recall_at_k
 
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     res = idx.search_batch(q, 10)
     torch.cuda.synchronize()
-    assert cuda_topk.LAUNCHES == before + 1
+    assert cuda_topk.launches() == before + 1
     truth = np.argsort(-(q @ x.T), axis=1)[:, :10]
     assert recall_at_k(res.ids, truth) > 0.95
     # the scan's kernel result against its plain version on the card
@@ -843,9 +1004,9 @@ def test_hnsw_scan_route_launches_kernel_a(hnsw_card):
                            metric="cosine")
     assert_topk_match(got[0], got[1], want[0], want[1], rtol=0.0, atol=1e-5)
     card, _ = _hnsw_pair(hnsw_card, route_mode="beam")
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     card.search_batch(q[:8], 10)
-    assert cuda_topk.LAUNCHES == before  # no scan on the beam route
+    assert cuda_topk.launches() == before  # no scan on the beam route
 
 
 def test_hnsw_build_index_device_on_cuda_tensor(hnsw_card):
@@ -899,9 +1060,9 @@ def test_hnsw_route_scan_raises_on_bad_input(hnsw_card):
             idx.search_batch(q[:4], 10)
     finally:
         idx.config, idx.ef_search = old, 32
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     idx.search_batch(q[:4], 10)
-    assert cuda_topk.LAUNCHES == before + 1
+    assert cuda_topk.launches() == before + 1
 
 
 # -- the multi-device layer: four shards on one card ----------------------
@@ -943,9 +1104,9 @@ def test_sharded_flat_on_cuda_matches_single(cuda, metric):
     assert all(p.is_cuda for p in sharded._data)
     single = vt.FlatIndex(x, ids=np.arange(30_001) + 7,
                           config=vt.FlatConfig(metric=metric), device="cuda")
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     got = sharded.search_batch(q, 10)
-    assert cuda_topk.LAUNCHES == before + 4  # kernel A once a shard
+    assert cuda_topk.launches() == before + 4  # kernel A once a shard
     want = single.search_batch(q, 10)
     _check((got.distances, got.ids), (want.distances, want.ids))
     d, ids = sharded.search_batch_device(torch.from_numpy(q).cuda(), 10)
@@ -1056,9 +1217,9 @@ def test_partitioned_hnsw_on_cuda_matches_cpu(cuda):
     cpu = vt.PartitionedHNSWIndex.build_index(3, 32, 32, 8, x,
                                               mesh=make_mesh(4, device="cpu"),
                                               batched=False)
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     got = card.search_batch(q, 10)
-    assert cuda_topk.LAUNCHES == before + 4  # a routing scan a shard
+    assert cuda_topk.launches() == before + 4  # a routing scan a shard
     want = cpu.search_batch(q, 10)
     # as the single-device HNSW test: rows may differ only at near-ties
     # of bf16 nav distances

@@ -171,18 +171,23 @@ def test_flat_matches_jax(data, metric):
 
 
 def test_flat_unported_engines_raise(data):
-    """Every engine of the JAX package is ported; an unknown one and the
-    unported bf16 store raise."""
+    """Every engine and store dtype of the JAX package is ported (the
+    bf16 store: tests/test_torch_flat_bf16.py); an unknown engine or
+    dtype raises."""
     x, q = data
     idx = vers_tpu_torch.FlatIndex(
         x[:100], config=vers_tpu_torch.FlatConfig(engine="nope"),
         device="cpu")
     with pytest.raises(ValueError, match="engine"):
         idx.search_batch(q, 5)
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="dtype"):
         vers_tpu_torch.FlatIndex(
-            x[:100], config=vers_tpu_torch.FlatConfig(dtype="bfloat16"),
+            x[:100], config=vers_tpu_torch.FlatConfig(dtype="float16"),
             device="cpu")
+    bf16 = vers_tpu_torch.FlatIndex(
+        x[:100], config=vers_tpu_torch.FlatConfig(dtype="bfloat16"),
+        device="cpu")
+    assert bf16.search_batch(q, 5).ids.shape == (len(q), 5)
 
 
 def test_recall_and_exhaustive_match_jax(data):

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of vers_tpu_torch, no tool and not
-the smoke script imports jax or the JAX package, and importing the
-package pulls in neither."""
+"""The port stands alone: no module of vers_tpu_torch (the README API,
+the demo and the native IO included), no tool and not the smoke script
+imports jax or the JAX package, the native IO builds from the port's own
+copy of its C++ source, and importing the package pulls in neither."""
 
 import ast
 import pathlib
@@ -26,7 +27,12 @@ def test_no_jax_or_vers_tpu_imports():
     assert len(files) >= 30
     assert {"lsh.py", "rpforest.py", "forest_shared.py", "time_kernel_b.py",
             "chip_smoke.py", "beam.py", "beam_inline.py", "hnsw_build.py",
-            "hnsw.py", "config.py"} <= {f.name for f in files}
+            "hnsw.py", "config.py", "compat.py", "demo.py", "__main__.py",
+            "version.py", "logging.py"} <= {f.name for f in files}
+    # the native IO: the port's own copy of the C++ source
+    assert (PKG / "native" / "__init__.py") in files
+    source = PKG / "native" / "io_native.cpp"
+    assert source.is_file() and not source.is_symlink()
     # the multi-device layer: the ten modules of vers_tpu/parallel/
     parallel = {f.name for f in (PKG / "parallel").glob("*.py")}
     assert parallel == {f.name for f in (root / "vers_tpu" / "parallel").glob(
@@ -55,7 +61,9 @@ def test_import_loads_neither_jax_nor_vers_tpu():
         "vers_tpu_torch.parallel.sharded_index, vers_tpu_torch.parallel.ivf, "
         "vers_tpu_torch.parallel.lsh, vers_tpu_torch.parallel.lsh_partitioned, "
         "vers_tpu_torch.parallel.partitioned, vers_tpu_torch.parallel.hnsw, "
-        "vers_tpu_torch.parallel.hnsw_partitioned; "
+        "vers_tpu_torch.parallel.hnsw_partitioned, vers_tpu_torch.compat, "
+        "vers_tpu_torch.demo, vers_tpu_torch.__main__, vers_tpu_torch.native, "
+        "vers_tpu_torch.utils.logging, vers_tpu_torch.version; "
         "vers_tpu_torch.ShardedFlatIndex, vers_tpu_torch.PartitionedHNSWIndex; "
         "print(sorted(m for m in set(sys.modules) - before "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'vers_tpu')))"

@@ -76,10 +76,10 @@ def test_distance_topk_matches_pallas_interpret(metric):
         jnp.asarray(q), jnp.asarray(x), n, k, metric=metric,
         query_tile=8, chunk_size=128, interpret=True,
     )
-    before = cuda_topk.LAUNCHES
+    before = cuda_topk.launches()
     td, ti = cuda_topk.distance_topk(torch.from_numpy(q), torch.from_numpy(x),
                                      n, k, metric=metric)
-    assert cuda_topk.LAUNCHES == before  # CPU tensors never launch
+    assert cuda_topk.launches() == before  # CPU tensors never launch
     assert_topk_match(td, ti, np.asarray(pd), np.asarray(pi))
     assert max_abs_diff(td, np.asarray(pd)) < 1e-4
 
@@ -98,13 +98,16 @@ def test_distance_topk_large_k_routes_plain_and_counts():
 
 
 def test_distance_topk_unported_engines_raise():
-    """"approx" and "bucket" are ported (tests/test_torch_bucket.py); an
-    unknown engine and the unported bf16 precision raise."""
+    """"approx" and "bucket" are ported (tests/test_torch_bucket.py), and
+    so is every precision (tests/test_torch_precision.py); an unknown
+    engine or precision raises."""
     x = torch.zeros((8, 4))
     with pytest.raises(ValueError, match="force"):
         cuda_topk.distance_topk(x, x, 8, 2, force="nope")
-    with pytest.raises(ValueError):
-        cuda_topk.distance_topk(x, x, 8, 2, precision="default")
+    with pytest.raises(ValueError, match="precision"):
+        cuda_topk.distance_topk(x, x, 8, 2, precision="fastest")
+    d, i = cuda_topk.distance_topk(x, x, 8, 2, precision="default")
+    assert d.shape == i.shape == (8, 2)
 
 
 def test_kernel_input_checks_reject_cpu_tensors():

@@ -106,6 +106,9 @@ def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
                             b.contiguous().view(torch.int32)))
 
 
+STORE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 class VectorStore:
     """A growable ``(capacity, d)`` corpus with a live-row count — the
     counterpart of the reference's push-based ``Vec<Vector<N>>``
@@ -114,11 +117,16 @@ class VectorStore:
     Capacity is a multiple of ``LANE`` rows and doubles when full; rows
     past ``count`` are zero and consumers mask them out. ``device``: as
     ``resolve_device`` reads it, except that a tensor's own device is
-    kept when none is named.
+    kept when none is named. ``dtype``: ``torch.float32`` or
+    ``torch.bfloat16``; a bf16 store rounds each row once on the way in
+    (to nearest, ties to even, as ``jnp.asarray(..., bfloat16)``), at
+    construction and in ``append``, and keeps the rows at pitch ``d``.
     """
 
     def __init__(self, data, capacity: int | None = None,
                  dtype=torch.float32, device=None):
+        if dtype not in STORE_DTYPES:
+            raise ValueError(f"a store holds float32 or bfloat16, got {dtype}")
         if isinstance(data, torch.Tensor):
             device = device if device is not None else data.device
             data = data.detach().to("cpu", torch.float32).numpy()

@@ -9,6 +9,12 @@ plain version on a CPU index; the approximate engines are
 ``ops/cuda_bucket.py``). A CUDA index keeps kernel D's bf16 copy of the
 corpus and its |x|^2 from the first bucket search until ``add``.
 
+``FlatConfig(dtype="bfloat16")`` keeps the corpus in bf16 (half the
+bytes; each row rounded once on the way in). Its exact engine runs
+kernel A's bf16-corpus route at precision "highest" (f32 queries against
+the bf16 rows); the approx engine and the bucket engine's rescore read
+the bf16 rows widened to f32; ``save_index`` writes them as f32.
+
 With no ``device`` an index lives on the first CUDA card
 (``core.resolve_device``); ``device="cpu"`` runs the plain versions.
 """
@@ -40,10 +46,12 @@ class FlatIndex(Index):
         config: FlatConfig = FlatConfig(),
         device=None,
     ):
-        if config.dtype != "float32":
-            raise ValueError("only dtype='float32' is ported")
+        if config.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype must be 'float32' or 'bfloat16', got "
+                             f"{config.dtype!r}")
         self.config = config
-        self._store = VectorStore(vectors, device=device)
+        self._store = VectorStore(vectors, dtype=getattr(torch, config.dtype),
+                                  device=device)
         self._bucket_corpus = None  # kernel D's corpus, made on first use
         n = self._store.count
         self._ids = np.asarray(

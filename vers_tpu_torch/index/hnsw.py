@@ -122,12 +122,6 @@ def auto_nav_policy(config, n_rows: int, n_pad: int):
     return user_cap, None
 
 
-def _bf16_rows(t: torch.Tensor) -> torch.Tensor:
-    """f32 copy of ``t`` holding its bf16-rounded values (the routing
-    scan's operands: kernel A takes f32)."""
-    return t.to(torch.bfloat16).float()
-
-
 class _Layer:
     __slots__ = ("adjacency",)
 
@@ -892,7 +886,7 @@ class HNSWIndex(Index):
                                  device=dev)]
                 )
             cache["l1_members"][n1] = row
-            cache["l1_tab"][n1] = _bf16_rows(qrow)
+            cache["l1_tab"][n1] = qrow.to(torch.bfloat16)
             cache["n1"] = n1 + 1
         # rows are views into the pending buffers — read them before
         # the next insert mutates them
@@ -1060,15 +1054,15 @@ class HNSWIndex(Index):
         vecs_nav = (vecs_dev.to(torch.bfloat16) if nav_dtype == "bfloat16"
                     else vecs_dev)
         # Layer-1 member table for the routing scan (full_descent_scan):
-        # the layer-1 nodes' vectors, bf16-rounded and held in f32 (the
-        # operands of kernel A), zero past n1
+        # the layer-1 nodes' vectors in bf16 (kernel A's bf16-corpus
+        # route at precision "default"), zero past n1
         l1_mem = g["l1_rows"]
         n1 = int(l1_mem.size)
         if n1:
             n1_pad = round_up(n1, 8)
             l1_members = torch.from_numpy(
                 np.pad(l1_mem, (0, n1_pad - n1)).astype(np.int64)).to(dev)
-            l1_tab = _bf16_rows(vecs_dev[l1_members])
+            l1_tab = vecs_dev[l1_members].to(torch.bfloat16)
             l1_tab[n1:] = 0
         else:
             l1_members = l1_tab = None
@@ -1270,9 +1264,10 @@ class HNSWIndex(Index):
         device=None,
     ) -> "HNSWIndex":
         """Load an index file (ours, the JAX package's or the Rust
-        reference's) with the Python bincode reader. The JAX package
-        first tries its native one-pass scanner (``hnsw_scan``); that
-        reader is not ported yet (ROADMAP 1.12)."""
+        reference's): by the native one-pass scanner
+        (``native.hnsw_scan``) where the native library is available,
+        else by the Python bincode reader (``_load_index_python``); both
+        give the same index."""
         if dim is None:
             # the file doesn't store dim (parity with the reference's
             # const-generic N, `base.rs:45-58`); the layers are d-free,
@@ -1280,6 +1275,19 @@ class HNSWIndex(Index):
             from vers_tpu_torch.io.infer import infer_dim_hnsw
 
             dim = infer_dim_hnsw(file_path)
+        from vers_tpu_torch import native
+
+        scan = native.hnsw_scan(file_path, dim)
+        if scan is not None:
+            return cls._from_native_scan(scan, dim, config, device)
+        return cls._load_index_python(file_path, dim, config, device)
+
+    @classmethod
+    def _load_index_python(cls, file_path: str, dim: int,
+                           config: Optional[HNSWConfig] = None,
+                           device=None) -> "HNSWIndex":
+        """``load_index``'s Python bincode reader (the behavioural
+        reference of the native scanner)."""
         with open(file_path, "rb") as fp:
             r = Reader(fp)
             ef_construction = r.u64()
@@ -1315,4 +1323,45 @@ class HNSWIndex(Index):
         index.dim = dim
         for nid, vec in id_vec_pairs:
             index._set_vec(nid, vec)
+        return index
+
+    @classmethod
+    def _from_native_scan(cls, scan: dict, dim: int,
+                          config: Optional[HNSWConfig],
+                          device=None) -> "HNSWIndex":
+        """An index from the flat arrays of the native one-pass scanner
+        (``native.hnsw_scan``): the same index as the Python reader of
+        ``load_index`` gives."""
+        layers: List[_Layer] = []
+        node_pos = heap_pos = nbr_pos = 0
+        node_ids, heap_lens = scan["node_ids"], scan["heap_lens"]
+        nbr_lens, heap_ids = scan["nbr_lens"], scan["heap_ids"]
+        heap_dists, nbrs = scan["heap_dists"], scan["nbrs"]
+        for count in scan["layer_counts"]:
+            layer = _Layer()
+            for _ in range(int(count)):
+                hlen = int(heap_lens[node_pos])
+                nlen = int(nbr_lens[node_pos])
+                item = AdjacencyItem()
+                for h in range(heap_pos, heap_pos + hlen):
+                    item.insert(int(heap_ids[h]), float(heap_dists[h]))
+                # neighbour set is authoritative (heap may hold dups)
+                item.neighbours = set(
+                    int(x) for x in nbrs[nbr_pos : nbr_pos + nlen])
+                layer.adjacency[int(node_ids[node_pos])] = item
+                node_pos += 1
+                heap_pos += hlen
+                nbr_pos += nlen
+            layers.append(layer)
+        index = cls(int(scan["ef_construction"]), int(scan["ef_search"]),
+                    int(scan["num_layers"]), int(scan["num_neighbours"]),
+                    config=config, device=device)
+        index.layers = layers
+        index.layer_multiplier = float(scan["layer_multiplier"])
+        index.dim = dim
+        # the vector table in bulk (no per-row _set_vec calls)
+        vecs = np.ascontiguousarray(scan["vecs"], dtype=np.float32)
+        index._vecs = vecs if vecs.size else np.zeros((16, dim), np.float32)
+        index._id_row = {int(nid): i for i, nid in enumerate(scan["vec_ids"])}
+        index._rows_used = int(scan["vec_ids"].shape[0])
         return index

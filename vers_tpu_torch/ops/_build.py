@@ -37,8 +37,9 @@ _I = ctypes.c_int
 # void*, sizes as int). Each returns a cudaError_t as int.
 _SIGNATURES = {
     # q, x, out_d, out_i, Q, n_rows, d, n_valid, k, cosine, n_split,
-    # split_rows, stream
-    "vers_distance_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # split_rows, x_bf16, precision, stream
+    "vers_distance_topk": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _P],
     # q_stack, qbin, qb, gb, corpus, rbin, xx, ids (nullable), out_d,
     # out_i, plan (3 ints of scratch a block, nullable), walked (an int a
     # block, nullable), n_rows, n_corpus, d, W, q_blk, r_blk, k, cosine, stream

@@ -231,14 +231,16 @@ def beam_search_layer(
 def route_scan(queries, l1_tab, n1: int, k: int):
     """The exact top-``k`` layer-1 members of each query by cosine
     distance, with bf16 products and f32 sums: ``l1_tab`` (n1_pad, d)
-    f32 holds bf16-rounded rows (zero past ``n1``) and the queries are
-    rounded the same way. A bf16 value is exact in TF32, so kernel A's
-    3xTF32 split (hi = the value, lo = 0) multiplies exactly. CUDA
-    tensors launch kernel A (``cuda_topk.cuda_distance_topk``, which
-    raises rather than fall back), CPU tensors take its plain version.
-    Returns (d (Q, k) f32, row positions (Q, k) int32, -1 past n1)."""
-    q_scan = queries.to(torch.bfloat16).float().contiguous()
-    return cuda_topk.cuda_distance_topk(q_scan, l1_tab, n1, k, metric="cosine")
+    holds the layer-1 rows in bf16 (zero past ``n1``; an f32 table of
+    bf16 values gives the same result) and the queries are rounded the
+    same way, as precision "default" rounds them. CUDA tensors launch
+    kernel A's bf16 route at that precision
+    (``cuda_topk.cuda_distance_topk``, which raises rather than fall
+    back), CPU tensors take its plain version. Returns (d (Q, k) f32,
+    row positions (Q, k) int32, -1 past n1)."""
+    return cuda_topk.cuda_distance_topk(queries.float().contiguous(), l1_tab,
+                                        n1, k, metric="cosine",
+                                        precision="default")
 
 
 def scan_seeds(queries, l1_tab, l1_members, n1: int, k: int):
@@ -290,7 +292,7 @@ def full_descent_scan(
     vecs_f32,     # (n_pad, d) f32 (rescore table)
     vecs_nav,     # (n_pad, d) nav dtype
     adj0,         # (n_pad, deg) int layer-0 adjacency
-    l1_tab,       # (n1_pad, d) f32 holding bf16-rounded layer-1 rows
+    l1_tab,       # (n1_pad, d) bf16 layer-1 rows
     l1_members,   # (n1_pad,) compact node id of each l1 row
     n1: int,      # live rows of l1_tab
     top_k: int,

@@ -183,7 +183,7 @@ def full_descent_scan_inline(
     proj,         # (n_pad, dp) bf16 projected+renormalized node rows
     inline_tab,   # (n_pad, deg * dp) bf16
     adj0,         # (n_pad, deg) int
-    l1_tab,       # (n1_pad, d) f32 holding bf16-rounded layer-1 rows
+    l1_tab,       # (n1_pad, d) bf16 layer-1 rows
     l1_members,   # (n1_pad,)
     n1: int,
     top_k: int,

@@ -13,7 +13,8 @@ row r falls in bucket (r // span, r % 128), span = chunk * superchunk
 from ``bucket_geometry``, and table column (r // span) * 128 + r % 128
 keeps the bucket's smallest distance, the lowest row on ties. Queries
 and corpus are rounded to bf16 and products summed in f32; qq comes from
-the rounded queries and xx from the f32 corpus. A query loses a true
+the rounded queries and xx from the corpus as given (f32, or a bf16
+store widened). A query loses a true
 neighbour only where two of them share a bucket.
 
 Dispatch, by the input tensor's device: a CUDA tensor launches the
@@ -33,7 +34,11 @@ import torch
 
 from vers_tpu_torch.core import LANE, round_up
 from vers_tpu_torch.ops import _build
-from vers_tpu_torch.ops.cuda_topk import check_query_corpus, topk_values
+from vers_tpu_torch.ops.cuda_topk import (
+    CORPUS_DTYPES,
+    check_query_corpus,
+    topk_values,
+)
 from vers_tpu_torch.ops.distance import _check_f32_matmul, pairwise_dot
 from vers_tpu_torch.ops.topk import topk_smallest
 from vers_tpu_torch.utils.parity import max_abs_diff
@@ -92,17 +97,26 @@ def kernel_d_geometry(q_n: int, n_rows: int, d: int, span: int,
 
 class BucketCorpus(NamedTuple):
     """Kernel D's corpus: rows rounded to bf16 and zero-padded to
-    ``bucket_d_pad(d)`` features, and |x|^2 of the f32 rows."""
+    ``bucket_d_pad(d)`` features, and |x|^2 of the rows as given (a
+    bf16 corpus widened to f32)."""
     rows: torch.Tensor
     sq_norms: torch.Tensor
 
 
 def prepare_bucket_corpus(corpus: torch.Tensor) -> BucketCorpus:
-    """The bf16 corpus and |x|^2 that ``cuda_bucket_table`` reads."""
+    """The bf16 corpus and |x|^2 that ``cuda_bucket_table`` reads. A
+    contiguous bf16 corpus whose width is already whole k16 steps is
+    its own padded corpus (no copy); any other is copied, rounded and
+    padded (a bf16 store at d = 300 pads each 600-byte row to 608)."""
     d = corpus.shape[1]
-    rows = torch.nn.functional.pad(corpus.to(torch.bfloat16),
-                                   (0, bucket_d_pad(d) - d)).contiguous()
-    return BucketCorpus(rows, torch.sum(corpus * corpus, dim=1))
+    if (corpus.dtype == torch.bfloat16 and bucket_d_pad(d) == d
+            and corpus.is_contiguous()):
+        rows = corpus
+    else:
+        rows = torch.nn.functional.pad(corpus.to(torch.bfloat16),
+                                       (0, bucket_d_pad(d) - d)).contiguous()
+    xf = corpus.float()
+    return BucketCorpus(rows, torch.sum(xf * xf, dim=1))
 
 
 def bucket_geometry(n_rows: int, chunk_size: int = DEFAULT_CHUNK,
@@ -139,7 +153,8 @@ def bucket_table_plain(queries: torch.Tensor, corpus: torch.Tensor,
     n_super = -(-n_rows // span)
     q = _rounded(queries)
     qq = torch.sum(q * q, dim=1, keepdim=True)
-    xx = torch.sum(corpus * corpus, dim=1)
+    xf = corpus.float()
+    xx = torch.sum(xf * xf, dim=1)
     lane = torch.arange(LANE, dtype=torch.int32, device=dev)
     out_d = torch.full((q_n, n_super * LANE), float("inf"), device=dev)
     out_i = torch.full((q_n, n_super * LANE), -1, dtype=torch.int32,
@@ -172,7 +187,7 @@ def bucket_table_plain(queries: torch.Tensor, corpus: torch.Tensor,
 
 def _check_inputs(queries: torch.Tensor, corpus: torch.Tensor,
                   span: int) -> None:
-    check_query_corpus(queries, corpus)
+    check_query_corpus(queries, corpus, CORPUS_DTYPES)
     if span <= 0 or span % LANE:
         raise ValueError(f"span must be a positive multiple of {LANE}, "
                          f"got {span}")
@@ -259,9 +274,11 @@ def bucket_scan_topk(
 
     ``rescore=False``: the k best buckets, with their bf16-product
     distances. ``rescore=True``: a shortlist of max(k, min(shortlist,
-    W)) buckets is rescored exactly in f32 (TF32 off) from the f32
-    corpus and the best k of it kept. ``prepared``: the corpus as
-    ``prepare_bucket_corpus`` gives it, for kernel D."""
+    W)) buckets is rescored exactly in f32 (TF32 off) from the corpus
+    as given (a bf16 store's rows widened to f32, as the JAX package
+    rescores against its store) and the best k of it kept.
+    ``prepared``: the corpus as ``prepare_bucket_corpus`` gives it, for
+    kernel D."""
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     chunk, superchunk, _ = bucket_geometry(corpus.shape[0], chunk_size,
@@ -318,7 +335,7 @@ def compare_bucket_tables(got, want, queries: torch.Tensor,
     qi, ci = torch.nonzero(gi != wi, as_tuple=True)
     if qi.numel():
         q = _rounded(queries[qi])
-        x = corpus[gi[qi, ci].long()]
+        x = corpus[gi[qi, ci].long()].float()
         dot = torch.sum(q * _rounded(x), dim=1)
         if metric == "cosine":
             dist = 1.0 - dot

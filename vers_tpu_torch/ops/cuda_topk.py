@@ -5,7 +5,10 @@ top-k scan, replaces ``vers_tpu/ops/pallas_topk.py:pallas_distance_topk``;
 its plain version is ``ops/topk.fused_scan_topk``. Kernel C
 (``csrc/topk_values.cu``), the smallest-k of a precomputed value array
 with carried ids, replaces ``pallas_topk.py:pallas_topk_values``; its
-plain version is ``ops/topk.topk_values_plain``. Kernel A cuts the
+plain version is ``ops/topk.topk_values_plain``. Kernel A takes an f32
+or a bf16 corpus at each of the TPU's precision settings ("highest",
+"high", "default"; ``topk.product_operands`` says what each computes),
+six routes of one kernel (``route_name``). Kernel A cuts the
 corpus into splits (``split_geometry``) and, when there is more than
 one, takes the final k from the splits' best sets with kernel C. What
 bounds each on the H100 and how the design answers that is in the
@@ -26,6 +29,7 @@ import torch
 
 from vers_tpu_torch.ops import _build
 from vers_tpu_torch.ops.topk import (
+    PRECISIONS,
     approx_scan_topk,
     fused_scan_topk,
     topk_values_plain,
@@ -33,9 +37,11 @@ from vers_tpu_torch.ops.topk import (
 
 MAX_K = 128
 
-# Launches of kernel A (one per successful launch). A call that splits
-# the corpus also launches kernel C, counted in LAUNCHES_VALUES.
-LAUNCHES = 0
+# Launches of kernel A by route (``route_name``: "f32/highest",
+# "bf16/default", ...), one per successful launch; ``launches()`` is
+# their sum. A call that splits the corpus also launches kernel C,
+# counted in LAUNCHES_VALUES.
+LAUNCHES_BY_ROUTE: dict = {}
 # Calls routed to kernel A's plain version because k > MAX_K.
 LARGE_K_PLAIN = 0
 # Launches of kernel C.
@@ -46,19 +52,34 @@ LARGE_K_PLAIN_VALUES = 0
 _METRICS = ("sq_euclidean", "cosine")
 
 
+def launches() -> int:
+    """Kernel A's launches over all its routes."""
+    return sum(LAUNCHES_BY_ROUTE.values())
+
+
+def route_name(corpus_dtype: torch.dtype, precision: str) -> str:
+    """Kernel A's route: the corpus dtype and the precision setting."""
+    dt = "bf16" if corpus_dtype == torch.bfloat16 else "f32"
+    return f"{dt}/{precision}"
+
+
 def _check_k(k: int) -> None:
     if not 1 <= k <= MAX_K:
         raise ValueError(f"kernel takes 1 <= k <= {MAX_K}, got {k}")
 
 
-def check_query_corpus(queries: torch.Tensor, corpus: torch.Tensor) -> None:
-    """Raise unless queries (Q, d) and corpus (N, d) are contiguous f32
-    CUDA tensors on one device with int32-sized row counts."""
-    for name, t in (("queries", queries), ("corpus", corpus)):
+def check_query_corpus(queries: torch.Tensor, corpus: torch.Tensor,
+                       corpus_dtypes=(torch.float32,)) -> None:
+    """Raise unless queries (Q, d) f32 and corpus (N, d) of one of
+    ``corpus_dtypes`` are contiguous CUDA tensors on one device with
+    int32-sized row counts."""
+    for name, t, dtypes in (("queries", queries, (torch.float32,)),
+                            ("corpus", corpus, corpus_dtypes)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            names = " or ".join(str(x).replace("torch.", "") for x in dtypes)
+            raise TypeError(f"{name} must be {names}, got {t.dtype}")
         if t.ndim != 2:
             raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -75,9 +96,20 @@ def check_query_corpus(queries: torch.Tensor, corpus: torch.Tensor) -> None:
         raise ValueError("row counts must fit the kernel's int32 sizes")
 
 
+# corpus dtypes kernel A reads, and its precision settings' codes
+CORPUS_DTYPES = (torch.float32, torch.bfloat16)
+_PRECISION_CODE = {p: i for i, p in enumerate(PRECISIONS)}
+
+
 def _check_inputs(queries: torch.Tensor, corpus: torch.Tensor, k: int) -> None:
-    check_query_corpus(queries, corpus)
+    check_query_corpus(queries, corpus, CORPUS_DTYPES)
     _check_k(k)
+
+
+def _check_precision(precision: str) -> None:
+    if precision not in _PRECISION_CODE:
+        raise ValueError(f"unknown precision {precision!r}; expected one of "
+                         f"{PRECISIONS}")
 
 
 # Kernel A's tiles (csrc/distance_tile.cuh: QT, CT).
@@ -126,15 +158,18 @@ def split_pass(
     metric: str = "sq_euclidean",
     n_split: int | None = None,
     split_rows: int | None = None,
+    precision: str = "highest",
 ):
     """Launch kernel A once: (vals, ids, n_split), each table (Q,
     n_split * k), columns [s * k, s * k + k) the ascending best set of
     split s. ``n_split`` / ``split_rows`` default to ``split_geometry``
     (given, they may leave splits wholly past n_valid: those hold (+inf,
-    -1)). With one split the table is the result."""
-    global LAUNCHES
+    -1)). With one split the table is the result. The corpus is f32 or
+    bf16; ``precision`` picks the kernel's route (the source note of
+    ``csrc/distance_topk.cu``), counted in ``LAUNCHES_BY_ROUTE``."""
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
+    _check_precision(precision)
     _check_inputs(queries, corpus, k)
     q_n, d = queries.shape
     n_rows = corpus.shape[0]
@@ -158,10 +193,12 @@ def split_pass(
             queries.data_ptr(), corpus.data_ptr(), vals.data_ptr(),
             ids.data_ptr(), q_n, n_rows, d, n_valid, k,
             int(metric == "cosine"), n_split, split_rows,
+            int(corpus.dtype == torch.bfloat16), _PRECISION_CODE[precision],
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "vers_distance_topk")
-    LAUNCHES += 1
+    route = route_name(corpus.dtype, precision)
+    LAUNCHES_BY_ROUTE[route] = LAUNCHES_BY_ROUTE.get(route, 0) + 1
     return vals, ids, n_split
 
 
@@ -172,21 +209,26 @@ def cuda_distance_topk(
     k: int,
     metric: str = "sq_euclidean",
     chunk_size: int = 16384,
+    precision: str = "highest",
 ):
     """Exact top-k: (dists (Q, k) f32 ascending, ids (Q, k) int32), id
     -1 where the distance is inf. Corpus rows >= n_valid are ignored.
+    The corpus is f32 or bf16; ``precision`` rounds the products as
+    ``topk.product_operands`` says.
 
     CUDA tensors launch kernel A (``split_pass``, counted in
-    ``LAUNCHES``) and, when the corpus was split, kernel C over the
+    ``LAUNCHES_BY_ROUTE``) and, when the corpus was split, kernel C over the
     splits' best sets (counted in ``LAUNCHES_VALUES``). CPU tensors take
     ``fused_scan_topk`` (whose corpus chunk is ``chunk_size``; the kernel
     tiles itself)."""
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
+    _check_precision(precision)
     if not queries.is_cuda and not corpus.is_cuda:
         return fused_scan_topk(queries, corpus, n_valid, k, metric=metric,
-                               chunk_size=chunk_size)
-    vals, ids, n_split = split_pass(queries, corpus, n_valid, k, metric=metric)
+                               chunk_size=chunk_size, precision=precision)
+    vals, ids, n_split = split_pass(queries, corpus, n_valid, k, metric=metric,
+                                    precision=precision)
     if n_split == 1:
         return vals, ids
     return cuda_topk_values(vals, ids, k)
@@ -274,10 +316,11 @@ def distance_topk(
     on CPU tensors, plain version for k > MAX_K), "pallas" (the kernel
     route, k <= MAX_K), "xla" (the plain version), "approx"
     (``approx_scan_topk``), "bucket" (``cuda_bucket.bucket_scan_topk``,
-    kernels D and C)."""
+    kernels D and C). ``precision`` ("highest", "high", "default")
+    reaches kernel A and its plain version; the approximate engines
+    ignore it, as in the JAX package."""
     global LARGE_K_PLAIN
-    if precision != "highest":
-        raise ValueError("only precision='highest' (float32) is ported")
+    _check_precision(precision)
     if force == "approx":
         return approx_scan_topk(queries, corpus, n_valid, k, metric=metric)
     if force == "bucket":
@@ -288,12 +331,12 @@ def distance_topk(
         raise ValueError(f"unknown force={force!r}")
     if force == "xla":
         return fused_scan_topk(queries, corpus, n_valid, k, metric=metric,
-                               chunk_size=chunk_size)
+                               chunk_size=chunk_size, precision=precision)
     if k > MAX_K:
         if force == "pallas":
             raise ValueError(f"the kernel takes k <= {MAX_K}, got {k}")
         LARGE_K_PLAIN += 1
         return fused_scan_topk(queries, corpus, n_valid, k, metric=metric,
-                               chunk_size=chunk_size)
+                               chunk_size=chunk_size, precision=precision)
     return cuda_distance_topk(queries, corpus, n_valid, k, metric=metric,
-                              chunk_size=chunk_size)
+                              chunk_size=chunk_size, precision=precision)

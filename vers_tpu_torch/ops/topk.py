@@ -4,11 +4,13 @@ torch ops (counterpart of ``vers_tpu.ops.topk``).
 ``fused_scan_topk`` is the plain version of kernel A
 (``ops/cuda_topk.py``): it streams the corpus through the distance
 matmul in chunks and carries a running (Q, k) best set, so the full
-(Q, N) distance matrix is never materialized. ``topk_values_plain`` is
-kernel C's plain version. ``split_scan_topk_plain`` (kernel A's split
-design) and ``tf32_split`` (its operand split) serve the tests only.
-``ordered_value_keys`` and ``topk_values_stream_plain`` (kernel C's key
-and its threshold-and-buffer walk) serve the tests likewise.
+(Q, N) distance matrix is never materialized; its ``precision`` rounds
+the products as the TPU's settings do (``product_operands``).
+``topk_values_plain`` is kernel C's plain version.
+``split_scan_topk_plain`` (kernel A's split design) and ``tf32_split``
+(its operand split) serve the tests only. ``ordered_value_keys`` and
+``topk_values_stream_plain`` (kernel C's key and its
+threshold-and-buffer walk) serve the tests likewise.
 ``approx_scan_topk`` is the flat index's ``engine="approx"``.
 """
 
@@ -31,6 +33,54 @@ def topk_smallest(dist: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+PRECISIONS = ("highest", "high", "default")
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """Values rounded to bf16 (to nearest, ties to even), held in f32."""
+    return t.float().to(torch.bfloat16).float()
+
+
+def product_operands(queries: torch.Tensor, corpus: torch.Tensor,
+                     precision: str = "highest"):
+    """(a, b), f32, such that the f32 product ``a @ b.T`` is kernel A's
+    ``q . x`` at ``precision``, the TPU's meaning of the setting:
+    "highest" the f32 operands as given (a bf16 corpus widened);
+    "default" both rounded to bf16, one product; "high" the bf16_3x
+    split ``v = hi + lo`` (hi = bf16(v), lo = bf16(v - hi)) with
+    ``hi.hi + hi.lo + lo.hi`` as one product over three times the
+    features. Every product of two bf16 values is exact in f32."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    q, x = queries.float(), corpus.float()
+    if precision == "highest":
+        return q, x
+    qh, xh = bf16_round(q), bf16_round(x)
+    if precision == "default":
+        return qh, xh
+    ql, xl = bf16_round(q - qh), bf16_round(x - xh)
+    return torch.cat([qh, qh, ql], dim=1), torch.cat([xh, xl, xh], dim=1)
+
+
+def scan_distance(queries: torch.Tensor, x: torch.Tensor, metric: str,
+                  precision: str = "highest") -> torch.Tensor:
+    """Kernel A's distances of a corpus chunk at ``precision``: the
+    precision rounds only ``q . x``; |q|^2 and |x|^2 are f32 sums of the
+    operands as given (``pallas_topk._kernel``)."""
+    if precision == "highest":
+        return pairwise_distance(queries, x, metric)
+    a, b = product_operands(queries, x, precision)
+    dot = pairwise_dot(a, b)
+    if metric == "cosine":
+        return 1.0 - dot
+    if metric != "sq_euclidean":
+        raise ValueError(f"unknown metric {metric!r}")
+    qf, xf = queries.float(), x.float()
+    qq = torch.sum(qf * qf, dim=1, keepdim=True)
+    xx = torch.sum(xf * xf, dim=1)
+    return torch.clamp_min(qq + xx[None, :] - 2.0 * dot, 0.0)
+
+
 def fused_scan_topk(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -38,22 +88,27 @@ def fused_scan_topk(
     k: int,
     metric: str = "sq_euclidean",
     chunk_size: int = 16384,
+    precision: str = "highest",
 ):
     """Exact top-k nearest corpus rows for each query, O(Q*k + chunk)
     memory.
 
     Args:
-      queries: (Q, d)
-      corpus: (N_pad, d) — rows >= n_valid are padding and are ignored.
+      queries: (Q, d) f32
+      corpus: (N_pad, d) f32 or bf16 — rows >= n_valid are padding and
+        are ignored.
       n_valid: number of live corpus rows.
       k: neighbours per query.
       metric: "sq_euclidean" | "cosine".
       chunk_size: corpus rows per scan step.
+      precision: "highest" | "high" | "default", as ``scan_distance``.
 
     Returns:
       (dists (Q, k) f32, indices (Q, k) int32), ascending by distance.
       If k > n_valid the tail is (+inf, -1).
     """
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
     n_pad = corpus.shape[0]
     q_n = queries.shape[0]
     dev = queries.device
@@ -63,7 +118,7 @@ def fused_scan_topk(
     for c0 in range(0, n_pad, chunk):
         x = corpus[c0 : c0 + chunk]
         rows = torch.arange(c0, c0 + x.shape[0], dtype=torch.int32, device=dev)
-        dist = pairwise_distance(queries, x, metric)
+        dist = scan_distance(queries, x, metric, precision)
         dist = torch.where(rows[None, :] < n_valid, dist, float("inf"))
         cand_d = torch.cat([best_d, dist], dim=1)
         cand_i = torch.cat([best_i, rows[None, :].expand(q_n, -1)], dim=1)
@@ -211,16 +266,15 @@ def approx_scan_topk(
         raise ValueError(f"unknown metric {metric!r}")
     n_pad = corpus.shape[0]
     chunk = max(1, min(chunk_size, n_pad))
-    xx = torch.sum(corpus * corpus, dim=1)
     cand_d, cand_i = [], []
     for c0 in range(0, n_pad, chunk):
-        x = corpus[c0 : c0 + chunk]
+        x = corpus[c0 : c0 + chunk].float()  # a bf16 corpus widened
         # in place on the (Q, chunk) product: one buffer of that size
         dist = pairwise_dot(queries, x)
         if metric == "cosine":
             dist.neg_().add_(1.0)
         else:
-            dist.mul_(-2.0).add_(xx[None, c0 : c0 + x.shape[0]])
+            dist.mul_(-2.0).add_(torch.sum(x * x, dim=1)[None, :])
         if n_valid < c0 + x.shape[0]:
             dist[:, max(0, n_valid - c0):] = float("inf")
         bd, sel = torch.topk(dist, min(k, x.shape[0]), dim=1, largest=False)

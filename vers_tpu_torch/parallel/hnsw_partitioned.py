@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from vers_tpu_torch.core import as_query_matrix, device_id_map, round_up
-from vers_tpu_torch.index.hnsw import HNSWIndex, _bf16_rows, resolve_beam_expand
+from vers_tpu_torch.index.hnsw import HNSWIndex, resolve_beam_expand
 from vers_tpu_torch.ops.beam import full_descent_scan
 from vers_tpu_torch.parallel.mesh import SHARD_AXIS, make_mesh, merge_topk
 from vers_tpu_torch.parallel.partitioned import PartitionedIndexBase
@@ -166,7 +166,7 @@ class PartitionedHNSWIndex(PartitionedIndexBase):
                     g["node_ids"][:n_s]
                 ]
             m = torch.from_numpy(members).to(dev)
-            tab = _bf16_rows(v[m])
+            tab = v[m].to(torch.bfloat16)
             tab[int(n1s[s]):] = 0
             vecs.append(v)
             vecs_nav.append(v.to(torch.bfloat16))
@@ -227,7 +227,7 @@ class PartitionedHNSWIndex(PartitionedIndexBase):
                 torch.from_numpy(np.stack(mats)).to(dev))
         if patch["l1_added"]:
             cache["l1_members"][s][n1] = local_id
-            cache["l1_tab"][s][n1] = _bf16_rows(q)
+            cache["l1_tab"][s][n1] = q.to(torch.bfloat16)
             cache["n1s"][s] = n1 + 1
         grow = s * per + local_id
         cache["row_to_gid"][grow] = vec_id

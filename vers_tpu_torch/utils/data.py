@@ -37,9 +37,22 @@ def load_vec_file(
     ``header=True`` skips the first "count dim" line (fastText);
     GloVe files have no header.
 
-    Pure-Python parser; the JAX package's native C++ parser has no
-    counterpart in this package yet.
+    The native C++ parser (``vers_tpu_torch.native``) where it is
+    available, else ``parse_vec_python``, the behavioural reference.
     """
+    from vers_tpu_torch import native
+
+    out = native.parse_vec(path, dim, header=header, max_rows=max_rows)
+    if out is not None:
+        return out
+    return parse_vec_python(path, dim, header=header, max_rows=max_rows)
+
+
+def parse_vec_python(
+    path: str, dim: int, header: bool = True, max_rows: int | None = None
+) -> Tuple[List[str], np.ndarray]:
+    """``load_vec_file``'s Python reader: one line at a time; lines with
+    fewer than ``dim`` values are skipped."""
     words: List[str] = []
     rows: List[np.ndarray] = []
     with open(path, "r", encoding="utf-8", errors="replace") as fp:

@@ -81,7 +81,8 @@ def run_test(
     like the reference prints.
 
     Returns the neighbour words so tests can assert royal words appear
-    (`README.md:72-76`: "kings, queen, monarch, ...").
+    (`README.md:72-76`: "kings, queen, monarch, ..."). The index is
+    reloaded onto its own device.
     """
     vectors = np.asarray(vectors, dtype=np.float32)
     for word, emb in test_embs:
@@ -95,7 +96,9 @@ def run_test(
         index.add(normalize_np(np.asarray(emb, np.float32).reshape(1, -1))[0], vec_id)
 
     index.save_index(index_file_name)
-    reloaded = type(index).load_index(index_file_name, dim=vectors.shape[1])
+    # the reloaded index lives where the saved one does
+    reloaded = type(index).load_index(index_file_name, dim=vectors.shape[1],
+                                      device=index.device)
 
     query = vectors[word_to_idx[query_word]]
     # note: `vectors` holds the RAW held-out embedding (the reference

@@ -6,7 +6,7 @@ memory rate, and the operations it does on these inputs over the card's
 peak rate for their type. Peaks are NVIDIA's published dense rates for
 the H100 SXM at its 700 W limit. Exact f32 products are counted on their
 fastest route, the tensor cores' 3xTF32 split (three TF32 products for
-each f32 one).
+each f32 one); products of bf16 parts as bf16 tensor-core products.
 
 Used by ``chip_smoke.py``, ``tools/time_kernel_d.py`` and
 ``tools/profile_torch_search.py``; the counts
@@ -30,21 +30,30 @@ def bound(ops: float, rate: float, nbytes: float) -> dict:
                 ops=ops, bytes=nbytes)
 
 
-def distance_topk_bound(q_n: int, n_valid: int, d: int, k: int) -> dict:
-    """Kernel A: exact f32 q.x for every (query, valid row), by 3xTF32;
-    queries and valid rows read once, the (Q, k) result written."""
-    return bound(3 * 2.0 * q_n * n_valid * d, TF32,
-                 4.0 * (q_n * d + n_valid * d) + 8.0 * q_n * k)
+# bf16 tensor-core products for each exact product of kernel A's
+# operands, by (corpus dtype, precision): an f32 query needs three bf16
+# parts to hold its 24 mantissa bits, a bf16 row one. "high" is the TPU's
+# bf16_3x (three products; two when the corpus is bf16, its lo part 0).
+_BF16_PRODUCTS = {
+    ("bf16", "highest"): 3, ("bf16", "high"): 2, ("bf16", "default"): 1,
+    ("f32", "high"): 3, ("f32", "default"): 1,
+}
 
 
-def route_scan_bound(q_n: int, n1: int, d: int, k: int) -> dict:
-    """Kernel A on HNSW's layer-1 routing scan: q.x for every (query,
-    layer-1 row) of bf16-valued operands held in f32. A bf16 product is
-    exact there, so the least work is one bf16 tensor-core product each
-    (kernel A spends three TF32 ones); the f32 queries and rows read
-    once, the (Q, k) result written."""
-    return bound(2.0 * q_n * n1 * d, BF16,
-                 4.0 * (q_n * d + n1 * d) + 8.0 * q_n * k)
+def distance_topk_bound(q_n: int, n_valid: int, d: int, k: int,
+                        corpus: str = "f32",
+                        precision: str = "highest") -> dict:
+    """Kernel A on one route: q.x for every (query, valid row) at the
+    least product cost of the route (f32 x f32 at "highest": 3xTF32,
+    three TF32 products; the others ``_BF16_PRODUCTS`` bf16 ones); the
+    f32 queries and the valid rows (4 or 2 bytes a value) read once,
+    the (Q, k) result written."""
+    pairs = 2.0 * q_n * n_valid * d
+    nbytes = (4.0 * q_n * d + (2.0 if corpus == "bf16" else 4.0) * n_valid * d
+              + 8.0 * q_n * k)
+    if (corpus, precision) == ("f32", "highest"):
+        return bound(3 * pairs, TF32, nbytes)
+    return bound(_BF16_PRODUCTS[corpus, precision] * pairs, BF16, nbytes)
 
 
 def packed_scan_bound(live_rows: int, out_rows: int, scanned: int,
