@@ -43,11 +43,26 @@ port's default device:
      ``search_batch_device``; the same graph with the classic gather
      beam (``nav_inline_dp=None``) and with ``route_mode="beam"`` on a
      2048-query slice; ``add`` of one row on the device fast path, then
-     a search that finds it first; a save/load round trip of a separate
-     20k-row index. Kernel A's counter is zeroed before the HNSW builds
-     and must have moved by the end: it runs the layer-1 routing scan
-     of every scan-routed search, whose inputs are captured once and
-     held to the plain version below.
+     a search that finds it first; the int8 navigation table on the same
+     index (``nav_dtype="int8"``, ``nav_inline_dp=None``: recall@10 and
+     the median and spread of five searches of all 16384 queries beside
+     the bf16 classic beam's in the same run, with a floor; the nav
+     table's bytes; ``route_mode="beam"`` on the slice; a
+     device ``add`` found first; with the inline table on, the cache
+     asserted bf16); the scan-routed build
+     (``build_index_batched(..., route_scan=True)``) and the
+     inline-insertion build (``insert_inline=True``) of the same corpus,
+     each with its build seconds split as above beside the classic
+     build's, the classic layer sizes, kernel A's launches in the build
+     (all bf16/default for the scans; none for the inline build, whose
+     construction table's bytes are printed) and recall@10 of the
+     default search beside the classic build's, with a floor each; a
+     save/load round trip of a separate 20k-row index. Kernel A's
+     counter is zeroed before the HNSW builds and must have moved by the
+     end: it runs the layer-1 routing scan of every scan-routed search
+     and every scan of the scan-routed build; the inputs of one routing
+     scan and of the build's last k = 100 and k = 1 scans are captured
+     and held to the plain version below.
   7. the multi-device layer (``vers_tpu_torch.parallel``) on a mesh of
      four shards on the one card (``make_mesh(4, device="cuda:0")``),
      over the corpora, truths and indexes of the earlier phases:
@@ -64,7 +79,8 @@ port's default device:
      nprobe 2); ``ShardedANNIndex`` over phase 5's forest equal to its
      search at 1 and 4 probes (kernel B 4 x 8 a search);
      ``ShardedHNSWIndex`` over phase 6's index equal to its
-     ``route_mode="beam"`` search on a 2048-query slice;
+     ``route_mode="beam"`` search on a 2048-query slice, with the bf16
+     and with the int8 navigation table;
      ``PartitionedANNIndex.build_index(8, 100, x, mesh)`` and
      ``PartitionedHNSWIndex.build_index(12, 100, 32, 24, x, mesh)``
      (build seconds, recall@10 against phase 1's truth with a floor,
@@ -131,8 +147,12 @@ host mirror of the walk is held to that report block by block. Kernel
 A is also held on HNSW's captured routing scan (Q = 16384 over the
 layer-1 members, k = 8, cosine, its bf16 route at "default" over the
 bf16 table): tie-aware, distances within 1e-5, a repeat call
-bit-identical. The ``kernels`` line lists kernel A's f32 "highest"
-route as ``distance_topk`` and each other route as
+bit-identical; and on the scan-routed build's last upper-layer scan
+(k = 100 over layer 1's built members) and last seed scan (k = 1), the
+same route: tie-aware, distances within 1e-4, a repeat call
+bit-identical, each timed beside its plain version and its bound. The
+``kernels`` line lists kernel A's f32 "highest" route as
+``distance_topk`` and each other route as
 ``distance_topk[<corpus>/<precision>]``: each entry's launches, error
 and times are that route's alone, its launches summed over the counted
 phases. Each kernel's bound, the least time the card
@@ -185,6 +205,13 @@ HNSW_CLUSTERS = 4096
 HNSW_RECALL_PHASE1 = 0.915
 HNSW_EFS = (48, 64, 96, 128, 192)
 HNSW_IO_ROWS = 20_000  # the save/load round trip's separate index
+# recall@10 floors of phase 6's HNSW options on the 4096-cluster corpus at
+# ef = 32, each the first reading on an H100 less 0.02: the scan-routed
+# build (0.9952) and the inline-insertion build (0.9801), searched by
+# default, and the int8 navigation table (0.9623, the classic beam)
+HNSW_SCAN_BUILD_RECALL = 0.975
+HNSW_INLINE_BUILD_RECALL = 0.960
+HNSW_INT8_RECALL = 0.942
 # the multi-device phase: a mesh of four shards on the one card
 PARALLEL_SHARDS = 4
 PARALLEL_IO_ROWS = 20_000  # the save/load round trips of every class
@@ -577,10 +604,10 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
 
     rows = {}
 
-    def build(corpus, label):
+    def build(corpus, label, **options):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        h = vt.HNSWIndex.build_index_batched(*HNSW_ARGS, corpus)
+        h = vt.HNSWIndex.build_index_batched(*HNSW_ARGS, corpus, **options)
         build_s = time.perf_counter() - t0
         assert h.device == dev, h.device
         t0 = time.perf_counter()
@@ -593,7 +620,8 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
         assert all(a >= b for a, b in zip(layers, layers[1:]))
         cap, dp = cache["policy"]
         assert cache["inline"] is not None and (cap, dp) == (32, 64), (cap, dp)
-        log(f"hnsw build {HNSW_ARGS} on {label}: {build_s:.2f} s = upload "
+        log(f"hnsw build {HNSW_ARGS}{''.join(f', {k}={v}' for k, v in options.items())} "
+            f"on {label}: {build_s:.2f} s = upload "
             f"{sec['upload_s']:.2f} s + {sec['waves']} waves of up to "
             f"{sec['wave_cap']} {sec['waves_s']:.2f} s (card, ending in a sync; "
             f"the host enqueues them meanwhile) + graph to the host "
@@ -605,7 +633,7 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
                        waves_s=sec["waves_s"], waves=sec["waves"],
                        graph_to_host_s=sec["graph_to_host_s"],
                        cache_s=cache_s, layers=layers, cap=cap, dp=dp,
-                       n1=cache["n1"])
+                       n1=cache["n1"], options=options)
 
     def recall(h, queries, truth, ef=HNSW_EF):
         h.ef_search = ef
@@ -706,6 +734,51 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     log(f"hnsw add (device fast path): row {N} in {add_s * 1e3:.1f} ms, found "
         f"first by a search")
 
+    rows["int8"] = int8_readings(torch, vt, h, qd2, truth2, q2)
+
+    # -- the scan-routed and the inline-insertion builds, beside the -------
+    # -- classic build of the same corpus in this run ----------------------
+    classic_rec = rows["inline"]["recall"]
+    for key, options in (("scan_build", dict(route_scan=True)),
+                         ("inline_build", dict(insert_inline=True))):
+        routes0 = dict(cuda_topk.LAUNCHES_BY_ROUTE)
+        values0, plain0 = cuda_topk.LAUNCHES_VALUES, cuda_topk.LARGE_K_PLAIN
+        with captured_build_scans() as scans:
+            hb, row = build(x2, f"the {HNSW_CLUSTERS}-cluster corpus", **options)
+        row["build_launches"] = {
+            r: n - routes0.get(r, 0)
+            for r, n in cuda_topk.LAUNCHES_BY_ROUTE.items()
+            if n != routes0.get(r, 0)}
+        row["build_launches_topk_values"] = cuda_topk.LAUNCHES_VALUES - values0
+        assert cuda_topk.LARGE_K_PLAIN == plain0  # efc = 100 <= 128
+        assert row["layers"] == rows["build"]["layers"], row["layers"]
+        if key == "scan_build":
+            # every upper-layer step and every layer-0 seed is a scan: k =
+            # min(efc, rows of the layer's table), and k = 1 for the seeds
+            assert set(row["build_launches"]) == {"bf16/default"}, row
+            assert {1, HNSW_ARGS[1]} <= set(scans), sorted(scans)
+            row["scan_ks"] = sorted(scans)
+            build_scans = {k: scans[k] for k in (HNSW_ARGS[1], 1)}
+        else:
+            assert not row["build_launches"] and not scans, row
+            row["inline_table_bytes"] = hb.build_seconds["inline_table_bytes"]
+        row["recall"] = recall(hb, qd2, truth2)
+        log(f"hnsw {key}: recall@10 {row['recall']:.4f} at ef={HNSW_EF} (the "
+            f"classic build's {classic_rec:.4f}); build {row['build_s']:.2f} s "
+            f"(classic {rows['build']['build_s']:.2f} s: waves "
+            f"{row['waves_s']:.2f} vs {rows['build']['waves_s']:.2f} s); layers "
+            f"as the classic build's; kernel launches in the build "
+            f"{row['build_launches']} (+ {row['build_launches_topk_values']} of "
+            f"kernel C)"
+            + (f"; construction table {row['inline_table_bytes'] / 1e9:.3f} GB"
+               if key == "inline_build" else ""))
+        floor = (HNSW_SCAN_BUILD_RECALL if key == "scan_build"
+                 else HNSW_INLINE_BUILD_RECALL)
+        assert row["recall"] >= floor, (key, row["recall"])
+        rows[key] = row
+        del hb
+        torch.cuda.empty_cache()
+
     # save/load round trip on a separate small index (the format does not
     # depend on size). The loaded index answers as the saved one up to
     # ties: an adjacency row's order comes from a set on either side,
@@ -743,7 +816,100 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     a_row["share_of_search"] = a_row["ms"] / rows["inline"]["ms_median"]
     log(f"the routing scan is {a_row['share_of_search']:.1%} of the search's "
         f"median")
+    # ... and on the scan-routed build's last upper-layer scan (k = efc)
+    # and its last layer-0 seed scan (k = 1)
+    for k, (q_in, tab, n_built) in build_scans.items():
+        a_row[f"build_scan_k{k}"] = hold_kernel_a(
+            torch, q_in, tab, n_built, k,
+            f"the scan-routed build's last {'seed' if k == 1 else 'layer'} "
+            f"scan", metric="cosine", precision="default")
     return rows, a_row, launches, h, qd2
+
+
+@contextlib.contextmanager
+def captured_build_scans():
+    """Record, by k, the last scan of the scan-routed wave build
+    (``ops/hnsw_build.scan_members``, kernel A) made inside the block, as
+    (queries as the kernel takes them, member table, built rows); every
+    call goes through unchanged."""
+    from vers_tpu_torch.ops import hnsw_build
+
+    captured = {}
+    real = hnsw_build.scan_members
+
+    def capturing(q, tab, tab_members, n_built, k, chunk):
+        captured[k] = (q.float().contiguous().clone(), tab, n_built)
+        return real(q, tab, tab_members, n_built, k, chunk)
+
+    hnsw_build.scan_members = capturing
+    try:
+        yield captured
+    finally:
+        hnsw_build.scan_members = real
+
+
+def int8_readings(torch, vt, h, qd2, truth2, q2):
+    """Phase 6's int8 navigation readings on the main index (see the
+    module docstring), each beside the bf16 classic beam on the same
+    queries in this run. Returns their rows."""
+    import dataclasses
+
+    base = h.config
+    rows = {}
+    for name, cfg in (("bf16_classic", dataclasses.replace(base,
+                                                           nav_inline_dp=None)),
+                      ("int8", dataclasses.replace(base, nav_dtype="int8",
+                                                   nav_inline_dp=None))):
+        h.config, h._device_cache = cfg, None
+        cache = h._ensure_device_cache()
+        assert cache["inline"] is None
+        nav = cache["vecs_nav"]
+        nav_bytes = nav.numel() * nav.element_size()
+        if name == "int8":
+            assert nav.dtype == torch.int8, nav.dtype
+            nav_bytes += cache["nav_scales"].numel() * 4
+        else:
+            assert nav.dtype == torch.bfloat16 and cache["nav_scales"] is None
+        res = h.search_batch(qd2, TOP_K)
+        rec = vt.recall_at_k(res.ids, truth2)
+        assert (res.ids >= 0).all() and np.isfinite(res.distances).all()
+        assert (np.diff(res.distances, axis=1) >= 0).all()
+        times = sorted(cuda_ms(torch, lambda: h.search_batch_device(qd2, TOP_K),
+                               reps=1) for _ in range(5))
+        rows[name] = dict(recall=rec, ms_median=times[2], ms_min=times[0],
+                          ms_max=times[4], qps=N_QUERIES / times[2] * 1e3,
+                          nav_bytes=nav_bytes)
+        log(f"hnsw nav table {name}: {nav_bytes / 1e6:.1f} MB; recall@10 "
+            f"{rec:.4f}, median {times[2]:.2f} ms / {N_QUERIES} queries (min "
+            f"{times[0]:.2f}, max {times[4]:.2f} of 5 calls)")
+    assert rows["int8"]["recall"] >= HNSW_INT8_RECALL, rows
+
+    # the beam route on the slice, and a device add, on the int8 cache
+    qs, ts = qd2[:HNSW_SLICE], truth2[:HNSW_SLICE]
+    h.config, h._device_cache = dataclasses.replace(h.config,
+                                                    route_mode="beam"), None
+    rec = vt.recall_at_k(h.search_batch(qs, TOP_K).ids, ts)
+    ms = cuda_ms(torch, lambda: h.search_batch_device(qs, TOP_K), reps=1)
+    assert h._device_cache["vecs_nav"].dtype == torch.int8
+    log(f"hnsw int8 beam route on {HNSW_SLICE} queries: recall@10 {rec:.4f}, "
+        f"{ms:.2f} ms")
+    rows["int8_beam_route"] = dict(queries=HNSW_SLICE, recall=rec, ms=ms)
+    row = h._rows_used
+    v = q2[12] * np.float32(1.0)
+    h.add(v, row)
+    assert h._last_add_patch is not None and h._last_add_patch["row"] == row
+    assert h._device_cache["nav_scales"][row] > 0
+    found = h.search_batch(v[None, :], 1)
+    assert found.ids[0, 0] == row, found.ids
+    log(f"hnsw int8 add (device fast path): row {row} found first by a search")
+
+    # with the inline table on, int8 quietly becomes bf16
+    h.config, h._device_cache = dataclasses.replace(base, nav_dtype="int8"), None
+    cache = h._ensure_device_cache()
+    assert cache["inline"] is not None and cache["nav_scales"] is None
+    assert cache["vecs_nav"].dtype == torch.bfloat16, cache["vecs_nav"].dtype
+    h.config, h._device_cache = base, None
+    return rows
 
 
 def bf16_phase(torch, vt, x, qd, truth, xd):
@@ -1095,6 +1261,26 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
         f"its route_mode='beam' search up to ties; {ms:.2f} ms against the "
         f"single device's {single:.2f} ms (medians of 3)")
     rows["hnsw"] = dict(queries=HNSW_SLICE, ms=ms, single_ms=single)
+
+    # ... and over the same index with the int8 navigation table
+    beam_cfg = h.config
+    h.config, h._device_cache = dataclasses.replace(
+        beam_cfg, nav_dtype="int8", nav_inline_dp=None), None
+    before = cuda_topk.launches()
+    want = h.search_batch(qs, TOP_K)
+    got = sh.search_batch(qs, TOP_K)
+    assert cuda_topk.launches() == before
+    assert h._device_cache["vecs_nav"].dtype == torch.int8
+    assert_topk_match(got.distances, got.ids, want.distances, want.ids,
+                      rtol=0.0, atol=TOL)
+    ms = timed(lambda: sh._search_batch_rows(qs, TOP_K), 3)[1]
+    single = timed(lambda: h.search_batch_device(qs, TOP_K), 3)[1]
+    log(f"sharded hnsw over phase 6's index with the int8 nav table, "
+        f"{HNSW_SLICE} queries: equal to its single-device int8 search up to "
+        f"ties; {ms:.2f} ms against the single device's {single:.2f} ms "
+        f"(medians of 3)")
+    rows["hnsw_int8"] = dict(queries=HNSW_SLICE, ms=ms, single_ms=single)
+    h.config = beam_cfg
     del sh
     h._device_cache = None
     torch.cuda.empty_cache()
@@ -1668,8 +1854,11 @@ def main():
         if e["name"] == "distance_topk[bf16/highest]":
             e["phase8"] = bf16_rows
         if e["name"] == "distance_topk[bf16/default]":
-            e["max_abs_err"] = max(e["max_abs_err"], hnsw_scan["max_abs_err"],
-                                   part_scan["max_abs_err"])
+            e["max_abs_err"] = max(
+                e["max_abs_err"], hnsw_scan["max_abs_err"],
+                part_scan["max_abs_err"],
+                *(hnsw_scan[f"build_scan_k{k}"]["max_abs_err"]
+                  for k in (HNSW_ARGS[1], 1)))
             e["hnsw_route_scan"] = hnsw_scan
             e["partitioned_hnsw_route_scan"] = part_scan
             e["hnsw"] = hnsw_rows
@@ -1737,6 +1926,7 @@ def main():
          "by_q": d_rows},
     ]
     log(f"flat engines: {json.dumps(engines)}")
+    log(f"smoke wall time {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,14 @@ build on the card searched there and on the CPU over the same graph
 (classic, inline and beam routes; rows may differ only at near-ties of
 nav distances, counted), kernel A launched once by a scan-routed search
 and held to its plain version on the routing scan, the build from a
-CUDA tensor, ``add`` on the card, and bad routing-scan inputs raising,
+CUDA tensor, ``add`` on the card, and bad routing-scan inputs raising;
+HNSW's last three options: kernel A's bf16/default cosine route at the
+scan-routed build's shapes (k = 100 and k = 1, Q in {16, 256, 4096},
+tables of 8, 128 and 41,547 rows, n_valid 0, 1, 99 and the whole
+table), a scan-routed and an inline-insertion 20k build on the card
+against the CPU's (same layer sizes, recall@10 within 0.01), and the
+int8 navigation table on the card against the CPU's (the table bit for
+bit, searches up to near-ties, ``add``),
 and the multi-device layer: ``make_mesh`` on the card, the sharded flat,
 IVF and forest and the partitioned forest and HNSW over four shards of
 one card against the single-device indexes (or the same partitioned
@@ -1063,6 +1070,122 @@ def test_hnsw_route_scan_raises_on_bad_input(hnsw_card):
     before = cuda_topk.launches()
     idx.search_batch(q[:4], 10)
     assert cuda_topk.launches() == before + 1
+
+
+# -- HNSW's options: the scan-routed build, the inline build, int8 ------
+
+
+@pytest.mark.parametrize("k", [100, 1])
+@pytest.mark.parametrize("q_n", [16, 256, 4096])
+@pytest.mark.parametrize("rows", [8, 128, 41_547])
+@pytest.mark.parametrize("n_valid", [0, 1, 99, None])
+def test_distance_topk_build_scan_shapes(cuda, k, q_n, rows, n_valid):
+    """Kernel A's bf16/default cosine route at the shapes of the
+    scan-routed build (``ops/hnsw_build.scan_members``): bf16 member
+    tables of unit rows, bf16-valued queries, the built prefix growing
+    from nothing (None: the whole table); (+inf, -1) past it."""
+    rng = np.random.default_rng(rows + q_n)
+    d = 300
+
+    def unit(n):
+        v = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+        return torch.nn.functional.normalize(v, dim=1).to(torch.bfloat16).to(cuda)
+
+    tab, q = unit(rows), unit(q_n).float()
+    n = rows if n_valid is None else n_valid
+    before = cuda_topk.LAUNCHES_BY_ROUTE.get("bf16/default", 0)
+    got = cuda_topk.cuda_distance_topk(q, tab, n, k, metric="cosine",
+                                       precision="default")
+    again = cuda_topk.cuda_distance_topk(q, tab, n, k, metric="cosine",
+                                         precision="default")
+    torch.cuda.synchronize()
+    assert cuda_topk.LAUNCHES_BY_ROUTE["bf16/default"] == before + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    want = fused_scan_topk(q, tab, n, k, metric="cosine", precision="default")
+    assert_topk_match(got[0], got[1], want[0], want[1], rtol=0.0, atol=1e-4)
+    live = min(n, rows, k)
+    assert (got[1][:, :live] >= 0).all() and (got[1][:, live:] == -1).all()
+    assert torch.isinf(got[0][:, live:]).all()
+
+
+def _hnsw_option_builds(hnsw_card, **kw):
+    """The option's 20k build on the card and on the CPU, and the recall
+    of each over the fixture's queries."""
+    from vers_tpu_torch.index.hnsw import HNSWIndex
+    from vers_tpu_torch.utils.harness import recall_at_k
+
+    x, q, _ = hnsw_card
+    truth = np.argsort(-(q @ x.T), axis=1)[:, :10]
+    out = []
+    for device in ("cuda", "cpu"):
+        h = HNSWIndex.build_index_batched(4, 64, 32, 16, x, device=device, **kw)
+        out.append((h, recall_at_k(h.search_batch(q, 10).ids, truth)))
+    return out
+
+
+def test_hnsw_route_scan_build_on_cuda(hnsw_card):
+    before = cuda_topk.LAUNCHES_BY_ROUTE.get("bf16/default", 0)
+    plain = cuda_topk.LARGE_K_PLAIN
+    (card, rec_card), (cpu, rec_cpu) = _hnsw_option_builds(hnsw_card,
+                                                           route_scan=True)
+    # the build's scans ran on kernel A (k = 64 and the seeds' k = 1),
+    # then one routing scan by the search
+    assert cuda_topk.LAUNCHES_BY_ROUTE["bf16/default"] > before + 20
+    assert cuda_topk.LARGE_K_PLAIN == plain
+    assert card.get_num_nodes_in_layers() == cpu.get_num_nodes_in_layers()
+    assert card.get_num_nodes_in_layers() == \
+        hnsw_card[2].get_num_nodes_in_layers()
+    assert abs(rec_card - rec_cpu) <= 0.01, (rec_card, rec_cpu)
+    assert rec_card > 0.95
+
+
+def test_hnsw_inline_build_on_cuda(hnsw_card):
+    (card, rec_card), (cpu, rec_cpu) = _hnsw_option_builds(
+        hnsw_card, insert_inline=True)
+    assert card.build_seconds["inline_table_bytes"] == 20_001 * 49 * 32 * 2
+    assert card.get_num_nodes_in_layers() == cpu.get_num_nodes_in_layers()
+    assert abs(rec_card - rec_cpu) <= 0.01, (rec_card, rec_cpu)
+    assert rec_card > 0.95
+
+
+def test_hnsw_int8_on_cuda_matches_cpu(hnsw_card):
+    import dataclasses
+
+    x, q, _ = hnsw_card
+    card, cpu = _hnsw_pair(hnsw_card, nav_dtype="int8", nav_inline_dp=None)
+    kc, cc = card._ensure_device_cache(), cpu._ensure_device_cache()
+    assert kc["vecs_nav"].dtype == torch.int8
+    assert torch.equal(kc["vecs_nav"].cpu(), cc["vecs_nav"])
+    assert torch.equal(kc["nav_scales"].cpu(), cc["nav_scales"])
+    for route in ("scan", "beam"):
+        for h in (card, cpu):
+            h.config = dataclasses.replace(h.config, route_mode=route)
+        got, want = card.search_batch(q, 10), cpu.search_batch(q, 10)
+        v = cc["vecs_nav"].double().numpy()
+        sc = cc["nav_scales"].double().numpy()
+        qn = torch.from_numpy(q).to(torch.bfloat16).double().numpy()
+        near_ties = 0
+        for r in np.flatnonzero((got.ids != want.ids).any(axis=1)):
+            a, b = set(got.ids[r].tolist()), set(want.ids[r].tolist())
+            if a == b:
+                continue
+            near_ties += 1
+            ids = sorted(a | b)
+            d = np.sort(1.0 - (v[ids] @ qn[r]) * sc[ids])
+            assert np.diff(d).min() < 1e-5, (route, r)
+        assert near_ties <= 0.02 * q.shape[0], near_ties
+        same = (got.ids == want.ids).all(axis=1)
+        assert np.allclose(got.distances[same], want.distances[same],
+                           rtol=0.0, atol=1e-5)
+    # add on the card's int8 cache: the row and its scale as on the CPU
+    for h in (card, cpu):
+        h.add(q[5], 20_000)
+        assert h._last_add_patch is not None
+    assert torch.equal(card._device_cache["vecs_nav"][20_000].cpu(),
+                       cpu._device_cache["vecs_nav"][20_000])
+    assert torch.equal(card._device_cache["nav_scales"][20_000].cpu(),
+                       cpu._device_cache["nav_scales"][20_000])
+    assert card.search_batch(q[5:6], 1).ids[0, 0] == 20_000
 
 
 # -- the multi-device layer: four shards on one card ----------------------

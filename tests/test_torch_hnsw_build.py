@@ -292,9 +292,3 @@ def test_auto_wave_cap_and_sub_caps_match(n, num_layers, m):
     assert got == want
     assert max(w for w, _, _ in got) == {5_000: 1024, 70_000: 2048,
                                          530_000: 4096}[n]
-
-
-def test_unported_build_options_raise(corpus):
-    for kw in (dict(route_scan=True), dict(insert_inline=True)):
-        with pytest.raises(NotImplementedError):
-            tb.build_graph(corpus, 3, 16, 4, device="cpu", **kw)

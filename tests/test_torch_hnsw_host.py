@@ -124,11 +124,3 @@ def test_default_device_raises_without_card(monkeypatch):
         HNSWIndex.build_index(2, 8, 8, 4, x)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         HNSWIndex.build_index_batched(2, 8, 8, 4, x)
-
-
-def test_int8_nav_not_ported():
-    from vers_tpu_torch.config import HNSWConfig
-
-    with pytest.raises(NotImplementedError):
-        HNSWIndex(16, 8, 2, 4, config=HNSWConfig(nav_dtype="int8"),
-                  device="cpu")

@@ -22,9 +22,10 @@ the forest) and ``ops/cuda_bucket.py`` (D, the bucket-min scan). The
 multi-device layer (``parallel/``: the sharded Flat, IVFFlat, forest and
 HNSW indexes and the partitioned forest and HNSW) drives a mesh of
 devices from one process; its classes load lazily, as in ``vers_tpu``.
-Not ported yet: HNSW's int8 navigation table
-(``HNSWConfig(nav_dtype="int8")``) and the scan-routed wave build
-(``build_graph(route_scan=True)``).
+HNSW has every option of ``vers_tpu``'s: the int8 navigation table
+(``HNSWConfig(nav_dtype="int8")``), the scan-routed wave build on
+kernel A (``build_graph(route_scan=True)``) and the inline insertion
+beam (``build_graph(insert_inline=True)``).
 
 Dispatch follows the input tensor's device: a CUDA tensor runs the
 kernel, a CPU tensor the plain version. Nothing here imports JAX.

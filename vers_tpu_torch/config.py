@@ -101,8 +101,11 @@ class HNSWConfig:
     max_degree: Optional[int] = None
     # dtype of the beam's navigation table: "bfloat16" (half the gather
     # bytes of "float32"; products exact, sums in f32; the final top-k
-    # is rescored in f32) or "float32". "int8" (per-row quantization)
-    # is not ported and raises NotImplementedError.
+    # is rescored in f32), "float32", or "int8" (symmetric per-row
+    # quantization, round(v / absmax * 127) with f32 scales absmax / 127;
+    # a quarter of f32's bytes, the query rounded to bf16, rescored in
+    # f32). Where the inline table is on (nav_inline_dp below), "int8"
+    # becomes "bfloat16": the inline beam's refine reads bf16 rows.
     nav_dtype: str = "bfloat16"
     # Neighbourhood-inlined navigation (ops/beam_inline.py): the device
     # cache also holds, per node, its layer-0 neighbours' dp-dim

@@ -24,7 +24,10 @@ Quirk parity (all preserved, see `search_approximate`):
 
 With no ``device`` an index lives on the first CUDA card
 (``core.resolve_device``); ``device="cpu"`` runs the plain versions.
-``nav_dtype="int8"`` is not ported and raises NotImplementedError.
+``nav_dtype="int8"`` navigates on per-row symmetric int8 rows and their
+f32 scales, except where the inline table is on (``nav_inline_dp``,
+"auto" at >= 200k rows under the scan router): there the nav table is
+bf16, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -82,6 +85,14 @@ def auto_inline_dp(config, n_rows: int, n_pad: int, deg: int):
         if n_pad * deg * dp * 2 <= budget:
             return dp
     return None
+
+
+def _f32(value: float, device) -> torch.Tensor:
+    """``value`` as a 0-d f32 tensor on ``device``: a divisor that keeps
+    a CUDA division a true division (PyTorch multiplies a CUDA tensor by
+    the reciprocal of a Python scalar divisor, which can round
+    otherwise)."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 # Gather-degree cap applied by the auto nav policy when the inline beam
@@ -149,10 +160,6 @@ class HNSWIndex(Index):
             num_neighbours=num_neighbours,
             seed=seed,
         )
-        if getattr(self.config, "nav_dtype", "bfloat16") == "int8":
-            raise NotImplementedError(
-                'HNSWConfig(nav_dtype="int8") is not ported (ROADMAP 1.8); '
-                'use "bfloat16" or "float32"')
         self.device = resolve_device(device)
         self.ef_construction = int(ef_construction)
         self.ef_search = int(ef_search)
@@ -518,6 +525,9 @@ class HNSWIndex(Index):
             waves=timings.get("waves", 0),
             wave_cap=timings.get("wave_cap"),
         )
+        if "inline_table_bytes" in timings:  # build_graph(insert_inline=True)
+            self.build_seconds["inline_table_bytes"] = timings[
+                "inline_table_bytes"]
 
     @classmethod
     def from_numpy(
@@ -788,6 +798,8 @@ class HNSWIndex(Index):
 
             cache["vecs"] = grown(cache["vecs"])
             cache["vecs_nav"] = grown(cache["vecs_nav"])
+            if cache["nav_scales"] is not None:
+                cache["nav_scales"] = grown(cache["nav_scales"], 1)
             cache["adjs"] = [grown(a, -1) for a in cache["adjs"]]
             if cache.get("inline") is not None:
                 inline = cache["inline"]
@@ -797,7 +809,15 @@ class HNSWIndex(Index):
         # is invisible to the descent below
         qrow = torch.from_numpy(emb).to(dev)
         cache["vecs"][row] = qrow
-        cache["vecs_nav"][row] = qrow.to(cache["vecs_nav"].dtype)
+        if cache["nav_scales"] is not None:
+            # the JAX package takes this row's absmax on the host, as a
+            # Python float (the cache build takes it in f32 on the device)
+            absmax = max(float(np.max(np.abs(emb))), 1e-12)
+            cache["vecs_nav"][row] = torch.round(
+                qrow / _f32(absmax, dev) * 127.0).to(torch.int8)
+            cache["nav_scales"][row] = absmax / 127.0
+        else:
+            cache["vecs_nav"][row] = qrow.to(cache["vecs_nav"].dtype)
         if cache.get("inline") is not None:
             from vers_tpu_torch.ops.beam_inline import project_rows
 
@@ -856,6 +876,7 @@ class HNSWIndex(Index):
             l_ins=l_ins,
             expand=resolve_beam_expand(self.config),
             steps_cap=getattr(self.config, "beam_steps", None),
+            scales=cache["nav_scales"],
         )
         cand_d = cand_d.cpu().numpy()
         cand_i = cand_i.cpu().numpy()
@@ -1047,12 +1068,26 @@ class HNSWIndex(Index):
         )
         if not adjs:
             inline_dp = None
-        # navigation table: the beam loop is bound by its row gathers,
-        # so bf16 halves the bytes of f32; final results are
-        # f32-rescored
         nav_dtype = getattr(self.config, "nav_dtype", "bfloat16")
-        vecs_nav = (vecs_dev.to(torch.bfloat16) if nav_dtype == "bfloat16"
-                    else vecs_dev)
+        if inline_dp and nav_dtype == "int8":
+            # the inline beam's exact refine reads a plain bf16 full-dim
+            # table (no dequantization scales)
+            nav_dtype = "bfloat16"
+        # navigation table: the beam loop is bound by its row gathers,
+        # so bf16 halves the bytes of f32 and int8 (symmetric per-row
+        # quantization, f32 scales) halves them again; final results
+        # are f32-rescored
+        nav_scales = None
+        if nav_dtype == "int8":
+            absmax = torch.clamp_min(
+                vecs_dev.abs().amax(dim=1, keepdim=True), 1e-12)
+            vecs_nav = torch.round(vecs_dev / absmax * 127.0).to(torch.int8)
+            nav_scales = absmax[:, 0] / _f32(127.0, vecs_dev.device)
+            del absmax
+        elif nav_dtype == "bfloat16":
+            vecs_nav = vecs_dev.to(torch.bfloat16)
+        else:
+            vecs_nav = vecs_dev
         # Layer-1 member table for the routing scan (full_descent_scan):
         # the layer-1 nodes' vectors in bf16 (kernel A's bf16-corpus
         # route at precision "default"), zero past n1
@@ -1091,6 +1126,7 @@ class HNSWIndex(Index):
         self._device_cache = dict(
             vecs=vecs_dev,
             vecs_nav=vecs_nav,
+            nav_scales=nav_scales,
             adjs=adjs,
             l1_members=l1_members,
             l1_tab=l1_tab,
@@ -1177,6 +1213,7 @@ class HNSWIndex(Index):
                 rescore=rescore,
                 expand=expand,
                 steps_cap=steps_cap,
+                scales=cache["nav_scales"],
             )
         # the whole descent: routing beams + layer-0 beam + f32 rescore
         return full_descent(
@@ -1192,6 +1229,7 @@ class HNSWIndex(Index):
             rescore=rescore,
             expand=expand,
             steps_cap=steps_cap,
+            scales=cache["nav_scales"],
         )
 
     def search_batch_device(self, queries, top_k: int):

@@ -18,8 +18,12 @@ Numerics. A bf16 navigation table holds the nav rows; they are gathered
 in bf16 (the bytes are the cost) and multiplied in f32 against the
 query rounded to bf16, which is exact for every product: the JAX
 package's bf16 x bf16 dots with f32 accumulation, up to summation
-order, TF32 or not. The f32 rescore needs TF32 off, as the port's other
-exact paths do.
+order, TF32 or not. An int8 table (symmetric per-row quantization,
+``scales`` the per-row dequantization factors) is gathered in int8,
+widened, dotted in f32 with the query rounded to bf16 (not to int8:
+the JAX package's rule) and multiplied by the gathered scale; its
+products are exact too. The f32 rescore needs TF32 off, as the port's
+other exact paths do.
 
 Loop. A step after a query's last unexpanded entry is a no-op for it
 (nothing picked, nothing merged, a stable re-sort of a sorted beam), so
@@ -64,32 +68,46 @@ def in_beam(ids: torch.Tensor, beam_i: torch.Tensor) -> torch.Tensor:
     return sb.gather(1, pos) == ids
 
 
+def nav_queries(queries: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """The queries as the beam dots them with ``vecs``: rounded to the
+    table's dtype, or to bf16 for an int8 table."""
+    return queries.to(torch.bfloat16 if vecs.dtype == torch.int8
+                      else vecs.dtype)
+
+
 def row_dots(vecs: torch.Tensor, ids: torch.Tensor,
-             queries: torch.Tensor) -> torch.Tensor:
+             queries: torch.Tensor, scales=None) -> torch.Tensor:
     """(Q, m) f32 dot products of each query with the rows ``ids``
     (Q, m) of ``vecs`` (clipped into range; callers mask -1). The rows
-    are gathered in the table's dtype and multiplied in f32."""
+    are gathered in the table's dtype and multiplied in f32; with
+    ``scales`` (n_pad,) f32, an int8 table's rows, each product then
+    multiplied by its row's scale."""
     if vecs.dtype == torch.float32:
         _check_f32_matmul(vecs)
     q_n, m = ids.shape
     n_pad, d = vecs.shape
     safe = ids.clamp(0, n_pad - 1)
     qf = queries.float()
+
+    def dots(rows, q):
+        out = torch.bmm(take_rows(vecs, rows).float(), q[:, :, None])[:, :, 0]
+        return out if scales is None else out * scales[rows]
+
     step = max(1, GATHER_BYTES // max(1, 4 * m * d))
     if q_n <= step:
-        return torch.bmm(take_rows(vecs, safe).float(), qf[:, :, None])[:, :, 0]
+        return dots(safe, qf)
     out = torch.empty((q_n, m), dtype=torch.float32, device=vecs.device)
     for c0 in range(0, q_n, step):
         c1 = min(q_n, c0 + step)
-        out[c0:c1] = torch.bmm(take_rows(vecs, safe[c0:c1]).float(),
-                               qf[c0:c1, :, None])[:, :, 0]
+        out[c0:c1] = dots(safe[c0:c1], qf[c0:c1])
     return out
 
 
-def cosine_to(vecs, ids, queries) -> torch.Tensor:
+def cosine_to(vecs, ids, queries, scales=None) -> torch.Tensor:
     """(Q, m) cosine distances ``1 - q.x`` to the rows ``ids``; +inf
-    where an id is -1."""
-    return torch.where(ids >= 0, 1.0 - row_dots(vecs, ids, queries), _INF)
+    where an id is -1. ``scales``: an int8 table's per-row factors."""
+    return torch.where(ids >= 0, 1.0 - row_dots(vecs, ids, queries, scales),
+                       _INF)
 
 
 def repeats_earlier(ids: torch.Tensor) -> torch.Tensor:
@@ -162,20 +180,21 @@ def run_beam(state, step_fn, max_steps: int, sync_every: int):
 
 def gather_beam(queries_nav, vecs, adj, entry, ef: int, max_steps: int,
                 expand: int, entry_d=None, rank_map=None,
-                dedup_self: bool = True, sync_every: int = 4):
+                dedup_self: bool = True, sync_every: int = 4, scales=None):
     """One layer's beam search on the classic row gathers, shared by the
     query beam (``beam_search_layer``) and the construction beam
-    (``ops/hnsw_build._beam``). ``queries_nav`` are already rounded to
-    the table's dtype. ``rank_map`` (n_pad,) maps a global id to its
-    compact adjacency row (-1 absent); None: ids are rows. Returns
-    (beam_d, beam_i) ascending, -1 / +inf padded."""
+    (``ops/hnsw_build._beam``). ``queries_nav`` are already rounded as
+    ``nav_queries`` says. ``rank_map`` (n_pad,) maps a global id to its
+    compact adjacency row (-1 absent); None: ids are rows. ``scales``:
+    an int8 table's per-row factors. Returns (beam_d, beam_i)
+    ascending, -1 / +inf padded."""
     q_n = queries_nav.shape[0]
     n_pad = vecs.shape[0]
     rows_total, deg = adj.shape
     e = max(1, min(expand, ef))
 
     def dist_to(ids):
-        return cosine_to(vecs, ids, queries_nav)
+        return cosine_to(vecs, ids, queries_nav, scales)
 
     def step(state):
         beam_d, beam_i, expanded = state
@@ -204,7 +223,7 @@ def gather_beam(queries_nav, vecs, adj, entry, ef: int, max_steps: int,
 
 def beam_search_layer(
     queries,      # (Q, d) f32
-    vecs,         # (n_pad, d) node vectors (compact ids), bf16 or f32
+    vecs,         # (n_pad, d) node vectors (compact ids): f32, bf16, int8
     adj,          # (n_pad, deg) int neighbour compact ids, -1 pad
     entry,        # (Q,) or (Q, S) compact entry node(s) per query
     ef: int,
@@ -212,6 +231,7 @@ def beam_search_layer(
     expand_per_step: int = 4,
     entry_d=None,  # (Q, S) f32 precomputed seed distances (optional)
     sync_every: int = 4,
+    scales=None,  # (n_pad,) f32 per-row dequant scales of an int8 table
 ):
     """Returns (beam_d (Q, ef) ascending, beam_i (Q, ef) int64; -1/inf
     padding). Emulates one HNSWLayer::search with ef candidates.
@@ -221,11 +241,13 @@ def beam_search_layer(
     distances when the caller already computed them.
 
     ``expand_per_step``: how many best unexpanded beam entries expand
-    per iteration (1 = classic sequential best-first)."""
-    q_nav = queries.to(vecs.dtype)
-    return gather_beam(q_nav, vecs, adj, entry, ef, max_steps,
-                       expand_per_step, entry_d=entry_d,
-                       sync_every=sync_every)
+    per iteration (1 = classic sequential best-first).
+
+    ``scales``: when ``vecs`` is an int8 table, its per-row
+    dequantization scales (ranking only: callers rescore in f32)."""
+    return gather_beam(nav_queries(queries, vecs), vecs, adj, entry, ef,
+                       max_steps, expand_per_step, entry_d=entry_d,
+                       sync_every=sync_every, scales=scales)
 
 
 def route_scan(queries, l1_tab, n1: int, k: int):
@@ -266,6 +288,7 @@ def full_descent(
     rescore: bool,
     expand: int = 4,
     steps_cap=None,
+    scales=None,  # (n_pad,) f32 dequant scales of an int8 vecs_nav
 ):
     """The whole query descent (``route_mode="beam"``): routing beams on
     layers L-2..1, the ef-wide layer-0 beam, and the exact f32 rescore.
@@ -278,7 +301,7 @@ def full_descent(
         beam_d, beam_i = beam_search_layer(
             queries, vecs_nav, adjs[layer_idx], entry, ef=ef_l,
             max_steps=steps_cap or max(4 * ef_l, 64),
-            expand_per_step=min(max(1, expand), ef_l),
+            expand_per_step=min(max(1, expand), ef_l), scales=scales,
         )
         if layer_idx != 0:
             entry = beam_i[:, 0]
@@ -301,6 +324,7 @@ def full_descent_scan(
     rescore: bool,
     expand: int = 8,
     steps_cap=None,
+    scales=None,  # (n_pad,) f32 dequant scales of an int8 vecs_nav
 ):
     """Query descent with brute-force routing (``route_mode="scan"``,
     PARITY D14): one exact scan over the layer-1 members (``route_scan``:
@@ -317,7 +341,7 @@ def full_descent_scan(
         queries, vecs_nav, adj0, seed_ids, ef=ef,
         max_steps=steps_cap or max(4 * ef, 64),
         expand_per_step=min(max(1, expand), ef),
-        entry_d=seed_d,
+        entry_d=seed_d, scales=scales,
     )
     if rescore:
         beam_d, beam_i = rescore_cosine(queries, vecs_f32, beam_i, top_k)
@@ -334,6 +358,7 @@ def insertion_candidates(
     l_ins: int,
     expand: int = 8,
     steps_cap=None,
+    scales=None,  # (n_pad,) f32 dequant scales of an int8 vecs_nav
 ):
     """Insertion descent for an incremental ``add`` on a device-built
     graph (the search phase of `_add_node`, `hnsw.rs:348-416`): beams
@@ -350,7 +375,7 @@ def insertion_candidates(
         beam_d, beam_i = beam_search_layer(
             query, vecs_nav, adjs[l], entry, ef=efc,
             max_steps=steps_cap or max(4 * efc, 64),
-            expand_per_step=min(max(1, expand), efc),
+            expand_per_step=min(max(1, expand), efc), scales=scales,
         )
         if l <= l_ins:
             rd, ri = rescore_cosine(query, vecs_f32, beam_i, efc)

@@ -35,6 +35,18 @@ schedule, ``wave_cap="auto"``, ``beam_steps="auto"``,
 ``route_steps="auto"`` and the per-layer ``sub_caps`` rule. A wave runs
 on its live rows only; the JAX package pads it to a power-of-two
 bucket, whose dead rows change no live row's result.
+
+Two options change how a wave searches, as in the JAX package:
+
+- ``route_scan``: exact scans of each upper layer's built members
+  replace every routing and upper-layer insertion beam
+  (``scan_members``: kernel A's bf16 route at precision "default" on a
+  CUDA tensor, its plain version on a CPU tensor, the plain version for
+  k > 128 on either, counted);
+- ``insert_inline``: the layer-0 insertion beam scores candidates on a
+  construction-time table of the neighbours' PCA-projected blocks,
+  kept slot for slot with the adjacency (``_beam_inline``,
+  ``_commit_edges(inline=...)``).
 """
 
 from __future__ import annotations
@@ -46,11 +58,26 @@ import numpy as np
 import torch
 
 from vers_tpu_torch.core import resolve_device, round_up
-from vers_tpu_torch.ops.beam import gather_beam, take_rows
+from vers_tpu_torch.ops import cuda_topk
+from vers_tpu_torch.ops.beam import (
+    cosine_to,
+    gather_beam,
+    in_beam,
+    init_beam,
+    merge_beam,
+    pick_unexpanded,
+    run_beam,
+    take_rows,
+)
 from vers_tpu_torch.ops.topk import topk_smallest
 
 _INF = float("inf")
 _INT32_MAX = 2**31 - 1
+
+# Guard on the construction-time inline table (build_graph
+# insert_inline), counted as the JAX package counts it (its power-of-two
+# rows), so that both refuse the same builds.
+_INLINE_BUILD_MAX_BYTES = 8 << 30
 
 
 def draw_insertion_layers(n: int, num_layers: int, m: int, seed: int) -> np.ndarray:
@@ -81,6 +108,80 @@ def _beam(q, vecs, adj, rank_map, entry, ef: int, max_steps: int,
     return gather_beam(q, vecs, adj, entry, ef, max_steps, expand,
                        entry_d=entry_d, rank_map=rank_map,
                        dedup_self=dedup_self, sync_every=sync_every)
+
+
+def _pow2_rows(count: int) -> int:
+    """The JAX package's power-of-two row count of a layer's buffers."""
+    return max(8, 1 << (max(count, 1) - 1).bit_length())
+
+
+def scan_members(q, tab, tab_members, n_built: int, k: int, chunk: int):
+    """The exact top-``k`` of the first ``n_built`` rows of a layer's
+    member table ``tab`` (nav dtype) for the nav rows ``q``, by cosine
+    distance at precision "default" (bf16 products, f32 sums): (dists
+    (W, k) f32, global ids (W, k) int64, -1 / +inf past n_built). A CUDA
+    tensor launches kernel A's bf16 route (``cuda_topk.distance_topk``,
+    which raises rather than fall back); a CPU tensor, or k > 128 on any
+    device (counted in ``cuda_topk.LARGE_K_PLAIN``), takes its plain
+    version with corpus chunks of ``chunk`` rows."""
+    d, pos = cuda_topk.distance_topk(q.float().contiguous(), tab, n_built, k,
+                                     metric="cosine", chunk_size=chunk,
+                                     precision="default")
+    pos = pos.long()
+    ids = torch.where(pos >= 0,
+                      tab_members[pos.clamp(0, tab.shape[0] - 1)].long(), -1)
+    return d, ids
+
+
+def _beam_inline(q, qp, vecs, inline_tab, adj_fwd, rank_map, entry,
+                 ef: int, max_steps: int, expand: int = 8,
+                 refine: int = 64, entry_d=None, sync_every: int = 4):
+    """The neighbourhood-inlined insertion beam (the build side of
+    ``ops/beam_inline``): ``inline_tab`` (rows + 1, deg + slack, dp)
+    holds, slot for slot with the full adjacency width, each node's
+    neighbours' projected bf16 blocks. A step gathers W * expand wide
+    rows instead of W * expand * deg thin ones, scores every candidate
+    by its projected dot with ``qp`` (W, dp), keeps the best ``refine``
+    and ranks those by their exact nav distances, so the beam keeps
+    exact order (projection only filters). ``adj_fwd`` gives the
+    candidate ids (forward columns; the blocks of slack slots are
+    gathered but not read). Same beam and visited semantics as
+    ``_beam``, cross-step repeats only, as in the JAX package."""
+    w = q.shape[0]
+    n_pad = vecs.shape[0]
+    rows_total, width, dp = inline_tab.shape
+    deg = adj_fwd.shape[1]
+    e = max(1, min(expand, ef))
+    r = max(1, min(refine, e * deg))
+    qpf = qp.float()[:, :, None]
+
+    def dist_to(ids):
+        return cosine_to(vecs, ids, q)
+
+    def step(state):
+        beam_d, beam_i, expanded = state
+        nodes, has, expanded = pick_unexpanded(beam_d, beam_i, expanded, e)
+        rows = rank_map[nodes.clamp(0, n_pad - 1)].long()
+        safe = rows.clamp(0, rows_total - 1)
+        nbrs = take_rows(adj_fwd, safe).long()                 # (W, E, deg)
+        nbrs = torch.where((has & (rows >= 0))[:, :, None], nbrs,
+                           -1).reshape(w, e * deg)
+        # E wide rows a query instead of E * deg thin ones
+        blocks = take_rows(inline_tab, safe)                 # (W, E, width, dp)
+        nv = blocks[:, :, :deg, :].reshape(w, e * deg, dp)
+        dots = torch.bmm(nv.float(), qpf)[:, :, 0]
+        nd = torch.where(nbrs >= 0, 1.0 - dots, _INF)
+        nd = nd.masked_fill(in_beam(nbrs, beam_i) & (nbrs >= 0), _INF)
+        # the projection filters the top r; the beam merges exact navs
+        sc, sel = topk_smallest(nd, r)
+        cand = torch.where(torch.isfinite(sc), nbrs.gather(1, sel), -1)
+        beam_d, beam_i, expanded, active = merge_beam(
+            beam_d, beam_i, expanded, dist_to(cand), cand, ef)
+        return (beam_d, beam_i, expanded), active
+
+    state = init_beam(entry, ef, dist_to, entry_d)
+    beam_d, beam_i, _ = run_beam(state, step, max_steps, sync_every)
+    return beam_d, beam_i
 
 
 def _heuristic_select(q, vecs, beam_d, beam_i, m: int):
@@ -119,12 +220,18 @@ def _heuristic_select(q, vecs, beam_d, beam_i, m: int):
 
 
 def _commit_edges(adj, dist, rank_map, u_ids, sel_i, sel_d, connect,
-                  deg: int, slack: int):
+                  deg: int, slack: int, inline=None, proj=None):
     """Write forward rows for new nodes and reverse edges into slack
     slots, then compact affected rows back to ``deg`` by distance.
     adj/dist: (rows + 1, deg + slack), the last row the dump row, both
     updated in place. u_ids (W,) global; sel_i/sel_d (W, S <= deg).
-    Returns (adj, dist)."""
+    Returns (adj, dist).
+
+    With ``inline`` (rows + 1, deg + slack, dp) and ``proj`` (n_pad, dp)
+    the construction-time inline table is kept slot for slot with the
+    adjacency, in place: forward rows get their neighbours' projected
+    blocks, a reverse edge drops ``proj[u]`` into the id's slack slot,
+    and compaction moves the blocks by the ids' own permutation."""
     w, s = sel_i.shape
     dump = adj.shape[0] - 1
     width = deg + slack
@@ -141,6 +248,13 @@ def _commit_edges(adj, dist, rank_map, u_ids, sel_i, sel_d, connect,
     u_row = torch.where(connect & (u_ids >= 0) & (u_row >= 0), u_row, dump)
     adj[u_row] = fwd_i   # wave members own distinct rows; repeats only at dump
     dist[u_row] = fwd_d
+    if inline is not None:
+        dp = proj.shape[1]
+        blk = proj[sel_i.clamp(0, n_pad - 1)].masked_fill(
+            (sel_i < 0)[:, :, None], 0)                      # (W, S, dp)
+        fwd_blk = torch.zeros((w, width, dp), dtype=inline.dtype, device=dev)
+        fwd_blk[:, :s] = blk
+        inline[u_row] = fwd_blk
 
     # ---- reverse edges ------------------------------------------------
     e = w * s
@@ -171,6 +285,8 @@ def _commit_edges(adj, dist, rank_map, u_ids, sel_i, sel_d, connect,
     # each kept (v, rank) pair is one (row, slot); repeats only at dump
     adj[v_row_k, slot] = u2.to(adj.dtype)
     dist[v_row_k, slot] = d2
+    if inline is not None:
+        inline[v_row_k, slot] = proj[u2.clamp(0, n_pad - 1)]
 
     # ---- compact affected rows back to deg ----------------------------
     rows = torch.where(val2 & (v_row >= 0), v_row, dump)
@@ -188,6 +304,13 @@ def _commit_edges(adj, dist, rank_map, u_ids, sel_i, sel_d, connect,
     # same gathered state), so a plain index_put_ is safe
     adj[rows] = ni
     dist[rows] = nd
+    if inline is not None:
+        # the blocks ride the ids' compaction permutation; repeated rows
+        # write equal values, as for adj and dist above
+        g_blk = inline[rows].masked_fill(off[:, :, None], 0)
+        nblk = g_blk.gather(1, order[:, :, None].expand(-1, -1, dp))
+        nblk = nblk.masked_fill(~torch.isfinite(nd[:, :deg])[:, :, None], 0)
+        inline[rows] = torch.nn.functional.pad(nblk, (0, 0, 0, width - deg))
     return adj, dist
 
 
@@ -200,29 +323,20 @@ def _fit(sel_d, sel_i, deg: int):
     return sel_d[:, :deg], sel_i[:, :deg]
 
 
-def _check_ported(route_scan: bool, insert_inline: bool) -> None:
-    """The JAX package's scan routing for construction (measured
-    neutral there, not its default) is still to port; its inline
-    insertion beam was refuted there and is not ported."""
-    if route_scan:
-        raise NotImplementedError(
-            "build_graph(route_scan=True) is not ported (ROADMAP 1.8)")
-    if insert_inline:
-        raise NotImplementedError(
-            "build_graph(insert_inline=True) is not ported (refuted in "
-            "the JAX package; ROADMAP 'Do not port')")
-
-
 def make_wave_step(num_layers: int, m: int, efc: int, degs: List[int],
                    slack: int, sub_caps: tuple, layer_sizes: tuple,
                    ef_route: int = 8, expand: int = 8,
                    route_expand: int = 4, dedup_self: bool = False,
                    beam_steps: int | None = None,
-                   route_steps: int | None = 16):
-    """The per-wave insertion function (the JAX package's classic
-    branch). degs[l] = forward degree cap of layer l (m_l + 1 for the
-    heuristic's m+1 quirk); adjacency buffers are (rows + 1,
-    degs[l] + slack).
+                   route_steps: int | None = 16,
+                   route_scan: bool = False, seed_count: int = 1,
+                   scan_chunk: int = 16384,
+                   insert_inline: bool = False,
+                   inline_refine: int = 64,
+                   inline_steps: int | None = None):
+    """The per-wave insertion function. degs[l] = forward degree cap of
+    layer l (m_l + 1 for the heuristic's m+1 quirk); adjacency buffers
+    are (rows + 1, degs[l] + slack).
 
     ``beam_steps`` / ``route_steps`` cap the steps of the insertion /
     routing beams (None = the 4*ef ceiling). ``sub_caps[l]`` (l >= 1)
@@ -236,13 +350,79 @@ def make_wave_step(num_layers: int, m: int, efc: int, degs: List[int],
     a layer of one member holds only the global entry node, so routing
     through it is the identity and is skipped.
 
-    The JAX package's ``route_scan`` and ``insert_inline`` branches are
-    not ported (``build_graph`` raises for them).
+    ``route_scan``: every upper-layer beam gives way to exact scans.
+    Waves insert in global-id order and membership is drawn up front, so
+    the built members of layer l are the first ``n_built[l]`` rows of its
+    member table ``tabs[l]`` (ascending global id). The prefix of the
+    wave that inserts at layer l >= 1 takes its candidates from an exact
+    top-``min(efc, rows)`` scan of that prefix (``scan_members``), and
+    the layer-0 insertion beam starts from the top-``seed_count``
+    layer-1 members, their scan distances as seed distances. The wave
+    step takes ``(tabs, tab_members, n_built)`` after ``entry``.
+
+    ``insert_inline``: the layer-0 insertion beam is ``_beam_inline``
+    (``inline_refine`` exact rows a step, ``inline_steps`` steps, else
+    ``beam_steps``) and ``_commit_edges`` keeps its table; the wave step
+    takes ``(inline_tab, proj, basis)`` after ``entry``.
 
     Returns ``wave_step(vecs, rank_maps, adjs, dists, wave_ids, ins_l,
-    entry)``, which updates adjs/dists in place."""
+    entry, *option_args)``, which updates the buffers in place."""
 
-    def wave_step(vecs, rank_maps, adjs, dists, wave_ids, ins_l, entry):
+    def insert_layer0(q, vecs, rank_maps, adjs, dists, wave_ids, ins_l,
+                      beam_d, beam_i, inline=None, proj=None):
+        deg = degs[0]
+        connect = (wave_ids >= 0) & (ins_l >= 0)
+        sel_d, sel_i = _fit(
+            *_heuristic_select(q, vecs, beam_d, beam_i, 2 * m), deg)
+        _commit_edges(adjs[0], dists[0], rank_maps[0], wave_ids, sel_i, sel_d,
+                      connect, deg, slack, inline=inline, proj=proj)
+
+    def layer0_beam(q, vecs, rank_maps, adjs, seeds, seed_d=None):
+        return _beam(
+            q, vecs, adjs[0][:, :degs[0]], rank_maps[0], seeds, efc,
+            max_steps=beam_steps or 4 * efc, expand=expand,
+            dedup_self=dedup_self, entry_d=seed_d,
+        )
+
+    if route_scan:
+
+        def wave_step_scan(vecs, rank_maps, adjs, dists, wave_ids, ins_l,
+                           entry, tabs, tab_members, n_built):
+            w = wave_ids.shape[0]
+            n_pad = vecs.shape[0]
+            alive = wave_ids >= 0
+            q = vecs[wave_ids.clamp(0, n_pad - 1)]
+            for l in range(num_layers - 1, 0, -1):
+                c = min(sub_caps[l], w)
+                if c == 0:
+                    continue
+                deg = degs[l]
+                rows_l = tabs[l].shape[0]
+                cd, ci = scan_members(q[:c], tabs[l], tab_members[l],
+                                      n_built[l], min(efc, rows_l),
+                                      min(scan_chunk, rows_l))
+                connect = alive[:c] & (ins_l[:c] >= l)
+                sel_d, sel_i = _fit(
+                    *_heuristic_select(q[:c], vecs, cd, ci, m), deg)
+                _commit_edges(adjs[l], dists[l], rank_maps[l], wave_ids[:c],
+                              sel_i, sel_d, connect, deg, slack)
+            # layer 0: seed the insertion beam with the nearest built
+            # layer-1 members
+            rows_1 = tabs[1].shape[0]
+            seed_d, seeds = scan_members(q, tabs[1], tab_members[1],
+                                         n_built[1],
+                                         max(1, min(seed_count, rows_1)),
+                                         min(scan_chunk, rows_1))
+            beam_d, beam_i = layer0_beam(q, vecs, rank_maps, adjs, seeds,
+                                         seed_d)
+            insert_layer0(q, vecs, rank_maps, adjs, dists, wave_ids, ins_l,
+                          beam_d, beam_i)
+            return adjs, dists
+
+        return wave_step_scan
+
+    def wave_step(vecs, rank_maps, adjs, dists, wave_ids, ins_l, entry,
+                  *inline_args):
         w = wave_ids.shape[0]
         n_pad = vecs.shape[0]
         alive = wave_ids >= 0
@@ -287,17 +467,20 @@ def make_wave_step(num_layers: int, m: int, efc: int, degs: List[int],
             ent = new_ent
 
         # layer 0: every member inserts — full-width beam
-        deg = degs[0]
-        beam_d, beam_i = _beam(
-            q, vecs, adjs[0][:, :deg], rank_maps[0], ent, efc,
-            max_steps=beam_steps or 4 * efc, expand=expand,
-            dedup_self=dedup_self,
-        )
-        connect = alive & (ins_l >= 0)
-        sel_d, sel_i = _fit(
-            *_heuristic_select(q, vecs, beam_d, beam_i, 2 * m), deg)
-        _commit_edges(adjs[0], dists[0], rank_maps[0], wave_ids, sel_i, sel_d,
-                      connect, deg, slack)
+        if insert_inline:
+            from vers_tpu_torch.ops.beam_inline import project_rows
+
+            inline_tab, proj, basis = inline_args
+            beam_d, beam_i = _beam_inline(
+                q, project_rows(q, basis, proj.shape[1]), vecs, inline_tab,
+                adjs[0][:, :degs[0]], rank_maps[0], ent, efc,
+                max_steps=inline_steps or beam_steps or 4 * efc,
+                expand=expand, refine=inline_refine,
+            )
+        else:
+            beam_d, beam_i = layer0_beam(q, vecs, rank_maps, adjs, ent)
+        insert_layer0(q, vecs, rank_maps, adjs, dists, wave_ids, ins_l, beam_d,
+                      beam_i, *inline_args[:2])  # (inline_tab, proj)
         return adjs, dists
 
     return wave_step
@@ -375,7 +558,12 @@ def build_graph(
     route_steps: int | None = "auto",
     as_arrays: bool = False,
     route_scan: bool = False,
+    seed_count: int = 1,
+    scan_chunk: int = 16384,
     insert_inline: bool = False,
+    inline_dp: int = 32,
+    inline_refine: int = 64,
+    inline_steps: int | None = None,
     device=None,
     timings: dict | None = None,
 ):
@@ -393,13 +581,32 @@ def build_graph(
 
     ``beam_steps="auto"`` caps insertion beams at max(12,
     ceil(efc/expand)) steps; None = 4*efc; an int overrides.
-    ``route_scan`` and ``insert_inline`` raise NotImplementedError.
+
+    ``route_scan`` (with two or more layers): exact scans route the
+    construction (see ``make_wave_step``). Layer l's built members are
+    the first ``searchsorted(members[l], wave_start)`` rows of a static
+    member table (nav rows in ascending global id, power-of-two rows
+    whose padding repeats member 0 and lies past the built prefix);
+    each upper layer's candidates come from a top-``min(efc, rows)``
+    scan of that prefix and the layer-0 beam's ``seed_count`` seeds from
+    a scan of layer 1's. ``scan_chunk`` is the plain version's corpus
+    chunk (the kernel tiles itself).
+
+    ``insert_inline``: the layer-0 insertion beam runs on a
+    construction-time inline table, (rows0, deg0 + slack, ``inline_dp``)
+    bf16 next to the nav table, kept slot for slot with the adjacency
+    (``_beam_inline``, ``inline_refine`` exact rows a step,
+    ``inline_steps`` steps, else ``beam_steps``), on the top
+    ``inline_dp`` PCA components of the nav rows. A table over 8 GiB
+    (counted as the JAX package counts it) raises ValueError.
+    ``route_scan`` with ``insert_inline`` raises NotImplementedError, as
+    in the JAX package: they are two layer-0 paths.
 
     ``timings``, if given, receives the seconds of the upload and of
-    the waves (host clock, ending in a device sync)."""
+    the waves (host clock, ending in a device sync), and with
+    ``insert_inline`` the inline table's bytes."""
     import time
 
-    _check_ported(route_scan, insert_inline)
     t0 = time.perf_counter()
     if isinstance(vectors, torch.Tensor):
         n_pad = vectors.shape[0]
@@ -454,6 +661,45 @@ def build_graph(
                                device=dev))
         dists.append(torch.full((rows, deg + slack), _INF, dtype=torch.float32,
                                 device=dev))
+
+    # construction-time inline table: layer-0 rows (+ the dump row), the
+    # full adjacency width (slot alignment with adj, see _commit_edges)
+    inline_args = ()
+    if insert_inline:
+        if route_scan:
+            raise NotImplementedError(
+                "insert_inline + route_scan are separate layer-0 paths; "
+                "pick one (insert_inline implies classic routing beams)")
+        from vers_tpu_torch.ops.beam_inline import pca_projection, project_rows
+
+        width0 = degs[0] + slack
+        table_bytes = _pow2_rows(len(members[0])) * width0 * inline_dp * 2
+        if table_bytes > _INLINE_BUILD_MAX_BYTES:
+            raise ValueError(
+                f"construction inline table would be "
+                f"{table_bytes / 2**30:.1f} GB ({len(members[0])} rows x "
+                f"width {width0} x dp {inline_dp} bf16) > the "
+                f"{_INLINE_BUILD_MAX_BYTES / 2**30:.1f} GB guard; "
+                f"reduce inline_dp or disable insert_inline")
+        basis = pca_projection(vecs, inline_dp)
+        proj = project_rows(vecs, basis, inline_dp)
+        inline_tab = torch.zeros((adjs[0].shape[0], width0, inline_dp),
+                                 dtype=torch.bfloat16, device=dev)
+        inline_args = (inline_tab, proj, basis)
+
+    # static member tables of the layers >= 1 for route_scan, rows in
+    # members[l] order (ascending global id), so the built prefix at any
+    # wave is contiguous
+    scan_tables = None
+    if route_scan and num_layers > 1:
+        tabs, tab_members = [None], [None]  # layer 0 is never scanned
+        for l in range(1, num_layers):
+            mem_pad = np.zeros((_pow2_rows(len(members[l])),), np.int64)
+            mem_pad[: len(members[l])] = members[l]
+            mids = torch.from_numpy(mem_pad).to(dev)
+            tabs.append(vecs[mids])
+            tab_members.append(mids)
+        scan_tables = (tabs, tab_members)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
@@ -477,16 +723,29 @@ def build_graph(
                 expand=expand, route_expand=route_expand,
                 dedup_self=dedup_self, beam_steps=beam_steps,
                 route_steps=route_steps,
+                route_scan=scan_tables is not None, seed_count=seed_count,
+                scan_chunk=scan_chunk, insert_inline=insert_inline,
+                inline_refine=inline_refine, inline_steps=inline_steps,
             )
         ids = torch.from_numpy(wave.astype(np.int64)).to(dev)
         ins_w = torch.from_numpy(ins[wave].astype(np.int64)).to(dev)
-        step_fns[caps](vecs, rank_maps, adjs, dists, ids, ins_w, entry)
+        extra = inline_args
+        if scan_tables is not None:
+            # built-prefix row counts per layer (waves are contiguous id
+            # ranges, so the wave's first id bounds the built members)
+            n_built = [int(np.searchsorted(mem, int(wave.min())))
+                       for mem in members]
+            extra = (*scan_tables, n_built)
+        step_fns[caps](vecs, rank_maps, adjs, dists, ids, ins_w, entry, *extra)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     if timings is not None:
         timings.update(upload_s=t1 - t0, waves_s=time.perf_counter() - t1,
                        waves=len(waves),
                        wave_cap=wave_cap)
+        if inline_args:
+            timings["inline_table_bytes"] = (inline_args[0].numel()
+                                             * inline_args[0].element_size())
 
     if as_arrays:
         return ins, [

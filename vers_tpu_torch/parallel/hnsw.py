@@ -14,7 +14,8 @@ scan-routed one: the single-device counterpart is ``HNSWIndex`` with
 the blocks back in order.
 
 A shard on another device than the wrapped index searches a copy of its
-serving tables there.
+serving tables there. An int8 navigation table (``nav_dtype="int8"``)
+travels with its per-row scales, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -82,14 +83,17 @@ class ShardedHNSWIndex:
         return self.base.search_approximate(query, top_k)
 
     def _tables_on(self, cache: dict, dev: torch.device):
-        """(vecs, vecs_nav, adjs) of the base's serving cache as shard
-        ``dev`` reads them: the cache's own on the base's device, else a
+        """(vecs, vecs_nav, nav_scales, adjs) of the base's serving cache
+        as shard ``dev`` reads them (``nav_scales`` None unless the nav
+        table is int8): the cache's own on the base's device, else a
         copy kept until the base's cache changes."""
+        scales = cache["nav_scales"]
         if dev == normalize_device(self.base.device):
-            return cache["vecs"], cache["vecs_nav"], cache["adjs"]
+            return cache["vecs"], cache["vecs_nav"], scales, cache["adjs"]
         cached = self._replicas.get(dev)
         if cached is None or cached[0] is not cache:
             cached = (cache, (cache["vecs"].to(dev), cache["vecs_nav"].to(dev),
+                              None if scales is None else scales.to(dev),
                               [a.to(dev) for a in cache["adjs"]]))
             self._replicas[dev] = cached
         return cached[1]
@@ -116,7 +120,7 @@ class ShardedHNSWIndex:
         ef_r = max(1, min(ef_route, ef)) if ef_route else ef
         parts_d, parts_i = [], []
         for s, dev in enumerate(self.mesh.devices):
-            vecs, vecs_nav, adjs = self._tables_on(cache, dev)
+            vecs, vecs_nav, scales, adjs = self._tables_on(cache, dev)
             d, i = full_descent(
                 q[s * q_local : (s + 1) * q_local].to(dev), vecs, vecs_nav,
                 adjs[: len(base.layers) - 1],
@@ -126,6 +130,7 @@ class ShardedHNSWIndex:
                 rescore=vecs_nav.dtype != vecs.dtype,
                 expand=resolve_beam_expand(base.config),
                 steps_cap=getattr(base.config, "beam_steps", None),
+                scales=scales,
             )
             parts_d.append(d)
             parts_i.append(i)
