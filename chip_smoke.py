@@ -93,7 +93,20 @@ port's default device:
      HNSW's shard-0 routing scan, kernel B on shard 0's IVF scan at
      nprobe 2, on query shard 0's first-tree scan of the sharded forest
      at 4 probes and on shard 0's first-tree scan of the partitioned
-     forest at the auto probes.
+     forest at the auto probes. Every search runs its shards at once
+     (``mesh.map_shards``: a thread and a stream a shard) and is timed
+     three ways, interleaved call by call: at once, in turn (the bodies
+     one after another on the caller's thread and stream, the loop the
+     package ran before it had an executor, patched back in by
+     ``shard_intervals`` for the yardstick) and the single-device twin:
+     median and spread of five calls each, and the shards' overlap (the
+     sum of each body's interval on its stream, from CUDA events, over
+     the call's wall). On a machine of two to four cards
+     every class runs again over ``make_mesh()``, one shard a card (the
+     partitioned forests rebuilt from the same tables card by card, the
+     partitioned HNSW's serving tables assembled on the cards), equal to
+     its one-card twin and timed the same way, with the gather of the
+     merge across cards; one card prints that it was not run.
   8. kernel A's other routes and their callers, then the user-facing
      surface, with the counters of kernels A (by route), C and D zeroed
      just before and read just after: ``FlatIndex(dtype="bfloat16")``
@@ -319,17 +332,19 @@ def hold_kernel_b(torch, args, kw, label, mirror, time_plain=True):
 
 
 @contextlib.contextmanager
-def captured_route_scan():
+def captured_route_scan(shard=None):
     """Record the first HNSW layer-1 routing scan (``ops/beam.route_scan``,
-    kernel A) that a search makes inside the block, as (queries copied,
-    table, rows, k); every call goes through unchanged."""
+    kernel A) that a search makes inside the block (with ``shard``, the
+    first that shard's body makes under ``parallel.mesh.map_shards``), as
+    (queries copied, table, rows, k); every call goes through unchanged."""
     from vers_tpu_torch.ops import beam
+    from vers_tpu_torch.parallel.mesh import current_shard
 
     captured = []
     real = beam.route_scan
 
     def capturing(queries, l1_tab, n1, k):
-        if not captured:
+        if not captured and (shard is None or current_shard() == shard):
             captured.append((queries.clone(), l1_tab, n1, k))
         return real(queries, l1_tab, n1, k)
 
@@ -1095,14 +1110,125 @@ def bf16_phase(torch, vt, x, qd, truth, xd):
     return rows, a_rows, launches
 
 
-def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
+@contextlib.contextmanager
+def shard_intervals(torch, in_turn=False):
+    """Time each shard's body: ``map_shards`` is patched where
+    ``vers_tpu_torch.parallel`` calls it so that two timing events on the
+    body's own stream bracket it, kept in the yielded list as (start,
+    end). With ``in_turn`` the bodies run one after another on the
+    caller's thread and its current stream, as the shards ran before they
+    had an executor (the readings' yardstick; the package has no such
+    mode)."""
+    import threading
+
+    from vers_tpu_torch.parallel import (
+        hnsw, hnsw_partitioned, ivf, kmeans, lsh, lsh_partitioned, mesh, search)
+
+    sites = (search, kmeans, ivf, lsh, lsh_partitioned, hnsw, hnsw_partitioned)
+    real = mesh.map_shards
+    intervals, lock = [], threading.Lock()
+
+    def bracketed(body):
+        def run(s, dev, *args):
+            stream = torch.cuda.current_stream(dev)
+            start = stream.record_event(torch.cuda.Event(enable_timing=True))
+            out = body(s, dev, *args)
+            end = stream.record_event(torch.cuda.Event(enable_timing=True))
+            with lock:
+                intervals.append((start, end))
+            return out
+        return run
+
+    def patched(m, body, *per_shard):
+        if not in_turn:
+            return real(m, bracketed(body), *per_shard)
+        out = []
+        for s, dev in enumerate(m.devices):
+            with torch.cuda.device(dev):
+                out.append(bracketed(body)(s, dev, *(a[s] for a in per_shard)))
+        return out
+
+    for site in sites:
+        site.map_shards = patched
+    try:
+        yield intervals
+    finally:
+        for site in sites:
+            site.map_shards = real
+
+
+def shard_readings(torch, settings, reps=5):
+    """Time each of ``settings`` (name -> (fn, in_turn), ``fn`` a search,
+    ``in_turn`` as ``shard_intervals`` takes it) with CUDA events on the
+    caller's stream: one warm-up call each, then ``reps`` calls each, the
+    settings interleaved call by call, so that a drift of the host's
+    speed falls on all of them alike. Returns name -> (sorted ms, the
+    median call's overlap: the shards' stream intervals summed over its
+    wall)."""
+    calls = {name: [] for name in settings}
+    for rep in range(reps + 1):
+        for name, (fn, in_turn) in settings.items():
+            with shard_intervals(torch, in_turn) as intervals:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+            wall = start.elapsed_time(end)
+            if rep:
+                calls[name].append(
+                    (wall, sum(a.elapsed_time(b) for a, b in intervals) / wall))
+    out = {}
+    for name, c in calls.items():
+        c.sort()
+        out[name] = ([w for w, _ in c], c[reps // 2][1])
+    return out
+
+
+def plain_reading(torch, fn, reps=5):
+    """``fn`` after one warm-up call, ``reps`` calls timed with CUDA
+    events: sorted ms."""
+    return shard_readings(torch, {"fn": (fn, False)}, reps)["fn"][0]
+
+
+def compare_shards(torch, label, fn, twin=None, reps=5):
+    """``fn`` (a sharded search) with its shards at once and in turn,
+    beside ``twin`` (the single-device search, when there is one), the
+    three interleaved: medians and spreads of ``reps`` calls and the
+    shards' overlap. Returns the row."""
+    settings = {"at once": (fn, False), "in turn": (fn, True)}
+    if twin is not None:
+        settings["single"] = (twin, False)
+    got = shard_readings(torch, settings, reps)
+    (ms, overlap), (turn, turn_overlap) = got["at once"], got["in turn"]
+    single = got["single"][0] if twin is not None else None
+    mid = reps // 2
+    log(f"{label}: median {ms[mid]:.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f} "
+        f"of {reps}) with the shards at once, overlap {overlap:.2f}; in turn "
+        f"{turn[mid]:.2f} ms ({turn[0]:.2f}-{turn[-1]:.2f}), overlap "
+        f"{turn_overlap:.2f}; "
+        + (f"single device {single[mid]:.2f} ms ({single[0]:.2f}-{single[-1]:.2f})"
+           if single else "no single-device twin in this run"))
+    return dict(ms=ms[mid], ms_min=ms[0], ms_max=ms[-1], overlap=overlap,
+                in_turn_ms=turn[mid], in_turn_min=turn[0], in_turn_max=turn[-1],
+                in_turn_overlap=turn_overlap,
+                single_ms=single[mid] if single else None,
+                single_min=single[0] if single else None,
+                single_max=single[-1] if single else None)
+
+
+def parallel_phase(torch, vt, x, qd, truth, dev, flat, ivf, forest, h, qd2,
+                   cards=None):
     """Phase 7: the multi-device layer (``vers_tpu_torch.parallel``) on a
     mesh of PARALLEL_SHARDS shards on the one card, over the corpora,
-    truths and indexes of the earlier phases (see the module docstring).
-    The caller zeroes the launch counters before and reads them after.
-    Returns (rows of the readings, the kernel inputs captured from the
-    phase's searches for ``hold_shard_kernels``), which the caller holds
-    after reading the counts."""
+    truths and indexes of the earlier phases (see the module docstring);
+    with ``cards`` (a mesh of one shard a card), every class again over
+    that mesh. The caller zeroes the launch counters before and reads
+    them after. Returns (rows of the readings, the kernel inputs captured
+    from the phase's searches for ``hold_shard_kernels``), which the
+    caller holds after reading the counts."""
     import dataclasses
 
     from vers_tpu_torch import parallel
@@ -1112,10 +1238,17 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
     S = PARALLEL_SHARDS
     mesh = parallel.make_mesh(S, device="cuda:0")
     assert mesh.devices == (dev,) * S, mesh
-    rows, held = {}, {}
+    rows, held = {"cards": {}}, {}
+    on_cards = rows["cards"]
+    if cards is None:
+        log(f"multi-card part: not run ({torch.cuda.device_count()} card; it "
+            f"needs two or more)")
+    else:
+        log(f"multi-card part: every class also over {cards}")
 
-    def timed(fn, reps=5):
-        return sorted(cuda_ms(torch, fn, reps=1) for _ in range(reps))
+    def same(got, want):
+        assert_topk_match(got.distances, got.ids, want.distances, want.ids,
+                          rtol=0.0, atol=TOL)
 
     # -- ShardedFlatIndex: phase 1's exact search, sharded ------------------
     torch.cuda.synchronize()
@@ -1126,28 +1259,48 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
     before = cuda_topk.launches()
     res = sf.search_batch(qd, TOP_K)
     assert cuda_topk.launches() == before + S, cuda_topk.launches() - before
-    assert_topk_match(res.distances, res.ids, truth.distances, truth.ids,
-                      rtol=0.0, atol=TOL)
+    same(res, truth)
     err = max_abs_diff(res.distances, truth.distances)
-    times = timed(lambda: sf.search_batch_device(qd, TOP_K))
     log(f"sharded flat, {S} shards of {sf._counts.tolist()} rows ({sf._per} with "
         f"headroom; placed in {place_s:.2f} s): equal to phase 1's exact search "
-        f"up to ties, max |d| {err:g}; median {times[2]:.2f} ms / {N_QUERIES} "
-        f"queries (min {times[0]:.2f}, max {times[4]:.2f} of 5 calls) = "
-        f"{N_QUERIES / times[2] * 1e3:.0f} qps; kernel A launches a search {S}")
+        f"up to ties, max |d| {err:g}; kernel A launches a search {S}")
     rows["flat"] = dict(shard_rows=sf._counts.tolist(), per=sf._per,
-                        place_s=place_s, max_abs_err=err, ms_median=times[2],
-                        ms_min=times[0], ms_max=times[4],
-                        qps=N_QUERIES / times[2] * 1e3)
+                        place_s=place_s, max_abs_err=err, **compare_shards(
+                            torch, f"sharded flat, {N_QUERIES} queries",
+                            lambda: sf.search_batch_device(qd, TOP_K),
+                            lambda: flat.search_batch_device(qd, TOP_K)))
     held["a_shard"] = (sf._data[0], int(sf._counts[0]))
     del sf
+    if cards is not None:
+        cf = parallel.ShardedFlatIndex(x, mesh=cards)
+        same(cf.search_batch(qd, TOP_K), truth)
+        on_cards["flat"] = compare_shards(
+            torch, f"sharded flat over {cards.size} cards",
+            lambda: cf.search_batch_device(qd, TOP_K))
+        # the merge's gather: one peer copy a card
+        parts = cf._search_batch_rows(qd, TOP_K)
+        pieces = [parts[0].to(d) for d in cards.devices]
+        gather = plain_reading(torch,
+                               lambda: parallel.mesh.all_gather(pieces, 1))
+        peer = [torch.cuda.can_device_access_peer(d.index, dev.index)
+                for d in cards.devices[1:]]
+        log(f"all_gather of {cards.size} ({N_QUERIES}, {TOP_K}) f32 parts to "
+            f"the lead: median {gather[2]:.3f} ms; peer access to the lead "
+            f"{peer}")
+        on_cards["flat"].update(all_gather_ms=gather[2], peer_access=peer)
+        del cf, parts, pieces
+        torch.cuda.empty_cache()
 
     # -- ShardedIVFFlatIndex from phase 2's centroids ---------------------
     values = ivf._values  # phase 4 added a row: N + 1 rows
-    blocks = np.array_split(np.arange(values.shape[0]), S)
-    sivf = parallel.ShardedIVFFlatIndex(
-        K_CLUSTERS, ivf._centroids, [values[b[0] : b[-1] + 1] for b in blocks],
-        blocks, mesh=mesh)
+
+    def sharded_ivf(m):
+        bl = np.array_split(np.arange(values.shape[0]), m.size)
+        return parallel.ShardedIVFFlatIndex(
+            K_CLUSTERS, ivf._centroids, [values[b[0] : b[-1] + 1] for b in bl],
+            bl, mesh=m)
+
+    sivf = sharded_ivf(mesh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sivf._ensure_state()
@@ -1180,33 +1333,41 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
         f"{'a single-device index of these bins' if moved.size else 'phase 2'}")
     rows["ivf"] = dict(state_s=state_s, rows_binned_otherwise=int(moved.size),
                        rows_held_to_numpy=int(check.size))
+    civf = sharded_ivf(cards) if cards is not None else None
     for nprobe in (1, 2):
         before = cuda_binned.LAUNCHES
-        with binned.captured_scans(only=(0,)) as calls:
+        with binned.captured_scans(only=(0,), shard=0) as calls:
             got = sivf.search_batch(qd, TOP_K, nprobe=nprobe)
         assert cuda_binned.LAUNCHES == before + S, cuda_binned.LAUNCHES - before
         if nprobe == 2:
             held["b_ivf"] = calls[0]
         del calls
         want = ref.search_batch(qd, TOP_K, nprobe=nprobe)
-        assert_topk_match(got.distances, got.ids, want.distances, want.ids,
-                          rtol=0.0, atol=TOL)
-        ms = timed(lambda: sivf._search_batch_rows(qd, TOP_K, nprobe), 3)[1]
-        single = timed(lambda: ivf.search_batch_device(qd, TOP_K, nprobe), 3)[1]
+        same(got, want)
         log(f"sharded ivf from phase 2's centroids, nprobe={nprobe}: equal to "
-            f"the single-device search up to ties; {ms:.2f} ms against the "
-            f"single device's {single:.2f} ms (medians of 3); kernel B "
-            f"launches a search {S}; shard bins and layouts {state_s:.2f} s")
-        rows["ivf"][f"nprobe{nprobe}"] = dict(ms=ms, single_ms=single)
-    del sivf, ref
+            f"the single-device search up to ties; kernel B launches a search "
+            f"{S}; shard bins and layouts {state_s:.2f} s")
+        rows["ivf"][f"nprobe{nprobe}"] = compare_shards(
+            torch, f"sharded ivf, nprobe={nprobe}",
+            lambda: sivf._search_batch_rows(qd, TOP_K, nprobe),
+            lambda: ref.search_batch_device(qd, TOP_K, nprobe))
+        if civf is not None:
+            same(civf.search_batch(qd, TOP_K, nprobe=nprobe), want)
+            on_cards[f"ivf_nprobe{nprobe}"] = compare_shards(
+                torch, f"sharded ivf over {cards.size} cards, nprobe={nprobe}",
+                lambda: civf._search_batch_rows(qd, TOP_K, nprobe))
+    del sivf, ref, civf
     torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    built = parallel.ShardedIVFFlatIndex.build_index(K_CLUSTERS, 2, 10, x,
-                                                     mesh=mesh)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    def kmeans_build(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = parallel.ShardedIVFFlatIndex.build_index(K_CLUSTERS, 2, 10, x,
+                                                         mesh=m)
+        torch.cuda.synchronize()
+        return built, time.perf_counter() - t0
+
+    built, build_s = kmeans_build(mesh)
     res = built.search_batch(qd, TOP_K, nprobe=2)
     rec = vt.recall_at_k(res.ids, truth.ids)
     log(f"sharded ivf build_index({K_CLUSTERS}, 2, 10) by the sharded k-means: "
@@ -1216,14 +1377,31 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
     centroids = built._centroids
     del built
     torch.cuda.empty_cache()
+    if cards is not None:
+        cbuilt, cbuild_s = kmeans_build(cards)
+        # the sums' order within a shard is the atomics' (index_add_), so
+        # the builds agree to rounding, not bit for bit
+        delta = float(np.abs(cbuilt._centroids - centroids).max())
+        crec = vt.recall_at_k(cbuilt.search_batch(qd, TOP_K, nprobe=2).ids,
+                              truth.ids)
+        log(f"sharded k-means build over {cards.size} cards: {cbuild_s:.2f} s "
+            f"(one card: {build_s:.2f}); centroids within {delta:g} of the "
+            f"one-card build's; recall@10 {crec:.4f} at nprobe 2")
+        assert crec >= TARGET_RECALL, crec
+        on_cards["kmeans_build"] = dict(build_s=cbuild_s, max_abs_delta=delta,
+                                        recall_nprobe2=crec)
+        del cbuilt
+        torch.cuda.empty_cache()
 
     # -- ShardedANNIndex over phase 5's forest ------------------------------
     sa = parallel.ShardedANNIndex(forest, mesh=mesh)
+    ca = None if cards is None else parallel.ShardedANNIndex(forest, mesh=cards)
     rows["forest"] = {}
     for probes in (1, 4):
         before = cuda_binned.LAUNCHES
         # query shard 0's first-tree scan, for hold_shard_kernels
-        with binned.captured_scans(only=(0,) if probes == 4 else ()) as calls:
+        with binned.captured_scans(only=(0,) if probes == 4 else (),
+                                   shard=0) as calls:
             got = sa.search_batch(qd, TOP_K, probes)
         if probes == 4:
             held["b_sharded_forest"] = calls[0]
@@ -1231,57 +1409,56 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
         per_search = cuda_binned.LAUNCHES - before
         assert per_search == S * FOREST_TREES, per_search
         want = forest.search_batch(qd, TOP_K, probes)
-        assert_topk_match(got.distances, got.ids, want.distances, want.ids,
-                          rtol=0.0, atol=TOL)
-        ms = timed(lambda: sa._search_batch_rows(qd, TOP_K, probes), 3)[1]
-        single = timed(lambda: forest.search_batch_device(qd, TOP_K, probes),
-                       3)[1]
+        same(got, want)
         log(f"sharded forest, probes_per_tree={probes}: equal to phase 5's "
-            f"search up to ties; {ms:.2f} ms against the single device's "
-            f"{single:.2f} ms (medians of 3); kernel B launches a search "
-            f"{per_search}")
-        rows["forest"][str(probes)] = dict(ms=ms, single_ms=single,
-                                           launches_per_search=per_search)
-    del sa
+            f"search up to ties; kernel B launches a search {per_search}")
+        rows["forest"][str(probes)] = dict(
+            launches_per_search=per_search, **compare_shards(
+                torch, f"sharded forest, probes_per_tree={probes}",
+                lambda: sa._search_batch_rows(qd, TOP_K, probes),
+                lambda: forest.search_batch_device(qd, TOP_K, probes)))
+        if ca is not None:
+            same(ca.search_batch(qd, TOP_K, probes), want)
+            on_cards[f"forest_{probes}"] = compare_shards(
+                torch, f"sharded forest over {cards.size} cards, "
+                f"probes_per_tree={probes}",
+                lambda: ca._search_batch_rows(qd, TOP_K, probes))
+    del sa, ca
+    torch.cuda.empty_cache()
 
     # -- ShardedHNSWIndex over phase 6's index (the beam route) -------------
     h.config, h._device_cache = dataclasses.replace(h.config,
                                                     route_mode="beam"), None
+    beam_cfg = h.config
     qs = qd2[:HNSW_SLICE]
     sh = parallel.ShardedHNSWIndex(h, mesh=mesh)
-    before = cuda_topk.launches()
-    want = h.search_batch(qs, TOP_K)
-    got = sh.search_batch(qs, TOP_K)
-    assert cuda_topk.launches() == before  # the beam route runs no scan
-    assert_topk_match(got.distances, got.ids, want.distances, want.ids,
-                      rtol=0.0, atol=TOL)
-    ms = timed(lambda: sh._search_batch_rows(qs, TOP_K), 3)[1]
-    single = timed(lambda: h.search_batch_device(qs, TOP_K), 3)[1]
-    log(f"sharded hnsw over phase 6's index, {HNSW_SLICE} queries: equal to "
-        f"its route_mode='beam' search up to ties; {ms:.2f} ms against the "
-        f"single device's {single:.2f} ms (medians of 3)")
-    rows["hnsw"] = dict(queries=HNSW_SLICE, ms=ms, single_ms=single)
-
-    # ... and over the same index with the int8 navigation table
-    beam_cfg = h.config
-    h.config, h._device_cache = dataclasses.replace(
-        beam_cfg, nav_dtype="int8", nav_inline_dp=None), None
-    before = cuda_topk.launches()
-    want = h.search_batch(qs, TOP_K)
-    got = sh.search_batch(qs, TOP_K)
-    assert cuda_topk.launches() == before
-    assert h._device_cache["vecs_nav"].dtype == torch.int8
-    assert_topk_match(got.distances, got.ids, want.distances, want.ids,
-                      rtol=0.0, atol=TOL)
-    ms = timed(lambda: sh._search_batch_rows(qs, TOP_K), 3)[1]
-    single = timed(lambda: h.search_batch_device(qs, TOP_K), 3)[1]
-    log(f"sharded hnsw over phase 6's index with the int8 nav table, "
-        f"{HNSW_SLICE} queries: equal to its single-device int8 search up to "
-        f"ties; {ms:.2f} ms against the single device's {single:.2f} ms "
-        f"(medians of 3)")
-    rows["hnsw_int8"] = dict(queries=HNSW_SLICE, ms=ms, single_ms=single)
+    ch = parallel.ShardedHNSWIndex(h, mesh=cards) if cards is not None else None
+    for name, cfg, label in (
+            ("hnsw", beam_cfg, "its route_mode='beam' search"),
+            ("hnsw_int8", dataclasses.replace(beam_cfg, nav_dtype="int8",
+                                              nav_inline_dp=None),
+             "its single-device int8 search")):
+        h.config, h._device_cache = cfg, None
+        before = cuda_topk.launches()
+        want = h.search_batch(qs, TOP_K)
+        got = sh.search_batch(qs, TOP_K)
+        assert cuda_topk.launches() == before  # the beam route runs no scan
+        if name == "hnsw_int8":
+            assert h._device_cache["vecs_nav"].dtype == torch.int8
+        same(got, want)
+        log(f"sharded hnsw over phase 6's index ({name}), {HNSW_SLICE} "
+            f"queries: equal to {label} up to ties")
+        rows[name] = dict(queries=HNSW_SLICE, **compare_shards(
+            torch, f"sharded hnsw ({name}), {HNSW_SLICE} queries",
+            lambda: sh._search_batch_rows(qs, TOP_K),
+            lambda: h.search_batch_device(qs, TOP_K)))
+        if ch is not None:
+            same(ch.search_batch(qs, TOP_K), want)
+            on_cards[name] = compare_shards(
+                torch, f"sharded hnsw ({name}) over {cards.size} cards",
+                lambda: ch._search_batch_rows(qs, TOP_K))
     h.config = beam_cfg
-    del sh
+    del sh, ch
     h._device_cache = None
     torch.cuda.empty_cache()
 
@@ -1293,10 +1470,21 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     rows["part_forest"] = dict(build_s=build_s)
+    # the same forests, one a card
+    cpa = None if cards is None or cards.size != S else \
+        parallel.PartitionedANNIndex(
+            [vt.ANNIndex.from_numpy(FOREST_LEAF, s._trees, s._values, s._ids,
+                                    device=d)
+             for s, d in zip(pa.shards, cards.devices)], gids=pa.gids,
+            mesh=cards)
+    if cards is not None and cpa is None:
+        log(f"partitioned forest and hnsw over {cards.size} cards: not run "
+            f"(their one-card twins have {S} shards)")
     for probes in (None, 1):
         before = cuda_binned.LAUNCHES
         # shard 0's first-tree scan, for hold_shard_kernels
-        with binned.captured_scans(only=(0,) if probes is None else ()) as calls:
+        with binned.captured_scans(only=(0,) if probes is None else (),
+                                   shard=0) as calls:
             res = pa.search_batch(qd, TOP_K, probes_per_tree=probes)
         if probes is None:
             held["b_part_forest"] = calls[0]
@@ -1304,16 +1492,24 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
         per_search = cuda_binned.LAUNCHES - before
         assert per_search == S * FOREST_TREES, per_search
         rec = vt.recall_at_k(res.ids, truth.ids)
-        ms = timed(lambda: pa._search_batch_rows(qd, TOP_K, probes), 3)[1]
         name = "auto" if probes is None else str(probes)
         log(f"partitioned forest build_index({FOREST_TREES}, {FOREST_LEAF}) on "
             f"{S} shards: {build_s:.2f} s; probes_per_tree={name}: recall@10 "
-            f"{rec:.4f}, {ms:.2f} ms (median of 3); kernel B launches a search "
-            f"{per_search} ({FOREST_TREES} a shard)")
-        rows["part_forest"][name] = dict(recall=rec, ms=ms,
-                                         launches_per_search=per_search)
+            f"{rec:.4f}; kernel B launches a search {per_search} "
+            f"({FOREST_TREES} a shard)")
+        rows["part_forest"][name] = dict(
+            recall=rec, launches_per_search=per_search, **compare_shards(
+                torch, f"partitioned forest, probes_per_tree={name}",
+                lambda: pa._search_batch_rows(qd, TOP_K, probes),
+                lambda: forest.search_batch_device(qd, TOP_K, probes)))
+        if cpa is not None:
+            same(cpa.search_batch(qd, TOP_K, probes_per_tree=probes), res)
+            on_cards[f"part_forest_{name}"] = compare_shards(
+                torch, f"partitioned forest over {cards.size} cards, "
+                f"probes_per_tree={name}",
+                lambda: cpa._search_batch_rows(qd, TOP_K, probes))
     assert rows["part_forest"]["auto"]["recall"] >= PART_FOREST_RECALL
-    del pa
+    del pa, cpa
     torch.cuda.empty_cache()
 
     # -- PartitionedHNSWIndex: one subgraph a shard ------------------------
@@ -1328,29 +1524,40 @@ def parallel_phase(torch, vt, x, qd, truth, dev, ivf, forest, h, qd2):
     torch.cuda.synchronize()
     cache_s = time.perf_counter() - t0
     before = cuda_topk.launches()
-    with captured_route_scan() as captured:  # shard 0's, for hold_shard_kernels
+    with captured_route_scan(shard=0) as captured:  # for hold_shard_kernels
         res = ph.search_batch(qd, TOP_K)
     held["a_route"] = captured[0]
     per_search = cuda_topk.launches() - before
     assert per_search == S, per_search  # a routing scan a shard
     rec = vt.recall_at_k(res.ids, truth.ids)
     assert (np.diff(res.distances, axis=1) >= 0).all()
-    times = timed(lambda: ph.search_batch_device(qd, TOP_K), 3)
     log(f"partitioned hnsw build_index{HNSW_ARGS} on {S} shards: {build_s:.2f} s "
         f"(waves per shard {[s['waves'] for s in secs]} of up to "
         f"{secs[0]['wave_cap']}, waves {sum(s['waves_s'] for s in secs):.2f} s "
         f"on the card in all); serving tables {cache_s:.2f} s (layer-1 rows "
         f"{cache['n1s'].tolist()}); recall@10 {rec:.4f} at ef={HNSW_EF}; "
-        f"{times[1]:.2f} ms (median of 3); kernel A launches a search "
-        f"{per_search}")
+        f"kernel A launches a search {per_search}")
     rows["part_hnsw"] = dict(build_s=build_s, cache_s=cache_s,
                              waves=[s["waves"] for s in secs],
                              wave_cap=secs[0]["wave_cap"],
                              waves_s=sum(s["waves_s"] for s in secs),
                              n1=cache["n1s"].tolist(), recall=rec,
-                             ms=times[1], launches_per_search=per_search)
+                             launches_per_search=per_search, **compare_shards(
+                                 torch, f"partitioned hnsw, {N_QUERIES} queries",
+                                 lambda: ph.search_batch_device(qd, TOP_K)))
     assert rec >= PART_HNSW_RECALL, rec
-    del ph, cache
+    del cache
+    if cards is not None and cards.size == S:
+        # the same subgraphs, their serving tables assembled one a card
+        cph = parallel.PartitionedHNSWIndex(ph.shards, gids=ph.gids, mesh=cards)
+        assert [v.device for v in cph._ensure_device_cache()["vecs"]] == list(
+            cards.devices)
+        same(cph.search_batch(qd, TOP_K), res)
+        on_cards["part_hnsw"] = compare_shards(
+            torch, f"partitioned hnsw over {cards.size} cards",
+            lambda: cph.search_batch_device(qd, TOP_K))
+        del cph
+    del ph
     torch.cuda.empty_cache()
 
     # -- save / load of every class at PARALLEL_IO_ROWS rows ---------------
@@ -1436,6 +1643,16 @@ def hold_shard_kernels(torch, qd, held):
     return a_rows, b_rows
 
 
+def cards_mesh(torch, vt):
+    """One shard a card over up to four cards (``make_mesh()``), or None
+    on a machine of one card."""
+    from vers_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        return None
+    return make_mesh(min(4, torch.cuda.device_count()))
+
+
 def main():
     import torch
 
@@ -1478,7 +1695,6 @@ def main():
     qd = torch.from_numpy(q).to(dev)
     log(f"data: {N} x {DIM} corpus, {N_QUERIES} queries "
         f"({time.perf_counter() - t0:.1f} s)")
-
     # -- the main path, counted --------------------------------------
     cuda_topk.LAUNCHES_BY_ROUTE.clear()
     cuda_binned.LAUNCHES = 0
@@ -1636,7 +1852,8 @@ def main():
     cuda_topk.LAUNCHES_BY_ROUTE.clear()
     cuda_binned.LAUNCHES = cuda_bucket.LAUNCHES = 0
     parallel_rows, held = parallel_phase(
-        torch, vt, x, qd, truth, dev, ivf, forest, hnsw_index, qd2)
+        torch, vt, x, qd, truth, dev, flat, ivf, forest, hnsw_index, qd2,
+        cards_mesh(torch, vt))
     parallel_launches = {"distance_topk": cuda_topk.launches(),
                          "packed_scan": cuda_binned.LAUNCHES,
                          "topk_values": cuda_topk.LAUNCHES_VALUES,

@@ -1371,14 +1371,102 @@ def test_sharded_hnsw_on_cuda_matches_beam_route(hnsw_card):
     _check((got.distances, got.ids), (want.distances, want.ids))
 
 
+# about 0.1 s of spinning on an H100's clock
+SLEEP_CYCLES = 200_000_000
+
+
+def test_map_shards_gives_each_shard_its_stream(cuda):
+    """On a 4-shard mesh of one card each body runs on a stream of its
+    own, under its card, on a thread of its own (shard 0's the
+    caller's)."""
+    import threading
+
+    from vers_tpu_torch.parallel.mesh import map_shards
+
+    mesh = _mesh4(cuda)
+    caller = torch.cuda.current_stream().cuda_stream
+    out = map_shards(mesh, lambda s, dev: (
+        torch.cuda.current_stream().cuda_stream, torch.cuda.current_device(),
+        threading.get_ident()))
+    streams = [o[0] for o in out]
+    assert len(set(streams)) == 4 and caller not in streams
+    assert streams == [mesh.stream(s).cuda_stream for s in range(4)]
+    assert [o[1] for o in out] == [0] * 4
+    assert len({o[2] for o in out}) == 4
+    assert out[0][2] == threading.get_ident()
+    assert torch.cuda.current_stream().cuda_stream == caller
+
+
+def test_sharded_search_waits_for_the_caller_and_every_shard(
+        cuda, monkeypatch):
+    """The queries are written on the caller's stream behind a sleep,
+    and shard 0's scan starts behind another sleep on its own stream: a
+    shard that did not wait for the caller would scan unwritten queries,
+    and a merge that did not wait for shard 0 would read its unwritten
+    (+inf, -1) part. The result equals the single-device twin's."""
+    import vers_tpu_torch as vt
+    from vers_tpu_torch.parallel import search as search_mod
+    from vers_tpu_torch.parallel.mesh import current_shard
+
+    x, q = _unit_clusters(30_001, 64, 300, 7)
+    sharded = vt.ShardedFlatIndex(x, mesh=_mesh4(cuda))
+    want = vt.FlatIndex(x, device="cuda").search_batch(q, 10)
+    real = search_mod.distance_topk
+
+    def late(*args, **kw):
+        if current_shard() == 0:
+            torch.cuda._sleep(SLEEP_CYCLES)  # on shard 0's stream
+        return real(*args, **kw)
+
+    monkeypatch.setattr(search_mod, "distance_topk", late)
+    qd = torch.from_numpy(q).cuda()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):  # the caller on a stream of its own
+        # a first search on other queries fills every stream's memory
+        # pool (a cudaMalloc would synchronise the card and hide a missing
+        # wait) and leaves blocks that hold no right answer
+        sharded.search_batch(qd.flip(0) * 1.0, 10)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        late_q = qd * 1.0  # written after the sleep
+        got = sharded.search_batch(late_q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+
+
+def test_a_shard_that_raises_on_the_card_makes_the_search_raise(
+        cuda, monkeypatch):
+    import vers_tpu_torch as vt
+    from vers_tpu_torch.parallel import search as search_mod
+    from vers_tpu_torch.parallel.mesh import current_shard
+
+    x, q = _unit_clusters(5_000, 32, 64, 8)
+    sharded = vt.ShardedFlatIndex(x, mesh=_mesh4(cuda))
+    real = search_mod.distance_topk
+    merged = []
+
+    def scan(*args, **kw):
+        if current_shard() == 2:
+            raise RuntimeError("shard 2's scan")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(search_mod, "distance_topk", scan)
+    monkeypatch.setattr(search_mod, "merge_topk", lambda *a: merged.append(a))
+    with pytest.raises(RuntimeError, match="shard 2's scan"):
+        sharded.search_batch(q, 10)
+    assert merged == []
+
+
 def test_parallel_across_cards(cuda):
     """Every class on a mesh of one shard per card (``make_mesh()``),
-    the replicated indexes copied from cuda:0 to the other cards, equal
-    to the single-device search. Needs two cards or more."""
+    the shards' bodies at once, the replicated indexes copied from cuda:0
+    to the other cards, equal to the single-device search (the sharded
+    HNSW with the bf16 and the int8 navigation table), or to the same
+    class on a mesh of as many shards on cuda:0 (a sharded Lloyd step,
+    to rounding; the partitioned HNSW). Needs two cards or more."""
     import dataclasses
 
     import vers_tpu_torch as vt
-    from vers_tpu_torch.parallel import make_mesh
+    from vers_tpu_torch.parallel import make_mesh, shard_rows, sharded_lloyd_step
 
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -1399,6 +1487,16 @@ def test_parallel_across_cards(cuda):
     built = vt.ShardedIVFFlatIndex.build_index(32, 1, 5, x, mesh=mesh)
     truth = vt.FlatIndex(x, device="cuda:0").search_batch(q, 10).ids
     assert vt.recall_at_k(built.search_batch(q, 10, nprobe=4).ids, truth) > 0.9
+    # one Lloyd step from the same centroids, the psum across cards against
+    # the same shards on cuda:0: equal up to the order of index_add_'s
+    # atomics within a shard
+    one_card = make_mesh(cards, device="cuda:0")
+    init = torch.from_numpy(x[:32].copy())
+    steps = [sharded_lloyd_step(*shard_rows(x, m), init, m) for m in
+             (mesh, one_card)]
+    assert steps[0][0].device == torch.device("cuda", 0)
+    torch.testing.assert_close(steps[0][0], steps[1][0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(steps[0][1], steps[1][1], rtol=1e-5, atol=0.0)
 
     forest = vt.ANNIndex.build_index(4, 40, x, np.arange(len(x)),
                                      device="cuda:0")
@@ -1410,6 +1508,13 @@ def test_parallel_across_cards(cuda):
     h.config = dataclasses.replace(h.config, route_mode="beam")
     got = vt.ShardedHNSWIndex(h, mesh=mesh).search_batch(q, 10)
     want = h.search_batch(q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))
+    h.config = dataclasses.replace(h.config, nav_dtype="int8",
+                                   nav_inline_dp=None)
+    h._device_cache = None
+    got = vt.ShardedHNSWIndex(h, mesh=mesh).search_batch(q, 10)
+    want = h.search_batch(q, 10)
+    assert h._device_cache["vecs_nav"].dtype == torch.int8
     _check((got.distances, got.ids), (want.distances, want.ids))
 
     pa = vt.PartitionedANNIndex.build_index(4, 40, x, mesh=mesh)
@@ -1426,3 +1531,7 @@ def test_parallel_across_cards(cuda):
         mesh.devices)
     res = ph.search_batch(x[:64], 5)
     assert (res.ids[:, 0] == np.arange(64)).all()
+    twin = vt.PartitionedHNSWIndex.build_index(3, 32, 32, 8, x[:4000],
+                                               mesh=one_card, batched=False)
+    got, want = ph.search_batch(q, 10), twin.search_batch(q, 10)
+    _check((got.distances, got.ids), (want.distances, want.ids))

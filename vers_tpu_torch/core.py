@@ -9,6 +9,9 @@ resolve an unnamed device with ``resolve_device``: the card.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import numpy as np
 import torch
 
@@ -17,6 +20,51 @@ import torch
 LANE = 128
 
 NORMALIZE_EPS = 1e-6  # parity with `base.rs:99-105`
+
+# Per thread: the shard whose body the thread runs under
+# ``parallel.mesh.map_shards`` (``shard``) and that mesh's host lock
+# (``host``), which the body holds while it runs on the host.
+SHARD_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def host_released():
+    """Inside a shard's body (``parallel.mesh.map_shards``): let go of the
+    mesh's host lock for the block, a wait, so that the other shards'
+    bodies run meanwhile. Elsewhere: nothing."""
+    lock = getattr(SHARD_STATE, "host", None)
+    if lock is None:
+        yield
+        return
+    lock.release()
+    try:
+        yield
+    finally:
+        lock.acquire()
+
+
+def host_wait(t: torch.Tensor) -> None:
+    """Call before reading ``t``'s value on the host. Inside a shard's
+    body on a card: wait for the work on ``t``'s current stream with the
+    mesh's host lock released (``host_released``), so that the other
+    shards enqueue theirs meanwhile. Elsewhere: nothing."""
+    if getattr(SHARD_STATE, "host", None) is None or not t.is_cuda:
+        return
+    with host_released():
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+# Kernel launch counters move under this lock (``count``): the shards of
+# a mesh launch from several threads at once.
+COUNT_LOCK = threading.Lock()
+
+
+def count(counters: dict, key: str) -> None:
+    """Add one to ``counters[key]`` (0 when missing) under COUNT_LOCK:
+    ``counters`` is a counting module's ``globals()`` or a dict of
+    counts."""
+    with COUNT_LOCK:
+        counters[key] = counters.get(key, 0) + 1
 
 
 def round_up(x: int, m: int) -> int:

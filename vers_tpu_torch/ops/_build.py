@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -56,6 +57,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_LOAD_LOCK = threading.Lock()  # one build, whichever thread asks first
 build_info: dict = {}
 
 
@@ -86,10 +88,17 @@ def load_library() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library. Raises on any
     build or load failure; ``build_info`` records the build's seconds
     and the compiler's resource report (``-Xptxas -v``), which is kept
-    beside the library for a later process that finds it built."""
+    beside the library for a later process that finds it built. Threads
+    that ask at once wait for one build."""
+    if _lib is None:
+        with _LOAD_LOCK:
+            if _lib is None:
+                _load()
+    return _lib
+
+
+def _load() -> None:
     global _lib
-    if _lib is not None:
-        return _lib
     path = library_path()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -131,7 +140,6 @@ def load_library() -> ctypes.CDLL:
     lib.vers_error_string.argtypes = [ctypes.c_int]
     lib.vers_error_string.restype = ctypes.c_char_p
     _lib = lib
-    return lib
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from vers_tpu_torch.core import host_wait
 from vers_tpu_torch.ops import cuda_topk
 from vers_tpu_torch.ops.distance import _check_f32_matmul
 from vers_tpu_torch.ops.topk import topk_smallest
@@ -173,6 +174,7 @@ def run_beam(state, step_fn, max_steps: int, sync_every: int):
     for step in range(1, max_steps + 1):
         state, active = step_fn(state)
         if sync_every and step % sync_every == 0 and step < max_steps:
+            host_wait(active)
             if not bool(active):
                 break
     return state

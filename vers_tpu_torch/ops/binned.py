@@ -15,12 +15,13 @@ tables for tile planning, with the JAX package's keys.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Dict
 
 import numpy as np
 import torch
 
-from vers_tpu_torch.core import round_up
+from vers_tpu_torch.core import host_wait, round_up
 from vers_tpu_torch.ops.cuda_binned import (
     _workitems_blocks,
     packed_scan,
@@ -31,7 +32,7 @@ from vers_tpu_torch.ops.topk import topk_smallest
 
 
 @contextlib.contextmanager
-def captured_scans(only=None):
+def captured_scans(only=None, shard=None):
     """Record every packed-scan call the search path makes inside the
     block as (args, kwargs less ``plain``), the arguments
     ``cuda_packed_scan`` and ``packed_scan_plain`` take; the calls
@@ -40,21 +41,32 @@ def captured_scans(only=None):
     ``only``: ordinals (from 0) of the calls to record, with their tensor
     arguments copied. The forest search scans every tree out of one view
     buffer, so a later tree overwrites what an earlier call was given,
-    and eight views of a large corpus are too much to keep."""
+    and eight views of a large corpus are too much to keep.
+
+    ``shard``: record only the calls made by shard ``shard``'s body under
+    ``parallel.mesh.map_shards`` (``only`` then counts that shard's
+    calls): the shards scan at once, from threads of their own."""
+    from vers_tpu_torch.parallel.mesh import current_shard
+
     global packed_scan
     calls = []
     scan = packed_scan
     seen = 0
+    lock = threading.Lock()
 
     def keep(v):
         return v.clone() if only is not None and isinstance(v, torch.Tensor) else v
 
     def record(*args, **kw):
         nonlocal seen
-        if only is None or seen in only:
-            calls.append((tuple(keep(a) for a in args),
-                          {k: keep(v) for k, v in kw.items() if k != "plain"}))
-        seen += 1
+        if shard is None or current_shard() == shard:
+            with lock:
+                n, seen = seen, seen + 1
+            if only is None or n in only:
+                call = (tuple(keep(a) for a in args),
+                        {k: keep(v) for k, v in kw.items() if k != "plain"})
+                with lock:
+                    calls.append(call)
         return scan(*args, **kw)
 
     packed_scan = record
@@ -419,7 +431,9 @@ def _fused_core(
         qbin_stack = torch.nn.functional.pad(
             bins_flat[order].to(torch.int32), (0, tail), value=-1
         )[None, :]
-        # sentinel (gated) bins == num_bins fall off the count
+        # sentinel (gated) bins == num_bins fall off the count (a host
+        # read of their maximum, on the card)
+        host_wait(bins_flat)
         counts = torch.bincount(bins_flat, minlength=num_bins + 1)[:num_bins]
         qb, gb = _workitems_blocks(
             counts, 0, g_first[row0], q_blk, w_rank, qb_scratch,
@@ -464,6 +478,7 @@ def _fused_core(
         qbin_parts.append(torch.nn.functional.pad(
             bins[order].to(torch.int32), (0, q_pad_rank - q_n), value=-1))
         orders.append(order)
+        host_wait(bins)
         counts = torch.bincount(bins, minlength=num_bins + 1)[:num_bins]
         row = 0 if rank_rows is None else rank_rows[r]
         qb_r, gb_r = _workitems_blocks(

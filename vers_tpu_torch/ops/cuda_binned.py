@@ -30,6 +30,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from vers_tpu_torch.core import count
 from vers_tpu_torch.ops import _build
 from vers_tpu_torch.ops.cuda_topk import MAX_K
 from vers_tpu_torch.ops.topk import topk_smallest
@@ -38,6 +39,8 @@ from vers_tpu_torch.ops.topk import topk_smallest
 LAUNCHES = 0
 # Scans routed to the plain version because top_k > MAX_K.
 LARGE_K_PLAIN = 0
+# (Both move by ``core.count``: shards launch from several threads at
+# once.)
 
 
 def padded_group_layout(layout: Dict, r_blk: int) -> Dict:
@@ -494,7 +497,6 @@ def kernel_constants() -> Dict[str, int]:
 
 def _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
             xx_padded, top_k, q_blk, r_blk, metric, ids_padded, walked):
-    global LAUNCHES
     _check_inputs(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
                   xx_padded, ids_padded, top_k, q_blk, r_blk)
     n_rows, d = q_stack.shape
@@ -523,7 +525,7 @@ def _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "vers_packed_scan")
-    LAUNCHES += 1
+    count(globals(), "LAUNCHES")
     return out_d, out_i
 
 
@@ -532,10 +534,9 @@ def packed_scan(*args, plain: bool = False, **kwargs):
     ``cuda_packed_scan``, or the plain version when ``plain`` is set or
     top_k > MAX_K (the JAX package's kernel limit, kept and counted in
     ``LARGE_K_PLAIN``)."""
-    global LARGE_K_PLAIN
     top_k = kwargs["top_k"]
     if top_k > MAX_K:
-        LARGE_K_PLAIN += 1
+        count(globals(), "LARGE_K_PLAIN")
         plain = True
     if plain:
         return packed_scan_plain(*args, **kwargs)

@@ -32,7 +32,7 @@ from typing import NamedTuple
 
 import torch
 
-from vers_tpu_torch.core import LANE, round_up
+from vers_tpu_torch.core import LANE, count, round_up
 from vers_tpu_torch.ops import _build
 from vers_tpu_torch.ops.cuda_topk import (
     CORPUS_DTYPES,
@@ -48,7 +48,8 @@ TARGET_BUCKETS = 8192
 # corpus rows per step of the plain version (a memory bound, not a rule)
 PLAIN_ROWS = 2048
 
-# Launches of the CUDA kernel (one per successful launch).
+# Launches of the CUDA kernel (one per successful launch), counted by
+# ``core.count``: several threads may launch at once.
 LAUNCHES = 0
 
 _METRICS = ("sq_euclidean", "cosine")
@@ -220,7 +221,6 @@ def cuda_bucket_table(queries: torch.Tensor, corpus: torch.Tensor,
     to ``bucket_d_pad(d)`` and computes qq; ``prepared`` (from
     ``prepare_bucket_corpus(corpus)``) saves preparing the corpus, with
     the same result."""
-    global LAUNCHES
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     if not queries.is_cuda and not corpus.is_cuda:
@@ -252,7 +252,7 @@ def cuda_bucket_table(queries: torch.Tensor, corpus: torch.Tensor,
             int(metric == "cosine"), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "vers_bucket_scan")
-    LAUNCHES += 1
+    count(globals(), "LAUNCHES")
     return out_d, out_i
 
 

@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from vers_tpu_torch.core import COUNT_LOCK, count
 from vers_tpu_torch.ops import _build
 from vers_tpu_torch.ops.topk import (
     PRECISIONS,
@@ -48,13 +49,16 @@ LARGE_K_PLAIN = 0
 LAUNCHES_VALUES = 0
 # Calls routed to kernel C's plain version because k > MAX_K.
 LARGE_K_PLAIN_VALUES = 0
+# (Each counter moves by ``core.count``: shards launch from several
+# threads at once.)
 
 _METRICS = ("sq_euclidean", "cosine")
 
 
 def launches() -> int:
     """Kernel A's launches over all its routes."""
-    return sum(LAUNCHES_BY_ROUTE.values())
+    with COUNT_LOCK:
+        return sum(LAUNCHES_BY_ROUTE.values())
 
 
 def route_name(corpus_dtype: torch.dtype, precision: str) -> str:
@@ -197,8 +201,7 @@ def split_pass(
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "vers_distance_topk")
-    route = route_name(corpus.dtype, precision)
-    LAUNCHES_BY_ROUTE[route] = LAUNCHES_BY_ROUTE.get(route, 0) + 1
+    count(LAUNCHES_BY_ROUTE, route_name(corpus.dtype, precision))
     return vals, ids, n_split
 
 
@@ -268,7 +271,6 @@ def cuda_topk_values(vals: torch.Tensor, ids: torch.Tensor, k: int):
     """The k smallest of each row with carried ids, as
     ``topk_values_plain``. CUDA tensors launch kernel C; CPU tensors
     take the plain version."""
-    global LAUNCHES_VALUES
     if not vals.is_cuda and not ids.is_cuda:
         return topk_values_plain(vals, ids, k)
     _check_values(vals, ids, k)
@@ -286,7 +288,7 @@ def cuda_topk_values(vals: torch.Tensor, ids: torch.Tensor, k: int):
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "vers_topk_values")
-    LAUNCHES_VALUES += 1
+    count(globals(), "LAUNCHES_VALUES")
     return out_d, out_i
 
 
@@ -294,9 +296,8 @@ def topk_values(vals: torch.Tensor, ids: torch.Tensor, k: int):
     """Dispatcher with ``vers_tpu.ops.pallas_topk.pallas_topk_values``'s
     contract: kernel C on CUDA tensors, the plain version on CPU tensors
     and for k > MAX_K."""
-    global LARGE_K_PLAIN_VALUES
     if k > MAX_K:
-        LARGE_K_PLAIN_VALUES += 1
+        count(globals(), "LARGE_K_PLAIN_VALUES")
         return topk_values_plain(vals, ids, k)
     return cuda_topk_values(vals, ids, k)
 
@@ -319,7 +320,6 @@ def distance_topk(
     kernels D and C). ``precision`` ("highest", "high", "default")
     reaches kernel A and its plain version; the approximate engines
     ignore it, as in the JAX package."""
-    global LARGE_K_PLAIN
     _check_precision(precision)
     if force == "approx":
         return approx_scan_topk(queries, corpus, n_valid, k, metric=metric)
@@ -335,7 +335,7 @@ def distance_topk(
     if k > MAX_K:
         if force == "pallas":
             raise ValueError(f"the kernel takes k <= {MAX_K}, got {k}")
-        LARGE_K_PLAIN += 1
+        count(globals(), "LARGE_K_PLAIN")
         return fused_scan_topk(queries, corpus, n_valid, k, metric=metric,
                                chunk_size=chunk_size, precision=precision)
     return cuda_distance_topk(queries, corpus, n_valid, k, metric=metric,

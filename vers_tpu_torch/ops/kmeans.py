@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from vers_tpu_torch.core import bitwise_equal
+from vers_tpu_torch.core import bitwise_equal, host_wait
 from vers_tpu_torch.ops.distance import pairwise_sq_euclidean
 
 
@@ -62,6 +62,7 @@ def partial_sums(data: torch.Tensor, n_valid: int, centroids: torch.Tensor,
         dist = pairwise_sq_euclidean(chunk, centroids)
         best, assign = torch.min(dist, dim=1)
         sums.index_add_(0, assign, chunk.to(torch.bfloat16).float())
+        host_wait(assign)  # bincount reads its maximum on the host
         counts += torch.bincount(assign, minlength=k).float()
         cost += best.sum()
     return sums, counts, cost

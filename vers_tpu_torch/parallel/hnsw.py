@@ -5,7 +5,8 @@ Scale-out of the graph index's throughput (the reference holds the whole
 HNSW in one host's RAM and serves queries in one process,
 `vers/src/indexes/hnsw.rs:26`): the navigation table and adjacency are
 replicated on every shard and the QUERY batch splits across the shards,
-each running the single-device descent on its block of queries. This is
+each running the single-device descent on its block of queries, all
+shards at once (``mesh.map_shards``). This is
 the classic layer-by-layer descent from the entry row
 (``ops/beam.full_descent``: routing beams on layers L-2..1, the layer-0
 beam, the f32 rescore), as the JAX package runs it here, not the
@@ -14,7 +15,7 @@ scan-routed one: the single-device counterpart is ``HNSWIndex`` with
 the blocks back in order.
 
 A shard on another device than the wrapped index searches a copy of its
-serving tables there. An int8 navigation table (``nav_dtype="int8"``)
+serving tables there, made by the caller before the shards start. An int8 navigation table (``nav_dtype="int8"``)
 travels with its per-row scales, as in the JAX package.
 """
 
@@ -33,6 +34,7 @@ from vers_tpu_torch.parallel.mesh import (
     SHARD_AXIS,
     all_gather,
     make_mesh,
+    map_shards,
     normalize_device,
 )
 
@@ -118,10 +120,12 @@ class ShardedHNSWIndex:
         ef = max(base.ef_search, top_k)
         ef_route = getattr(base.config, "ef_route", None)
         ef_r = max(1, min(ef_route, ef)) if ef_route else ef
-        parts_d, parts_i = [], []
-        for s, dev in enumerate(self.mesh.devices):
-            vecs, vecs_nav, scales, adjs = self._tables_on(cache, dev)
-            d, i = full_descent(
+        # the replicas, copied here so that no two shards copy one cache
+        tables = [self._tables_on(cache, dev) for dev in self.mesh.devices]
+
+        def body(s, dev, tabs):
+            vecs, vecs_nav, scales, adjs = tabs
+            return full_descent(
                 q[s * q_local : (s + 1) * q_local].to(dev), vecs, vecs_nav,
                 adjs[: len(base.layers) - 1],
                 torch.full((q_local,), cache["entry"], dtype=torch.int64,
@@ -132,9 +136,10 @@ class ShardedHNSWIndex:
                 steps_cap=getattr(base.config, "beam_steps", None),
                 scales=scales,
             )
-            parts_d.append(d)
-            parts_i.append(i)
-        return all_gather(parts_d, 0)[:q_n], all_gather(parts_i, 0)[:q_n]
+
+        parts = map_shards(self.mesh, body, tables)
+        return (all_gather([d for d, _ in parts], 0)[:q_n],
+                all_gather([i for _, i in parts], 0)[:q_n])
 
     def search_batch(self, queries, top_k: int) -> SearchResult:
         bd, bi = self._search_batch_rows(queries, top_k)

@@ -8,7 +8,7 @@ contiguous blocks with ONE independent HNSW subgraph per shard over its
 local rows, so each shard holds ~1/n_shards of a single-graph index.
 
 Query: every shard runs its full local descent on the replicated query
-batch, on its own device: the layer-1 routing scan (kernel A on the
+batch, all shards at once (``mesh.map_shards``), on its own device: the layer-1 routing scan (kernel A on the
 card, k = the seed count, cosine), the multi-seeded layer-0 beam and the
 f32 rescore (``ops/beam.full_descent_scan``, the single-device scan
 route). Its top-k rows are offset into global padded rows
@@ -35,7 +35,12 @@ import torch
 from vers_tpu_torch.core import as_query_matrix, device_id_map, round_up
 from vers_tpu_torch.index.hnsw import HNSWIndex, resolve_beam_expand
 from vers_tpu_torch.ops.beam import full_descent_scan
-from vers_tpu_torch.parallel.mesh import SHARD_AXIS, make_mesh, merge_topk
+from vers_tpu_torch.parallel.mesh import (
+    SHARD_AXIS,
+    make_mesh,
+    map_shards,
+    merge_topk,
+)
 from vers_tpu_torch.parallel.partitioned import PartitionedIndexBase
 
 
@@ -248,8 +253,8 @@ class PartitionedHNSWIndex(PartitionedIndexBase):
         cfg = self.shards[0].config
         seeds = getattr(cfg, "route_seeds", 0) or min(ef, 8)
         per = cache["per"]
-        parts_d, parts_i = [], []
-        for s, dev in enumerate(self.mesh.devices):
+
+        def body(s, dev):
             d, rows = full_descent_scan(
                 q.to(dev), cache["vecs"][s], cache["vecs_nav"][s],
                 cache["adj0"][s], cache["l1_tab"][s],
@@ -258,9 +263,10 @@ class PartitionedHNSWIndex(PartitionedIndexBase):
                 expand=resolve_beam_expand(cfg),
                 steps_cap=getattr(cfg, "beam_steps", None),
             )
-            parts_d.append(d)
-            parts_i.append(torch.where(rows >= 0, rows + s * per, -1))
-        return merge_topk(parts_d, parts_i, top_k)
+            return d, torch.where(rows >= 0, rows + s * per, -1)
+
+        parts = map_shards(self.mesh, body)
+        return merge_topk([d for d, _ in parts], [i for _, i in parts], top_k)
 
     def get_num_nodes_in_layers(self) -> List[int]:
         """Global per-layer node counts (sum over shards)."""

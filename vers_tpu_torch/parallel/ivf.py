@@ -9,8 +9,8 @@ layout of its own rows). The queries probe the centroids once, on the
 lead device; then each shard runs the packed binned scan over its own
 members of the probed clusters (``ops/binned.binned_topk_kernel``: one
 launch of kernel B a shard on the card, all probe ranks in that launch),
-and the shards' top-k candidates gather on the lead device for one
-re-top-k. The JAX package scans one probe rank at a time in an XLA
+all shards at once (``mesh.map_shards``), and the shards' top-k
+candidates gather on the lead device for one re-top-k. The JAX package scans one probe rank at a time in an XLA
 ``lax.scan`` over packed tiles; both compute the exact top-k over the
 probed clusters, so the results are the same set, with equal distances
 possibly in another order.
@@ -45,7 +45,13 @@ from vers_tpu_torch.ops.binned import binned_topk_kernel, make_layout
 from vers_tpu_torch.ops.distance import pairwise_sq_euclidean
 from vers_tpu_torch.ops.topk import topk_smallest
 from vers_tpu_torch.parallel.kmeans import sharded_build_kmeans
-from vers_tpu_torch.parallel.mesh import Mesh, make_mesh, merge_topk, shard_rows
+from vers_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    map_shards,
+    merge_topk,
+    shard_rows,
+)
 
 
 # numpy reduces at most this many elements of a row at a time (its
@@ -226,21 +232,22 @@ class ShardedIVFFlatIndex(Index):
         _, probes = topk_smallest(
             pairwise_sq_euclidean(q, state["centroids"]), nprobe)
         probes = probes.to(torch.int32)
-        parts_d, parts_i = [], []
-        for s, (layout, dev) in enumerate(zip(state["layouts"],
-                                              self.mesh.devices)):
+
+        def body(s, dev, layout):
             if layout is None:
-                continue
+                return None  # nothing to scan
             # dedup=False: a row lives in exactly one cluster and a
             # query's probes are distinct clusters
             d, pos = binned_topk_kernel(
                 q.to(dev), None, nprobe, layout, top_k=top_k,
                 metric=self.metric, probes=probes.to(dev), dedup=False,
             )
-            parts_d.append(d)
             pos = pos.to(torch.int64)
-            parts_i.append(torch.where(pos >= 0,
-                                       pos + int(state["offsets"][s]), -1))
+            return d, torch.where(pos >= 0, pos + int(state["offsets"][s]), -1)
+
+        parts = [p for p in map_shards(self.mesh, body, state["layouts"])
+                 if p is not None]
+        parts_d, parts_i = [d for d, _ in parts], [i for _, i in parts]
         if not parts_d:
             return (torch.full((q_n, top_k), float("inf"), device=lead),
                     torch.full((q_n, top_k), -1, dtype=torch.int64,

@@ -1,8 +1,9 @@
 """Distributed Lloyd k-means (counterpart of ``vers_tpu.parallel.kmeans``):
-per-shard assignment + accumulation (``ops/kmeans.partial_sums``) and a
-``psum`` of (sums, counts, cost) across the mesh — the multi-device
-version of IVFFlat's build (`vers/src/indexes/ivfflat.rs:73-100`, whose
-parallelism was a rayon pool on one host).
+per-shard assignment + accumulation (``ops/kmeans.partial_sums``, all
+shards at once through ``mesh.map_shards``) and a ``psum`` of (sums,
+counts, cost) across the mesh — the multi-device version of IVFFlat's
+build (`vers/src/indexes/ivfflat.rs:73-100`, whose parallelism was a
+rayon pool on one host).
 
 The sums run in shard order on the lead device; the JAX package's
 all-reduce may add them in another order, so centroids agree with it to
@@ -20,18 +21,16 @@ import torch
 
 from vers_tpu_torch.core import bitwise_equal
 from vers_tpu_torch.ops.kmeans import centroids_from_sums, partial_sums
-from vers_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh, psum
+from vers_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh, map_shards, psum
 
 
 def _psum_partials(data_sharded, counts_sharded, centroids, mesh: Mesh,
                    chunk_size: int):
-    sums, counts, costs = [], [], []
-    for s, (x, dev) in enumerate(zip(data_sharded, mesh.devices)):
-        a, b, c = partial_sums(x, int(counts_sharded[s]), centroids.to(dev),
-                               chunk_size)
-        sums.append(a)
-        counts.append(b)
-        costs.append(c)
+    def body(s, dev, x, count):
+        return partial_sums(x, int(count), centroids.to(dev), chunk_size)
+
+    sums, counts, costs = zip(*map_shards(mesh, body, data_sharded,
+                                          counts_sharded))
     return psum(sums), psum(counts), psum(costs)
 
 

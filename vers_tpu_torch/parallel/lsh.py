@@ -9,8 +9,9 @@ index tables per tree, the reference's own memory shape, `lsh.rs:44,53`)
 and the QUERY batch splits across the shards. Each shard runs the
 single-device search on its block of queries (multiprobe descent, then
 per tree a view gather, the packed scan and the dedup merge: kernel B,
-one launch a tree, on the card), so the query path needs no collective
-beyond putting the blocks back in order.
+one launch a tree, on the card), all shards at once
+(``mesh.map_shards``), so the query path needs no collective beyond
+putting the blocks back in order.
 
 Trees do not map to shards: they share the corpus, and candidates from
 different trees must be deduplicated before ranking. Splitting the
@@ -19,7 +20,8 @@ queries keeps the dedup on each shard.
 The query count is padded to a multiple of 64 rows a shard, the port's
 query block (``index/lsh.Q_BLK``), and each shard's tiles are planned
 for its own count (``ANNIndex._shared_plan``). A shard on another
-device than the wrapped index searches a copy of its device state there.
+device than the wrapped index searches a copy of its device state there,
+made by the caller before the shards start.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from vers_tpu_torch.parallel.mesh import (
     SHARD_AXIS,
     all_gather,
     make_mesh,
+    map_shards,
     normalize_device,
 )
 
@@ -128,19 +131,20 @@ class ShardedANNIndex:
         q = torch.nn.functional.pad(q, (0, 0, 0, q_pad - q_n))
         q_local = q_pad // n_shards
         sh, plan = base._shared_plan(q_local, top_k, n_probes)
-        parts_d, parts_i = [], []
-        for s, dev in enumerate(self.mesh.devices):
-            st = self._state_on(sh, dev)
-            d, rows = forest_search_shared(
+        # the replicas, copied here so that no two shards copy one state
+        states = [self._state_on(sh, dev) for dev in self.mesh.devices]
+
+        def body(s, dev, st):
+            return forest_search_shared(
                 q[s * q_local : (s + 1) * q_local].to(dev),
                 *(st[k] for k in _STATE),
                 n_probes=n_probes, num_bins=sh["num_bins"], top_k=top_k,
                 deficit_k=deficit_k, plain=engine == "xla", **plan,
             )
-            parts_d.append(d)
-            parts_i.append(rows)
-        dists = all_gather(parts_d, 0)[:q_n]
-        rows = all_gather(parts_i, 0)[:q_n]
+
+        parts = map_shards(self.mesh, body, states)
+        dists = all_gather([d for d, _ in parts], 0)[:q_n]
+        rows = all_gather([r for _, r in parts], 0)[:q_n]
         return dists, rows
 
     def search_batch(

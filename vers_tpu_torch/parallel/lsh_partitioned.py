@@ -8,13 +8,14 @@ This class splits the corpus rows into contiguous blocks, one
 independent forest per shard over its local rows, so each shard's
 state is ~1/n_shards of the whole.
 
-Each shard searches as the single-device forest does, on its own device
-and its own shared-corpus tables (``ops/forest_shared``: its corpus
-block once, int32 index tables per tree, one gathered tree view live at
-a time): the multiprobe descent, then per tree a view gather, the packed
-scan (kernel B on the card, one launch a tree) and the dedup merge. The
-queries are replicated; each shard's result rows are offset into global
-padded rows (``s * pern + row``), and the k·n_shards candidates gather
+Each shard searches as the single-device forest does, all shards at
+once (``mesh.map_shards``), on its own device and its own shared-corpus
+tables (``ops/forest_shared``: its corpus block once, int32 index tables
+per tree, one gathered tree view live at a time): the multiprobe
+descent, then per tree a view gather, the packed scan (kernel B on the
+card, one launch a tree) and the dedup merge. The queries are
+replicated; each shard's result rows are offset into global padded rows
+(``s * pern + row``), and the k·n_shards candidates gather
 on the lead device for one top-k. Shards cover disjoint rows, so that
 merge needs no dedup.
 
@@ -39,7 +40,12 @@ from vers_tpu_torch.core import as_query_matrix, device_id_map, round_up
 from vers_tpu_torch.index.lsh import ANNIndex
 from vers_tpu_torch.ops.forest_shared import forest_search_shared
 from vers_tpu_torch.parallel.lsh import _STATE
-from vers_tpu_torch.parallel.mesh import SHARD_AXIS, make_mesh, merge_topk
+from vers_tpu_torch.parallel.mesh import (
+    SHARD_AXIS,
+    make_mesh,
+    map_shards,
+    merge_topk,
+)
 from vers_tpu_torch.parallel.partitioned import PartitionedIndexBase
 
 
@@ -141,8 +147,8 @@ class PartitionedANNIndex(PartitionedIndexBase):
             n_probes = max(1, probes_per_tree)
             deficit_k = 0
         pern = cache["pern"]
-        parts_d, parts_i = [], []
-        for s, shard in enumerate(self.shards):
+
+        def body(s, dev, shard):
             engine = shard.config.engine
             if engine not in ("auto", "pallas", "xla"):
                 raise ValueError(f"unknown engine {engine!r}")
@@ -153,6 +159,7 @@ class PartitionedANNIndex(PartitionedIndexBase):
                 deficit_k=deficit_k, plain=engine == "xla", **plan,
             )
             rows = rows.to(torch.int64)
-            parts_d.append(d)
-            parts_i.append(torch.where(rows >= 0, rows + s * pern, -1))
-        return merge_topk(parts_d, parts_i, top_k)
+            return d, torch.where(rows >= 0, rows + s * pern, -1)
+
+        parts = map_shards(self.mesh, body, self.shards)
+        return merge_topk([d for d, _ in parts], [i for _, i in parts], top_k)

@@ -1,8 +1,9 @@
 """Sharded exact search (counterpart of ``vers_tpu.parallel.search``):
 each shard runs the fused distance + top-k scan over its corpus rows
 (kernel A on a CUDA shard, its plain version on a CPU shard; kernel C
-takes a shard's final k where kernel A split its rows), then the
-k·n_shards candidates gather on the lead device for one re-top-k.
+takes a shard's final k where kernel A split its rows), all shards at
+once (``mesh.map_shards``), then the k·n_shards candidates gather on the
+lead device for one re-top-k.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 
 from vers_tpu_torch.core import as_query_matrix
 from vers_tpu_torch.ops.cuda_topk import distance_topk
-from vers_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh, merge_topk
+from vers_tpu_torch.parallel.mesh import SHARD_AXIS, Mesh, map_shards, merge_topk
 
 
 def sharded_topk(
@@ -31,12 +32,12 @@ def sharded_topk(
     if len(corpus_sharded) != mesh.shape[axis]:
         raise ValueError(
             f"{len(corpus_sharded)} shards for a {mesh.shape[axis]}-shard mesh")
-    parts_d, parts_i = [], []
-    for s, (x, dev) in enumerate(zip(corpus_sharded, mesh.devices)):
-        d, i = distance_topk(as_query_matrix(queries, dev), x,
-                             int(counts_sharded[s]), k, metric=metric,
-                             chunk_size=chunk_size)
+
+    def body(s, dev, x, count):
+        d, i = distance_topk(as_query_matrix(queries, dev), x, int(count), k,
+                             metric=metric, chunk_size=chunk_size)
         i = i.to(torch.int64)
-        parts_d.append(d)
-        parts_i.append(torch.where(i >= 0, i + s * x.shape[0], -1))
-    return merge_topk(parts_d, parts_i, k)
+        return d, torch.where(i >= 0, i + s * x.shape[0], -1)
+
+    parts = map_shards(mesh, body, corpus_sharded, counts_sharded)
+    return merge_topk([d for d, _ in parts], [i for _, i in parts], k)
