@@ -172,6 +172,23 @@ phases. Each kernel's bound, the least time the card
 could take for its work, comes from ``vers_tpu_torch/utils/roofline.py``
 and this run's inputs (kernel B's from the probes it captured).
 
+Every IVF, forest and HNSW search runs as the package runs it, replaying
+CUDA graphs (``vers_tpu_torch.graphs``); the captures of the kernels'
+arguments run under ``graphs.disabled()``. On the indexes and queries of
+phases 4-7 each graph-replayed search is held to the same search run
+eagerly (``graphs.disabled()``), ids and distances bit for bit: IVF at
+nprobe 1 and 2 (nprobe 0, the adaptive depth, runs eagerly); the forest
+at 1 and 4 probes and auto; HNSW scan-routed with the inline beam, the
+classic beam and the int8 table; the sharded IVF (nprobe 2), forest (1
+probe) and HNSW (beam route) on four shards of the card. Five calls of
+each are timed, graph and eager interleaved call by call (medians and
+spread), with each graph's pool bytes; the IVF (nprobe 1, 2 and 0) and
+forest searches make no host synchronisation after a setting's capture
+(``set_sync_debug_mode("error")``); and eight calls chained and drained
+once are timed beside eight drained each (IVF at the operating nprobe,
+the forest at 1 probe). The indexes keep their graphs to the end of the
+run, as a server would.
+
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and builds the kernels from ``vers_tpu_torch/csrc``
 on first use. Any failure raises and exits non-zero. The line before the
@@ -254,8 +271,10 @@ def log(msg):
 
 
 def cuda_ms(torch, fn, reps=3):
-    """Mean milliseconds per call on the card's timeline, after one
-    warm-up call."""
+    """Mean milliseconds per call on the card's timeline, after two
+    warm-up calls (a search's first call runs eagerly, its second
+    captures its CUDA graph)."""
+    fn()
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -266,6 +285,144 @@ def cuda_ms(torch, fn, reps=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def event_ms(torch, fn):
+    """Milliseconds of one call on the card's timeline (CUDA events),
+    ending in a synchronize."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def same_result(torch, got, want):
+    """Ids equal and distances bit for bit: (dists, ids) tensors, or
+    SearchResults."""
+    if isinstance(got, tuple):
+        return (torch.equal(got[1], want[1])
+                and torch.equal(got[0].view(torch.int32),
+                                want[0].view(torch.int32)))
+    return (np.array_equal(got.ids, want.ids)
+            and np.array_equal(got.distances.view(np.int32),
+                               want.distances.view(np.int32)))
+
+
+def pool_bytes(caches):
+    """The bytes of each ``graphs.GraphCache``'s pool (an index's graphs
+    share one; a sharded index has a cache a shard), with the keys of
+    the configurations whose graphs it holds."""
+    return [dict(bytes=cache.pool_bytes(),
+                 sites=[str(site.key[0]) for site in cache.sites()])
+            for cache in caches]
+
+
+def graph_reading(torch, label, search, caches=(), reps=5):
+    """A search as the package runs it (replaying CUDA graphs) against
+    the same search eagerly (``graphs.disabled()``): its first call (run
+    eagerly), its second (the capture), unless earlier calls of this
+    configuration made them, and a replay equal to the eager search, ids
+    and distances bit for bit; then ``reps`` calls of each, the two
+    interleaved call by call, timed with CUDA events (medians and
+    spread); the pool bytes of ``caches``' graphs. Returns the row."""
+    from vers_tpu_torch import graphs
+
+    calls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        calls.append(search())
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t0)
+    first, first_s, capture, capture_s = calls
+    replay = search()
+    with graphs.disabled():
+        eager = search()
+    for got in (first, capture, replay):
+        assert same_result(torch, got, eager), label
+    del calls, first, capture, replay, eager
+    g_ms, e_ms = [], []
+    for _ in range(reps):
+        g_ms.append(event_ms(torch, search))
+        with graphs.disabled():
+            e_ms.append(event_ms(torch, search))
+    g_ms.sort()
+    e_ms.sort()
+    mid = reps // 2
+    pools = pool_bytes(list(caches))
+    total = sum(p["bytes"] for p in pools)
+    log(f"{label}: graph replays equal the eager search bit for bit; graph "
+        f"median {g_ms[mid]:.3f} ms (min {g_ms[0]:.3f}, max {g_ms[-1]:.3f} of "
+        f"{reps}), eager {e_ms[mid]:.3f} ms ({e_ms[0]:.3f}-{e_ms[-1]:.3f}), "
+        f"interleaved; eager / graph {e_ms[mid] / g_ms[mid]:.2f}; first call "
+        f"{first_s:.3f} s, capturing call {capture_s:.3f} s; graph pools "
+        f"{total / 1e9:.3f} GB {pools}")
+    return dict(graph_ms=g_ms[mid], graph_min=g_ms[0], graph_max=g_ms[-1],
+                eager_ms=e_ms[mid], eager_min=e_ms[0], eager_max=e_ms[-1],
+                first_call_s=first_s, capture_call_s=capture_s,
+                pool_bytes=pools, pool_bytes_total=total)
+
+
+def no_sync_reading(torch, label, searches):
+    """Each search twice (its first call and its capture, where new),
+    then twice more each under ``torch.cuda.set_sync_debug_mode("error")``:
+    a host synchronisation in any of them raises."""
+    for search in searches:
+        search()
+        search()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for search in searches:
+            search()
+            search()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"{label}: {len(searches)} searches, two calls each after the "
+        f"capture under set_sync_debug_mode('error'): no host "
+        f"synchronisation")
+    return dict(searches=len(searches), calls_checked=2 * len(searches))
+
+
+def chained_reading(torch, label, search, n_queries, depth=8, rounds=3):
+    """The pipelined serving model of ``docs/SERVING.md``: ``depth``
+    calls chained with one drain at the end, beside ``depth`` calls each
+    drained, as the package runs them (graphs) and eagerly; host clock,
+    ms a call, the best of ``rounds``, all four interleaved."""
+    from vers_tpu_torch import graphs
+
+    def chained(drain_each):
+        t0 = time.perf_counter()
+        for _ in range(depth):
+            search()
+            if drain_each:
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / depth * 1e3
+
+    search()
+    search()
+    torch.cuda.synchronize()
+    got = {"graph_chained": [], "graph_synced": [], "eager_chained": [],
+           "eager_synced": []}
+    for _ in range(rounds):
+        got["graph_chained"].append(chained(False))
+        got["graph_synced"].append(chained(True))
+        with graphs.disabled():
+            got["eager_chained"].append(chained(False))
+            got["eager_synced"].append(chained(True))
+    row = {k: min(v) for k, v in got.items()}
+    row["depth"] = depth
+    row["graph_chained_qps"] = n_queries / row["graph_chained"] * 1e3
+    log(f"{label}, {depth} calls chained then drained: {row['graph_chained']:.3f}"
+        f" ms a call ({row['graph_chained_qps']:.0f} qps); each drained "
+        f"{row['graph_synced']:.3f}; eager chained {row['eager_chained']:.3f}, "
+        f"each drained {row['eager_synced']:.3f} (host clock, best of {rounds})")
+    return row
 
 
 def hold_kernel_b(torch, args, kw, label, mirror, time_plain=True):
@@ -336,7 +493,9 @@ def captured_route_scan(shard=None):
     """Record the first HNSW layer-1 routing scan (``ops/beam.route_scan``,
     kernel A) that a search makes inside the block (with ``shard``, the
     first that shard's body makes under ``parallel.mesh.map_shards``), as
-    (queries copied, table, rows, k); every call goes through unchanged."""
+    (queries copied, table, rows, k); every call goes through unchanged,
+    eagerly (``graphs.disabled``)."""
+    from vers_tpu_torch import graphs
     from vers_tpu_torch.ops import beam
     from vers_tpu_torch.parallel.mesh import current_shard
 
@@ -350,7 +509,8 @@ def captured_route_scan(shard=None):
 
     beam.route_scan = capturing
     try:
-        yield captured
+        with graphs.disabled():
+            yield captured
     finally:
         beam.route_scan = real
 
@@ -501,6 +661,22 @@ def forest_phase(torch, vt, x, q, qd, truth_ids, dev):
                 mirror=tree == 0, time_plain=tree == 0)
         cuda_binned.LAUNCHES = counted
         del calls
+
+    # the search as CUDA graphs against itself eagerly, with no host
+    # synchronisation after a setting's first call, and chained
+    for probes in (1, 4, None):
+        name = "auto" if probes is None else str(probes)
+        searches[name]["graphs"] = graph_reading(
+            torch, f"forest probes_per_tree={name}",
+            lambda: forest.search_batch_device(qd, TOP_K, probes),
+            [forest._graphs])
+    searches["no_host_sync"] = no_sync_reading(
+        torch, "forest probes_per_tree=1, 4, auto",
+        [lambda p=p: forest.search_batch_device(qd, TOP_K, p)
+         for p in (1, 4, None)])
+    searches["chained"] = chained_reading(
+        torch, "forest probes_per_tree=1",
+        lambda: forest.search_batch_device(qd, TOP_K, 1), N_QUERIES)
 
     # the descent on the card against the CPU's on the same tables: a
     # leaf hangs on the sign of a projection, so leaves must be equal
@@ -719,6 +895,9 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     rows["inline"] = dict(recall=rec, ms_median=times[2], ms_min=times[0],
                           ms_max=times[4], qps=N_QUERIES / times[2] * 1e3,
                           peak_search_gb=peak_gb)
+    rows["inline"]["graphs"] = graph_reading(
+        torch, "hnsw inline beam", lambda: h.search_batch_device(qd2, TOP_K),
+        [h._graphs])
 
     qs, ts = qd2[:HNSW_SLICE], truth2[:HNSW_SLICE]
     base = h.config
@@ -846,7 +1025,8 @@ def captured_build_scans():
     """Record, by k, the last scan of the scan-routed wave build
     (``ops/hnsw_build.scan_members``, kernel A) made inside the block, as
     (queries as the kernel takes them, member table, built rows); every
-    call goes through unchanged."""
+    call goes through unchanged, eagerly (``graphs.disabled``)."""
+    from vers_tpu_torch import graphs
     from vers_tpu_torch.ops import hnsw_build
 
     captured = {}
@@ -858,7 +1038,8 @@ def captured_build_scans():
 
     hnsw_build.scan_members = capturing
     try:
-        yield captured
+        with graphs.disabled():
+            yield captured
     finally:
         hnsw_build.scan_members = real
 
@@ -897,6 +1078,9 @@ def int8_readings(torch, vt, h, qd2, truth2, q2):
         log(f"hnsw nav table {name}: {nav_bytes / 1e6:.1f} MB; recall@10 "
             f"{rec:.4f}, median {times[2]:.2f} ms / {N_QUERIES} queries (min "
             f"{times[0]:.2f}, max {times[4]:.2f} of 5 calls)")
+        rows[name]["graphs"] = graph_reading(
+            torch, f"hnsw {name} beam", lambda: h.search_batch_device(qd2, TOP_K),
+            [h._graphs])
     assert rows["int8"]["recall"] >= HNSW_INT8_RECALL, rows
 
     # the beam route on the slice, and a device add, on the int8 cache
@@ -1160,13 +1344,14 @@ def shard_intervals(torch, in_turn=False):
 def shard_readings(torch, settings, reps=5):
     """Time each of ``settings`` (name -> (fn, in_turn), ``fn`` a search,
     ``in_turn`` as ``shard_intervals`` takes it) with CUDA events on the
-    caller's stream: one warm-up call each, then ``reps`` calls each, the
+    caller's stream: two warm-up calls each (a search's first call runs
+    eagerly, its second captures its graphs), then ``reps`` calls each, the
     settings interleaved call by call, so that a drift of the host's
     speed falls on all of them alike. Returns name -> (sorted ms, the
     median call's overlap: the shards' stream intervals summed over its
     wall)."""
     calls = {name: [] for name in settings}
-    for rep in range(reps + 1):
+    for rep in range(reps + 2):
         for name, (fn, in_turn) in settings.items():
             with shard_intervals(torch, in_turn) as intervals:
                 start = torch.cuda.Event(enable_timing=True)
@@ -1177,7 +1362,7 @@ def shard_readings(torch, settings, reps=5):
                 end.record()
                 torch.cuda.synchronize()
             wall = start.elapsed_time(end)
-            if rep:
+            if rep > 1:
                 calls[name].append(
                     (wall, sum(a.elapsed_time(b) for a, b in intervals) / wall))
     out = {}
@@ -1188,7 +1373,7 @@ def shard_readings(torch, settings, reps=5):
 
 
 def plain_reading(torch, fn, reps=5):
-    """``fn`` after one warm-up call, ``reps`` calls timed with CUDA
+    """``fn`` after two warm-up calls, ``reps`` calls timed with CUDA
     events: sorted ms."""
     return shard_readings(torch, {"fn": (fn, False)}, reps)["fn"][0]
 
@@ -1351,6 +1536,10 @@ def parallel_phase(torch, vt, x, qd, truth, dev, flat, ivf, forest, h, qd2,
             torch, f"sharded ivf, nprobe={nprobe}",
             lambda: sivf._search_batch_rows(qd, TOP_K, nprobe),
             lambda: ref.search_batch_device(qd, TOP_K, nprobe))
+        if nprobe == 2:
+            rows["ivf"]["nprobe2"]["graphs"] = graph_reading(
+                torch, "sharded ivf, nprobe=2",
+                lambda: sivf._search_batch_rows(qd, TOP_K, 2), sivf._graphs)
         if civf is not None:
             same(civf.search_batch(qd, TOP_K, nprobe=nprobe), want)
             on_cards[f"ivf_nprobe{nprobe}"] = compare_shards(
@@ -1417,6 +1606,10 @@ def parallel_phase(torch, vt, x, qd, truth, dev, flat, ivf, forest, h, qd2,
                 torch, f"sharded forest, probes_per_tree={probes}",
                 lambda: sa._search_batch_rows(qd, TOP_K, probes),
                 lambda: forest.search_batch_device(qd, TOP_K, probes)))
+        if probes == 1:
+            rows["forest"]["1"]["graphs"] = graph_reading(
+                torch, "sharded forest, probes_per_tree=1",
+                lambda: sa._search_batch_rows(qd, TOP_K, 1), sa._graphs)
         if ca is not None:
             same(ca.search_batch(qd, TOP_K, probes), want)
             on_cards[f"forest_{probes}"] = compare_shards(
@@ -1452,6 +1645,10 @@ def parallel_phase(torch, vt, x, qd, truth, dev, flat, ivf, forest, h, qd2,
             torch, f"sharded hnsw ({name}), {HNSW_SLICE} queries",
             lambda: sh._search_batch_rows(qs, TOP_K),
             lambda: h.search_batch_device(qs, TOP_K)))
+        if name == "hnsw":
+            rows[name]["graphs"] = graph_reading(
+                torch, f"sharded hnsw ({name}), {HNSW_SLICE} queries",
+                lambda: sh._search_batch_rows(qs, TOP_K), sh._graphs)
         if ch is not None:
             same(ch.search_batch(qs, TOP_K), want)
             on_cards[name] = compare_shards(
@@ -1789,6 +1986,20 @@ def main():
     log(f"ivf adaptive nprobe=0: recall@10 {vt.recall_at_k(res0.ids, truth.ids):.4f}, "
         f"{N_QUERIES / ms0 * 1e3:.0f} qps")
 
+    # the IVF search as CUDA graphs against itself eagerly, with no host
+    # synchronisation after a setting's first call, and chained
+    ivf_graphs = {}
+    for nprobe in (1, 2):
+        ivf_graphs[f"nprobe{nprobe}"] = graph_reading(
+            torch, f"ivf nprobe={nprobe}",
+            lambda: ivf.search_batch_device(qd, TOP_K, nprobe), [ivf._graphs])
+    ivf_graphs["no_host_sync"] = no_sync_reading(
+        torch, "ivf nprobe=1, 2, 0",
+        [lambda p=p: ivf.search_batch_device(qd, TOP_K, p) for p in (1, 2, 0)])
+    ivf_graphs["chained"] = chained_reading(
+        torch, f"ivf nprobe={operating}",
+        lambda: ivf.search_batch_device(qd, TOP_K, operating), N_QUERIES)
+
     for i in range(3):
         pairs = ivf.search_approximate(q[i], TOP_K)
         ids = np.array([j for j, _ in pairs])
@@ -2110,7 +2321,8 @@ def main():
          "shape": f"Q={N_QUERIES} nprobe={operating} k={TOP_K} of the "
                   f"{K_CLUSTERS}-cluster layout",
          "by_nprobe": b_rows, "by_forest_scan": forest_scans,
-         "forest": forest_rows, "parallel_scans": shard_b},
+         "forest": forest_rows, "parallel_scans": shard_b,
+         "ivf_graphs": ivf_graphs},
         {"name": "topk_values", "route": "cuda",
          "source": "vers_tpu_torch/csrc/topk_values.cu",
          "replaces": "vers_tpu/ops/pallas_topk.py:230",

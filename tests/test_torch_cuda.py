@@ -35,7 +35,16 @@ IVF and forest and the partitioned forest and HNSW over four shards of
 one card against the single-device indexes (or the same partitioned
 index on the CPU) with their launches per shard, the sharded HNSW
 against the beam route, and every class over one shard per card where
-there are two cards or more.
+there are two cards or more; and the searches as CUDA graphs
+(``vers_tpu_torch.graphs``): IVF at nprobe 1 and 2 (nprobe 0, the
+adaptive depth, runs eagerly and captures nothing), the forest at 1, 4
+and auto probes, HNSW scan-routed (classic beam, inline beam, int8) and
+beam-routed, and the sharded IVF, forest and HNSW on four shards of one
+card, each capturing call and replay equal to the eager search bit for
+bit; IVF (nprobe 1, 2 and 0) and forest searches with no host
+synchronisation (``set_sync_debug_mode("error")``); eight chained calls
+equal to eight drained ones; search, ``add``, search equal to a fresh
+index; replays counted as launches.
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips without one. This file imports neither jax nor vers_tpu, so it
@@ -1535,3 +1544,268 @@ def test_parallel_across_cards(cuda):
                                                mesh=one_card, batched=False)
     got, want = ph.search_batch(q, 10), twin.search_batch(q, 10)
     _check((got.distances, got.ids), (want.distances, want.ids))
+
+
+# -- the searches as CUDA graphs (``vers_tpu_torch.graphs``) -----------------
+
+
+def _bitwise(got, want):
+    """Ids equal, distances equal bit for bit."""
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+def _first_replay_eager(search):
+    """A search's capturing call (its second: the first runs eagerly;
+    the answer is the capture's warm-up), a replay, and the same search
+    eagerly (``graphs.disabled``)."""
+    from vers_tpu_torch import graphs
+
+    search()
+    first, replay = search(), search()
+    with graphs.disabled():
+        eager = search()
+    return first, replay, eager
+
+
+@pytest.fixture(scope="module")
+def graph_indexes():
+    """An IVF index of 4000 x 24 unit rows (32 clusters) and a forest of
+    five trees over 20k x 48 unit rows, each with its queries on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import vers_tpu_torch as vt
+
+    cuda = torch.device("cuda")
+    x, q = _clustered()
+    ivf = vt.IVFFlatIndex.build_index(32, 2, 10, x, device=cuda)
+    forest, fx, fq = _forest_on(cuda, 20_000, 48, 40, trees=5)
+    return dict(ivf=ivf, x=x, qd=torch.from_numpy(q).to(cuda), forest=forest,
+                fx=fx, fqd=torch.from_numpy(fq).to(cuda))
+
+
+GRAPH_SEARCHES = [("ivf", 1), ("ivf", 2), ("ivf", 0), ("forest", 1),
+                  ("forest", 4), ("forest", None)]
+
+
+def _graph_search(ix, kind, setting):
+    if kind == "ivf":
+        return lambda q=ix["qd"]: ix["ivf"].search_batch_device(q, 10, setting)
+    return lambda q=ix["fqd"]: ix["forest"].search_batch_device(q, 10, setting)
+
+
+@pytest.mark.parametrize("kind,setting", GRAPH_SEARCHES)
+def test_graph_replay_equals_eager(graph_indexes, kind, setting):
+    cache = graph_indexes[kind]._graphs
+    sites = len(cache.sites())
+    first, replay, eager = _first_replay_eager(
+        _graph_search(graph_indexes, kind, setting))
+    _bitwise(first, eager)
+    _bitwise(replay, eager)
+    if kind == "ivf" and setting == 0:
+        assert len(cache.sites()) == sites  # the adaptive depth: eager
+    else:
+        assert cache.sites()
+
+
+@pytest.mark.parametrize("kind,setting", GRAPH_SEARCHES)
+def test_graph_searches_read_nothing_on_the_host(graph_indexes, kind, setting):
+    """After a configuration's capture (its second call), its searches
+    enqueue with no host synchronisation (IVF: every nprobe, the
+    adaptive depth eagerly; the forest: every probe setting)."""
+    search = _graph_search(graph_indexes, kind, setting)
+    want = search()
+    search()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [search() for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g in got:
+        _bitwise(g, want)
+
+
+@pytest.mark.parametrize("kind,setting", [("ivf", 2), ("forest", 1)])
+def test_chained_graph_searches_equal_separate_ones(graph_indexes, kind,
+                                                    setting):
+    """Eight calls chained with one drain at the end (``docs/SERVING.md``'s
+    pipelined model) equal the same eight calls each drained."""
+    ix = graph_indexes
+    q = ix["qd"] if kind == "ivf" else ix["fqd"]
+    batches = [torch.roll(q, 7 * i, 0) * 1.0 for i in range(8)]
+    search = _graph_search(ix, kind, setting)
+    chained = [search(b) for b in batches]
+    torch.cuda.synchronize()
+    for b, c in zip(batches, chained):
+        one = search(b)
+        torch.cuda.synchronize()
+        _bitwise(c, one)
+    assert len({c[0].data_ptr() for c in chained}) == 8
+
+
+def test_graph_replays_count_their_launches(graph_indexes, hnsw_card):
+    """Kernel B once a search (IVF) or a tree (the forest), kernel A once
+    a search (HNSW's routing scan): on the capturing call (its warm-up)
+    and on every replay."""
+    ix = graph_indexes
+    qd = ix["qd"][:64]
+    for search, counter, per in (
+            (lambda: ix["ivf"].search_batch_device(qd, 10, 3),
+             lambda: cuda_binned.LAUNCHES, 1),
+            (lambda: ix["forest"].search_batch_device(ix["fqd"][:64], 10, 2),
+             lambda: cuda_binned.LAUNCHES, 5),
+            (lambda: hnsw_card[2].search_batch_device(
+                torch.from_numpy(hnsw_card[1][:64]).cuda(), 10),
+             cuda_topk.launches, 1)):
+        for _ in range(4):
+            before = counter()
+            search()
+            assert counter() == before + per
+    site = ix["ivf"]._graphs.sites()[-1]
+    (g,) = site.graphs.values()
+    assert [(key, n) for _, key, n in g.launches] == [("LAUNCHES", 1)]
+
+
+@pytest.mark.parametrize("cfg", [{}, dict(nav_inline_dp=32),
+                                 dict(nav_dtype="int8", nav_inline_dp=None),
+                                 dict(route_mode="beam")])
+def test_hnsw_graph_replay_equals_eager(hnsw_card, cfg):
+    """The scan-routed search with the classic beam, the inline beam and
+    the int8 table, and the beam route: replays equal the eager search."""
+    x, q, _ = hnsw_card
+    card, _ = _hnsw_pair(hnsw_card, **cfg)
+    qd = torch.from_numpy(q).cuda()
+    first, replay, eager = _first_replay_eager(
+        lambda: card.search_batch_device(qd, 10))
+    _bitwise(first, eager)
+    _bitwise(replay, eager)
+    assert (card._device_cache["inline"] is not None) == (
+        cfg.get("nav_inline_dp") == 32)
+    assert card._graphs.sites()
+
+
+def test_graph_search_after_add_equals_a_fresh_index(graph_indexes):
+    """Search, add, search: the graphs of the old state are dropped, and
+    the result equals a fresh index's eager search over the same rows."""
+    import vers_tpu_torch as vt
+    from vers_tpu_torch import graphs
+
+    ix = graph_indexes
+
+    def search(idx, q, k=10):  # IVF at nprobe 2: 0 runs eagerly
+        if isinstance(idx, vt.IVFFlatIndex):
+            return idx.search_batch_device(q, k, 2)
+        return idx.search_batch_device(q, k)
+
+    ivf = vt.IVFFlatIndex.from_numpy(
+        32, ix["ivf"]._values, ix["ivf"]._centroids, ix["ivf"]._assignments,
+        ix["ivf"]._ids, device="cuda")
+    forest = vt.ANNIndex.from_numpy(40, ix["forest"]._trees,
+                                    ix["forest"]._values, ix["forest"]._ids,
+                                    device="cuda")
+    for idx, q, new in ((ivf, ix["qd"], ix["x"][3] * 1.001),
+                        (forest, ix["fqd"], ix["fx"][3] * 1.001)):
+        for _ in range(3):
+            search(idx, q)
+        assert idx._graphs.sites()
+        n = len(idx._values)
+        idx.add(new, n)
+        assert not idx._graphs.sites()
+        for _ in range(3):  # the new state's first call, capture, replay
+            got = search(idx, q)
+        if isinstance(idx, vt.IVFFlatIndex):
+            fresh = vt.IVFFlatIndex.from_numpy(
+                32, idx._values, idx._centroids, idx._assignments, idx._ids,
+                device="cuda")
+        else:
+            fresh = vt.ANNIndex.from_numpy(40, idx._trees, idx._values,
+                                           idx._ids, device="cuda")
+        with graphs.disabled():
+            want = search(fresh, q)
+            own = search(idx, q)
+        _bitwise(got, own)
+        _check(got, want)
+        found = search(idx, torch.from_numpy(new[None]).cuda(), 1)
+        assert int(found[1][0, 0]) == n
+
+
+@pytest.mark.parametrize("kind", ["ivf", "forest", "hnsw"])
+def test_sharded_graphs_on_one_card_equal_eager_and_the_twin(
+        graph_indexes, hnsw_card, kind):
+    """Four shards on one card, each replaying its own graphs on its
+    stream: equal to the same search eagerly, bit for bit, and to the
+    single-device twin."""
+    import vers_tpu_torch as vt
+
+    ix = graph_indexes
+    mesh = _mesh4(torch.device("cuda"))
+    if kind == "ivf":
+        single = ix["ivf"]
+        blocks = np.array_split(np.arange(len(ix["x"])), 4)
+        sharded = vt.ShardedIVFFlatIndex(32, single._centroids,
+                                         [ix["x"][b] for b in blocks], blocks,
+                                         mesh=mesh)
+        q = ix["qd"]
+        search = lambda: sharded.search_batch(q, 10, nprobe=2)  # noqa: E731
+        # the twin over the shards' own bins (numpy's difference form)
+        bins = np.concatenate([sharded._assign(s) for s in range(4)])
+        members = [np.flatnonzero(bins == j).tolist() for j in range(32)]
+        twin = vt.IVFFlatIndex(32, ix["x"], single._centroids, bins, members,
+                               device="cuda").search_batch(q, 10, nprobe=2)
+    elif kind == "forest":
+        sharded = vt.ShardedANNIndex(ix["forest"], mesh=mesh)
+        q = ix["fqd"]
+        search = lambda: sharded.search_batch(q, 10, 1)  # noqa: E731
+        twin = ix["forest"].search_batch(q, 10, 1)
+    else:
+        card, _ = _hnsw_pair(hnsw_card, route_mode="beam")
+        sharded = vt.ShardedHNSWIndex(card, mesh=mesh)
+        q = torch.from_numpy(hnsw_card[1]).cuda()
+        search = lambda: sharded.search_batch(q, 10)  # noqa: E731
+        twin = card.search_batch(q, 10)
+    first, replay, eager = _first_replay_eager(search)
+    for got in (first, replay):
+        np.testing.assert_array_equal(got.ids, eager.ids)
+        np.testing.assert_array_equal(got.distances.view(np.int32),
+                                      eager.distances.view(np.int32))
+    assert all(g.sites() for g in sharded._graphs)
+    _check((replay.distances, replay.ids), (twin.distances, twin.ids))
+
+
+def test_two_threads_search_one_index_at_once(graph_indexes):
+    """Two host threads replay one IVF index's graph at once, each on its
+    own stream with its own queries: each gets the eager answer to its
+    own queries (a cache's load, replay and take are one thread's at a
+    time)."""
+    import threading
+
+    from vers_tpu_torch import graphs
+
+    ivf = graph_indexes["ivf"]
+    qs = [graph_indexes["qd"], torch.roll(graph_indexes["qd"], 11, 0) * 1.0]
+    with graphs.disabled():
+        want = [ivf.search_batch_device(q, 10, 2) for q in qs]
+    for _ in range(2):  # the first call and the capture
+        ivf.search_batch_device(qs[0], 10, 2)
+    got = [[], []]
+
+    def worker(i):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            for _ in range(50):
+                got[i].append(ivf.search_batch_device(qs[i], 10, 2))
+        stream.synchronize()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i in (0, 1):
+        assert len(got[i]) == 50
+        for g in got[i]:
+            _bitwise(g, want[i])

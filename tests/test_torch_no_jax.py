@@ -28,7 +28,7 @@ def test_no_jax_or_vers_tpu_imports():
     assert {"lsh.py", "rpforest.py", "forest_shared.py", "time_kernel_b.py",
             "chip_smoke.py", "beam.py", "beam_inline.py", "hnsw_build.py",
             "hnsw.py", "config.py", "compat.py", "demo.py", "__main__.py",
-            "version.py", "logging.py"} <= {f.name for f in files}
+            "version.py", "logging.py", "graphs.py"} <= {f.name for f in files}
     # the native IO: the port's own copy of the C++ source
     assert (PKG / "native" / "__init__.py") in files
     source = PKG / "native" / "io_native.cpp"
@@ -51,7 +51,7 @@ def test_import_loads_neither_jax_nor_vers_tpu():
     # may load jax at startup on its own
     code = (
         "import sys; before = set(sys.modules); "
-        "import vers_tpu_torch, vers_tpu_torch.ops.binned, "
+        "import vers_tpu_torch, vers_tpu_torch.ops.binned, vers_tpu_torch.graphs, "
         "vers_tpu_torch.ops.kmeans, vers_tpu_torch.utils.parity, "
         "vers_tpu_torch.index.lsh, vers_tpu_torch.ops.forest_shared, "
         "vers_tpu_torch.index.hnsw, vers_tpu_torch.ops.beam, "

@@ -13,7 +13,10 @@ ef = 32 with the default inline beam and with the classic gather beam
 on the first 2048 queries, and the sharded IVF (nprobe 2), forest (1
 probe) and flat searches over a mesh of 4 shards on the card -- it
 times ``--reps`` calls with CUDA events, profiles ``--reps`` more with
-``torch.profiler``, and prints per call:
+``torch.profiler``, and prints per call (every IVF, forest and HNSW
+path, sharded or not, twice: as the package runs it, replaying its CUDA
+graphs (``vers_tpu_torch.graphs``), and eagerly, "<path> eager", under
+``graphs.disabled()``):
 
   * the wall time, unprofiled (every path timed before the first
     profiler run) and under the profiler (ms);
@@ -21,20 +24,40 @@ times ``--reps`` calls with CUDA events, profiles ``--reps`` more with
     intervals, so overlapping or nested records count once (ms);
   * the device idle share: 1 - busy / profiled window, where the window
     runs from the first call's start to a final synchronize;
-  * the device activities with the most time, by name.
+  * the device activities with the most time, by name;
+
+and, for each graph-replayed IVF and forest path, the chained rate:
+``--depth`` calls enqueued back to back and drained once (the pipelined
+serving model of ``docs/SERVING.md``) against as many calls each
+drained, on the host clock (ms a call). IVF's adaptive nprobe=0 runs
+eagerly in the package, so it has no eager twin here.
+
+``--traffic`` then replays traces of batch shapes through IVF (nprobe
+2), the forest (1 probe) and HNSW (the inline beam), each call drained,
+as the package runs them and eagerly, on one index each with its graphs
+dropped before every trace: one shape (repeated, as a server that pads
+its batches sends), 4 shapes and 8 shapes (drawn at random from
+Q, Q/2, ... or Q, 7Q/8, ...), and a new shape at every call. It prints
+each call's outcome (eager, capture or replay; the hit rate is the
+share of replays), the trace's wall time both ways, the median call of
+each outcome, and the pool bytes after the trace; the 8-shape trace
+runs again with ``graphs.MAX_SITES`` halved.
 
 Usage, from the repository root:
 
     python3 tools/profile_torch_search.py [--n N] [--dim D] [--queries Q]
         [--clusters K] [--top-k K] [--reps R] [--top T] [--out PATH]
-        [--paths PREFIX,...] [--hnsw-io]
+        [--paths PREFIX,...] [--hnsw-io] [--depth D] [--traffic]
+        [--trace-calls N]
 
 ``--paths`` keeps the paths whose names start with one of the prefixes
 (``hnsw`` alone builds only the HNSW index; ``sharded`` builds the IVF
 index and the forest it shards); ``--hnsw-io`` also times
 ``save_index`` and ``load_index`` of the HNSW index (host clock).
 ``--out`` writes every path's numbers and all of its device activities
-as JSON. Needs one CUDA card; exits 2 without one.
+as JSON. Needs one CUDA card; exits 2 without one. Every path runs in
+one process, and every index keeps its graphs to the end, as a server
+would.
 """
 
 import argparse
@@ -50,8 +73,10 @@ WINDOW = "profiled_calls"
 
 
 def cuda_ms(torch, fn, reps):
-    """Mean milliseconds per call on the card's timeline, after one
-    warm-up call."""
+    """Mean milliseconds per call on the card's timeline, after two
+    warm-up calls (a search's first call runs eagerly, its second
+    captures its CUDA graph)."""
+    fn()
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -103,6 +128,124 @@ def device_profile(events, reps, device_type):
     )
 
 
+def chained_ms(torch, fn, depth, rounds=3):
+    """(ms a call with ``depth`` calls chained and one drain, ms a call
+    each drained), host clock, the better of ``rounds`` rounds each,
+    the two interleaved."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    chained, synced = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(depth):
+            fn()
+        torch.cuda.synchronize()
+        chained.append((time.perf_counter() - t0) / depth * 1e3)
+        t0 = time.perf_counter()
+        for _ in range(depth):
+            fn()
+            torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) / depth * 1e3)
+    return min(chained), min(synced)
+
+
+def traces(q_n, calls, seed=0):
+    """Name -> the query counts of ``calls`` calls (see the module
+    docstring)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    halves = [q_n >> i for i in range(4)]
+    eighths = [q_n * i // 8 for i in range(8, 0, -1)]
+    fresh = rng.choice(np.arange(q_n // 8, q_n + 1), size=calls,
+                       replace=False)
+    return {"one shape": [q_n] * calls,
+            "4 shapes": [int(v) for v in rng.choice(halves, size=calls)],
+            "8 shapes": [int(v) for v in rng.choice(eighths, size=calls)],
+            "a new shape each call": [int(v) for v in fresh]}
+
+
+def run_trace(torch, graphs, cache, search, queries, counts):
+    """One trace through ``search(q)`` as the package runs it, then
+    eagerly, each call drained: the outcome of each graph call
+    (``cache.site``), wall seconds both ways, the median ms of each
+    outcome and of the eager calls, the pool bytes after it."""
+    import statistics
+
+    outcomes = []
+    real = cache.site
+
+    def site(*args, **kwargs):
+        s = real(*args, **kwargs)
+        if s is not None or graphs.enabled():
+            outcomes.append("eager" if s is None else
+                            "replay" if s.graphs else "capture")
+        return s
+
+    cache.invalidate()
+    cache.site = site
+    times = {"eager": [], "capture": [], "replay": [], "eager mode": []}
+    try:
+        walls = {}
+        for mode in ("graph", "eager"):
+            total = 0.0
+            for n in counts:
+                q = queries[:n]
+                t0 = time.perf_counter()
+                if mode == "graph":
+                    search(q)
+                else:
+                    with graphs.disabled():
+                        search(q)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                total += dt
+                key = outcomes[-1] if mode == "graph" else "eager mode"
+                times[key].append(dt * 1e3)
+            walls[mode] = total
+    finally:
+        del cache.site
+    calls = len(counts)
+    return dict(
+        calls=calls, shapes=len(set(counts)),
+        outcomes={k: outcomes.count(k) for k in ("eager", "capture", "replay")},
+        hit_rate=outcomes.count("replay") / calls,
+        graph_s=walls["graph"], eager_s=walls["eager"],
+        median_ms={k: statistics.median(v) for k, v in times.items() if v},
+        sites=len(cache.sites()), pool_bytes=cache.pool_bytes())
+
+
+def traffic(torch, graphs, searches, q_n, calls):
+    """``run_trace`` of every trace (``traces``) through each of
+    ``searches`` (name -> (search(q), its index's GraphCache, the
+    queries)); returns name -> trace -> row."""
+    out = {}
+    for name, (search, cache, queries) in searches.items():
+        n = min(q_n, queries.shape[0])
+        rows = out[name] = {}
+        for trace, counts in traces(n, calls).items():
+            rows[trace] = run_trace(torch, graphs, cache, search, queries,
+                                    counts)
+        default = graphs.MAX_SITES
+        graphs.MAX_SITES = default // 2
+        try:
+            rows[f"8 shapes, MAX_SITES={default // 2}"] = run_trace(
+                torch, graphs, cache, search, queries,
+                traces(n, calls)["8 shapes"])
+        finally:
+            graphs.MAX_SITES = default
+        cache.invalidate()
+        for trace, r in rows.items():
+            print(f"== traffic {name}, {trace}: {r['calls']} calls of "
+                  f"{r['shapes']} shapes, {r['outcomes']}, hit rate "
+                  f"{r['hit_rate']:.3f}; graph {r['graph_s']:.3f} s, eager "
+                  f"{r['eager_s']:.3f} s; median ms {r['median_ms']}; "
+                  f"{r['sites']} sites, pool {r['pool_bytes'] / 1e9:.3f} GB",
+                  flush=True)
+    return out
+
+
 def profile_path(torch, fn, reps, wall):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -133,6 +276,12 @@ def main(argv=None):
                     help="comma-separated name prefixes of the paths to run")
     ap.add_argument("--hnsw-io", action="store_true",
                     help="also time the HNSW index's save_index + load_index")
+    ap.add_argument("--depth", type=int, default=8,
+                    help="calls chained before one drain (the chained rate)")
+    ap.add_argument("--traffic", action="store_true",
+                    help="also replay the traces of batch shapes")
+    ap.add_argument("--trace-calls", type=int, default=48,
+                    help="calls in each trace")
     args = ap.parse_args(argv)
 
     import torch
@@ -142,6 +291,7 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     import vers_tpu_torch as vt
+    from vers_tpu_torch import graphs
     from vers_tpu_torch.utils.data import synthetic_gaussian
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -243,6 +393,15 @@ def main(argv=None):
             finally:
                 path.unlink(missing_ok=True)
             print(f"hnsw save/load: {extra['hnsw_io']}", flush=True)
+    def eager(fn):
+        def run():
+            with graphs.disabled():
+                return fn()
+        return run
+
+    for name in [n for n in paths
+                 if not n.startswith(("flat", "sharded flat", "ivf nprobe=0"))]:
+        paths[f"{name} eager"] = eager(paths[name])
     torch.cuda.synchronize()
 
     def reps_of(name):
@@ -254,6 +413,16 @@ def main(argv=None):
     # costs the host more, which a search of ~1000 launches shows
     walls = {name: cuda_ms(torch, fn, reps_of(name))
              for name, fn in paths.items()}
+    for name, fn in paths.items():
+        if (name.startswith(("ivf", "forest")) and not name.endswith("eager")
+                and not name.startswith("ivf nprobe=0")):
+            chained, synced = chained_ms(torch, fn, args.depth)
+            extra.setdefault("chained", {})[name] = dict(
+                depth=args.depth, chained_ms=chained, synced_ms=synced,
+                chained_qps=args.queries / chained * 1e3)
+            print(f"== {name}: {args.depth} calls chained {chained:.3f} ms a "
+                  f"call ({args.queries / chained * 1e3:.0f} qps), each "
+                  f"drained {synced:.3f} ms a call", flush=True)
     results = {}
     for name, fn in paths.items():
         reps = reps_of(name)
@@ -266,6 +435,20 @@ def main(argv=None):
               f"({reps} calls; {time.perf_counter() - t0:.1f} s)", flush=True)
         for a in r["activities"][: args.top]:
             print(f"    {a['ms']:9.3f} ms  x{a['calls']:6.1f}  {a['name'][:90]}")
+    if args.traffic:
+        searches = {}
+        if wanted("ivf"):
+            searches["ivf nprobe=2"] = (
+                lambda q: ivf.search_batch_device(q, k, 2), ivf._graphs, qd)
+        if wanted("forest"):
+            searches["forest probes_per_tree=1"] = (
+                lambda q: forest.search_batch_device(q, k, 1),
+                forest._graphs, qd)
+        if wanted("hnsw"):
+            searches["hnsw ef=32 inline"] = (
+                lambda q: hnsw.search_batch_device(q, k), hnsw._graphs, hqd)
+        extra["traffic"] = traffic(torch, graphs, searches, args.queries,
+                                   args.trace_calls)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -58,13 +58,23 @@ def host_wait(t: torch.Tensor) -> None:
 # a mesh launch from several threads at once.
 COUNT_LOCK = threading.Lock()
 
+# Per thread: while ``graphs`` captures a CUDA graph, ``tally`` holds the
+# launches the capture records, which have not run: (id(counters), key)
+# -> [counters, key, n]. Each replay of the graph counts them.
+CAPTURE = threading.local()
 
-def count(counters: dict, key: str) -> None:
-    """Add one to ``counters[key]`` (0 when missing) under COUNT_LOCK:
+
+def count(counters: dict, key: str, n: int = 1) -> None:
+    """Add ``n`` to ``counters[key]`` (0 when missing) under COUNT_LOCK:
     ``counters`` is a counting module's ``globals()`` or a dict of
-    counts."""
+    counts. Inside a graph capture on this thread the launch is only
+    recorded, into ``CAPTURE.tally``: its replays count it."""
+    tally = getattr(CAPTURE, "tally", None)
     with COUNT_LOCK:
-        counters[key] = counters.get(key, 0) + 1
+        if tally is None:
+            counters[key] = counters.get(key, 0) + n
+        else:
+            tally.setdefault((id(counters), key), [counters, key, 0])[2] += n
 
 
 def round_up(x: int, m: int) -> int:

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.config import HNSWConfig
 from vers_tpu_torch.core import (
     as_query_matrix,
@@ -175,6 +176,7 @@ class HNSWIndex(Index):
         self._rng = np.random.default_rng(self.config.seed)
         self.dim = 0
         self._device_cache = None
+        self._graphs = graphs.GraphCache()
         # wave-build fast path: per-layer (member_ids, adj, dist) numpy
         # triples pending conversion into self.layers dicts; the device
         # query path consumes them directly and the host dicts
@@ -369,6 +371,7 @@ class HNSWIndex(Index):
             self.dim = emb.shape[0]
         self._set_vec(embedding_id, emb)
         self._device_cache = None
+        self._graphs.invalidate()
 
         top_layer = self.layers[-1]
         insertion_layer = self._get_insertion_layer()
@@ -605,7 +608,9 @@ class HNSWIndex(Index):
         candidate sets, and in-place patches of the touched device
         adjacency rows — no corpus download, no full-graph
         materialization, no re-upload. Any other case (arbitrary ids,
-        dict-graph index) takes the reference-parity host path."""
+        dict-graph index) takes the reference-parity host path. Either
+        drops the search graphs."""
+        self._graphs.invalidate()
         emb = np.asarray(embedding, dtype=np.float32).reshape(-1)
         self._last_add_patch = None  # set by the fast path below
         if (
@@ -1139,21 +1144,40 @@ class HNSWIndex(Index):
         )
         return self._device_cache
 
-    def _search_batch_rows(self, queries, top_k: int):
+    def _search_batch_rows(self, queries, top_k: int, ids: bool = False):
         """Batched beam search returning (dists (Q,k) f32, COMPACT row
         indices (Q,k) int64, -1 = empty slot) on the index's device —
         id mapping is left to the callers so the host path can use
-        int64 external ids."""
+        int64 external ids. With ``ids``: (dists, external ids (Q,k)
+        int32) by the device id map, which must fit int32 (ValueError).
+
+        On a card the search replays CUDA graphs (``graphs``; see
+        ``ops/beam``): the prelude, chunks of the beam's steps, between
+        which the host reads the beam's stop flag as the eager loop
+        does, the tail (the rescore) and, with ``ids``, the id map."""
         qdev = as_query_matrix(queries, device=self.device)
         q_n = qdev.shape[0]
         cache = self._ensure_device_cache()
+        idmap = cache["node_ids_dev"]
+        if ids and idmap is None:
+            raise ValueError(
+                "external ids exceed int32 range; the device-resident "
+                "path cannot map them — use search_batch()"
+            )
+        last = max(len(cache["node_ids"]) - 1, 0)
+
+        def map_ids(bd, bi):
+            out = torch.where(bi >= 0, idmap[bi.clamp(0, last)], -1)
+            return bd, out.to(torch.int32)
+
         if cache["entry"] is None or len(self.layers) < 2:
             # quirk parity: no entrypoint / single layer -> no results
-            return (
+            out = (
                 torch.full((q_n, top_k), float("inf"), device=self.device),
                 torch.full((q_n, top_k), -1, dtype=torch.int64,
                            device=self.device),
             )
+            return map_ids(*out) if ids else out
         ef = max(self.ef_search, top_k)
         ef_route = getattr(self.config, "ef_route", None)
         ef_r = max(1, min(ef_route, ef)) if ef_route else ef
@@ -1163,17 +1187,20 @@ class HNSWIndex(Index):
         steps_cap = getattr(self.config, "beam_steps", None)
         rescore = cache["vecs_nav"].dtype != cache["vecs"].dtype
         route_mode = getattr(self.config, "route_mode", "scan")
+        seeds = getattr(self.config, "route_seeds", 0) or min(ef, 8)
+        refine = getattr(self.config, "nav_inline_refine", None)
+        site = self._graphs.site(
+            ("hnsw", top_k, route_mode, ef, ef_r, expand, steps_cap, seeds,
+             refine), qdev, cache)
         if route_mode == "scan" and cache.get("l1_tab") is not None:
             # the routing scan over the layer-1 members (kernel A on the
             # card) + multi-seeded layer-0 beam + f32 rescore
-            seeds = getattr(self.config, "route_seeds", 0) or min(ef, 8)
             if cache.get("inline") is not None:
                 from vers_tpu_torch.ops.beam_inline import (
                     full_descent_scan_inline,
                 )
 
                 inline = cache["inline"]
-                refine = getattr(self.config, "nav_inline_refine", None)
                 if refine is None:
                     refine = 2 * ef  # exact-retention default
                 if steps_cap is None:
@@ -1181,7 +1208,7 @@ class HNSWIndex(Index):
                     # steps expand ef candidates; the lockstep loop
                     # otherwise runs until every query converges
                     steps_cap = max(1, -(-ef // expand))
-                return full_descent_scan_inline(
+                out = full_descent_scan_inline(
                     qdev,
                     cache["vecs"],
                     cache["vecs_nav"],
@@ -1198,58 +1225,59 @@ class HNSWIndex(Index):
                     expand=expand,
                     steps_cap=steps_cap,
                     refine_r=int(refine),
+                    site=site,
                 )
-            return full_descent_scan(
+            else:
+                out = full_descent_scan(
+                    qdev,
+                    cache["vecs"],
+                    cache["vecs_nav"],
+                    cache["adjs"][0],
+                    cache["l1_tab"],
+                    cache["l1_members"],
+                    cache["n1"],
+                    top_k=top_k,
+                    ef=ef,
+                    seeds=seeds,
+                    rescore=rescore,
+                    expand=expand,
+                    steps_cap=steps_cap,
+                    scales=cache["nav_scales"],
+                    site=site,
+                )
+        else:
+            # the whole descent: routing beams + layer-0 beam + f32 rescore
+            out = full_descent(
                 qdev,
                 cache["vecs"],
                 cache["vecs_nav"],
-                cache["adjs"][0],
-                cache["l1_tab"],
-                cache["l1_members"],
-                cache["n1"],
+                cache["adjs"][: len(self.layers) - 1],
+                torch.full((q_n,), cache["entry"], dtype=torch.int64,
+                           device=self.device),
                 top_k=top_k,
                 ef=ef,
-                seeds=seeds,
+                ef_r=ef_r,
                 rescore=rescore,
                 expand=expand,
                 steps_cap=steps_cap,
                 scales=cache["nav_scales"],
+                site=site,
             )
-        # the whole descent: routing beams + layer-0 beam + f32 rescore
-        return full_descent(
-            qdev,
-            cache["vecs"],
-            cache["vecs_nav"],
-            cache["adjs"][: len(self.layers) - 1],
-            torch.full((q_n,), cache["entry"], dtype=torch.int64,
-                       device=self.device),
-            top_k=top_k,
-            ef=ef,
-            ef_r=ef_r,
-            rescore=rescore,
-            expand=expand,
-            steps_cap=steps_cap,
-            scales=cache["nav_scales"],
-        )
+        if not ids:
+            return out
+        # the id map, a graph of the same site
+        return graphs.run(site, "ids", map_ids, *out)
 
     def search_batch_device(self, queries, top_k: int):
         """Device-resident search: (dists (Q,k) f32, external ids (Q,k)
-        int32) tensors on the index's device, no host transfer.
+        int32) tensors on the index's device, no host transfer; on a
+        card the host reads only the beam's stop flag, once every few
+        steps (see ``_search_batch_rows``).
 
         External ids must fit in int32 (the device id map is int32);
         raises ValueError otherwise — use ``search_batch``, which maps
         rows to int64 ids on the host."""
-        bd, bi = self._search_batch_rows(queries, top_k)
-        cache = self._ensure_device_cache()
-        idmap = cache["node_ids_dev"]
-        if idmap is None:
-            raise ValueError(
-                "external ids exceed int32 range; the device-resident "
-                "path cannot map them — use search_batch()"
-            )
-        n_nodes = len(cache["node_ids"])
-        ids = torch.where(bi >= 0, idmap[bi.clamp(0, max(n_nodes - 1, 0))], -1)
-        return bd, ids.to(torch.int32)
+        return self._search_batch_rows(queries, top_k, ids=True)
 
     def search_batch(self, queries, top_k: int) -> SearchResult:
         bd, bi = self._search_batch_rows(queries, top_k)

@@ -28,6 +28,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.config import IVFFlatConfig
 from vers_tpu_torch.core import as_query_matrix, resolve_device, round_up
 from vers_tpu_torch.index.base import Index
@@ -38,11 +39,13 @@ from vers_tpu_torch.ops.binned import (
     adaptive_probe_depth,
     adaptive_probes,
     binned_topk_kernel,
+    kernel_plan,
     layout_insert,
     make_layout,
     make_layout_device,
     slacken_layout,
 )
+from vers_tpu_torch.ops.cuda_binned import scans_on_host
 
 
 class IVFFlatIndex(Index):
@@ -69,6 +72,7 @@ class IVFFlatIndex(Index):
         self._values_dev = None
         self._assign_dev = None
         self._n_valid = self._values.shape[0]
+        self._graphs = graphs.GraphCache()
 
     @classmethod
     def from_numpy(cls, num_centroids: int, values, centroids, assignments,
@@ -169,6 +173,7 @@ class IVFFlatIndex(Index):
         idx.dim = int(d)
         idx._layout = make_layout_device(data_dev, assign_dev, num_clusters, n)
         idx._centroids_dev = centroids_dev
+        idx._graphs = graphs.GraphCache()
         return idx
 
     def _materialize_host(self):
@@ -219,7 +224,9 @@ class IVFFlatIndex(Index):
 
         An existing cluster-major layout is patched in place: on first
         add it re-packs once WITH per-bin slack (``slacken_layout``),
-        then each add writes into the assigned bin's slack."""
+        then each add writes into the assigned bin's slack. The search
+        graphs are dropped: they read the layout as it was."""
+        self._graphs.invalidate()
         emb = np.asarray(embedding, dtype=np.float32).reshape(-1)
         cent = self._centroids_host()
         d2 = np.sum((cent - emb[None, :]) ** 2, axis=1)
@@ -252,6 +259,7 @@ class IVFFlatIndex(Index):
         rebuild. Caller vec_ids are ignored (same quirk parity as
         ``add``: new rows get sequential ids)."""
         self._materialize_host()
+        self._graphs.invalidate()
         embs = np.asarray(embeddings, dtype=np.float32)
         if embs.ndim == 1:
             embs = embs[None]
@@ -273,7 +281,17 @@ class IVFFlatIndex(Index):
     def search_batch_device(self, queries, top_k: int,
                             nprobe: Optional[int] = None):
         """Device-resident search: (dists (Q, k) f32, ids (Q, k) int32)
-        tensors on the index's device, no host transfer.
+        tensors on the index's device, no host transfer: on a card the
+        search enqueues without waiting for it, so calls chain and the
+        caller drains once (the pipelined-serving model of
+        ``docs/SERVING.md``). A fixed nprobe runs as one CUDA graph
+        (``graphs``: a configuration's second call captures it, later
+        calls replay it). The adaptive depth (``nprobe=0``) runs
+        eagerly: it is bound by the card, so a graph gains nothing, and
+        a graph would hold its working set (the widest of the searches,
+        up to p_max probes a query) in a pool nothing else can use. The
+        plain engine (``engine="xla"``) and top_k > 128 read their work
+        items on the host and run eagerly.
 
         ``nprobe=0`` (the config default) selects per-query adaptive
         probe depth — the batched analogue of the reference's cluster
@@ -284,18 +302,14 @@ class IVFFlatIndex(Index):
         layout = self._ensure_layout()
         qdev = as_query_matrix(queries, self.device)
         nprobe = nprobe if nprobe is not None else self.config.nprobe
-        probes = None
+        p_max = None
         if nprobe == 0:
             # worst-case depth comes from OCCUPIED sizes: a slacked
             # layout's sizes_host holds per-bin capacities
             p_max = adaptive_probe_depth(
                 layout.get("true_sizes_host", layout["sizes_host"]), top_k
             )
-            probes = adaptive_probes(
-                qdev, self._centroids_dev, layout["size"],
-                layout["num_bins"], p_max, top_k,
-            )
-            nprobe = int(probes.shape[1])
+            nprobe = min(p_max, layout["num_bins"])
         else:
             nprobe = max(1, min(nprobe, self.num_centroids))
         engine = self.config.engine
@@ -306,13 +320,29 @@ class IVFFlatIndex(Index):
         if engine == "xla" and self.config.precision != "highest":
             raise ValueError("engine='xla' exists only at precision='highest' "
                              "(float32)")
-        # dedup=False: every row lives in exactly ONE cluster and a
-        # query's probes are distinct clusters, so probe ranks cover
-        # disjoint ids
-        return binned_topk_kernel(
-            qdev, self._centroids_dev, nprobe, layout, top_k=top_k,
-            probes=probes, dedup=False, plain=engine == "xla",
-        )
+        plain = engine == "xla"
+        centroids = self._centroids_dev
+        # the padded corpus (cached on the layout), made here on the
+        # caller's stream rather than in a graph's warm-up
+        kernel_plan(layout, qdev.shape[0], nprobe, top_k)
+
+        def search(q):
+            probes = None
+            if p_max is not None:
+                probes = adaptive_probes(q, centroids, layout["size"],
+                                         layout["num_bins"], p_max, top_k)
+            # dedup=False: every row lives in exactly ONE cluster and a
+            # query's probes are distinct clusters, so probe ranks cover
+            # disjoint ids
+            return binned_topk_kernel(
+                q, centroids, nprobe, layout, top_k=top_k, probes=probes,
+                dedup=False, plain=plain,
+            )
+
+        eager = scans_on_host(top_k, plain) or p_max is not None
+        site = None if eager else self._graphs.site(("ivf", top_k, nprobe),
+                                                    qdev, layout)
+        return graphs.run(site, "search", search, qdev)
 
     def search_batch(self, queries, top_k: int,
                      nprobe: Optional[int] = None) -> SearchResult:

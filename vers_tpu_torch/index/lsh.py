@@ -43,6 +43,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.config import LSHConfig
 from vers_tpu_torch.core import (
     as_query_matrix,
@@ -56,6 +57,7 @@ from vers_tpu_torch.io.bincode import Reader, Writer
 from vers_tpu_torch.models.candidates import SearchResult
 from vers_tpu_torch.ops import rpforest
 from vers_tpu_torch.ops.binned import adaptive_probe_depth
+from vers_tpu_torch.ops.cuda_binned import scans_on_host
 from vers_tpu_torch.ops.forest_shared import (
     forest_search_shared,
     shared_tree_tables,
@@ -125,6 +127,7 @@ class ANNIndex(Index):
         self._shared = None    # shared-corpus device state
         self._sizes = None     # leaf sizes per tree, until the trees change
         self._ids_dev = None
+        self._graphs = graphs.GraphCache()
         # seconds of the last build_index, host and device apart
         self.build_seconds: dict = {}
 
@@ -306,7 +309,8 @@ class ANNIndex(Index):
         the vector, then insert into every tree; when a leaf overflows
         max_node_size, rebuild JUST that leaf into a subtree
         (`lsh.rs:236-246` -> `build_a_tree`). Every other bucket is
-        untouched."""
+        untouched. The search graphs are dropped."""
+        self._graphs.invalidate()
         emb = np.asarray(embedding, dtype=np.float32).reshape(1, -1)
         internal = self._n
         if internal >= self._buf.shape[0]:
@@ -440,6 +444,7 @@ class ANNIndex(Index):
     def _rebuild_dirty(self) -> None:
         if not self._dirty_trees:
             return
+        self._graphs.invalidate()
         n, d = self._values.shape
         dev = self.device
         data = torch.zeros((round_up(max(n, 1), 128), d), dtype=torch.float32,
@@ -473,25 +478,15 @@ class ANNIndex(Index):
     ):
         """Device-resident variant of ``search_batch``: returns
         (dists (Q,k) f32, external ids (Q,k) int32) tensors on the
-        index's device with no host transfer.
+        index's device with no host transfer: on a card the search and
+        its id map enqueue without waiting for it, as one CUDA graph
+        (see ``_search_batch_internal``), so calls chain and the caller
+        drains once.
 
         External ids must fit in int32; raises ValueError otherwise
         (use ``search_batch``, which maps ids on the host in int64)."""
-        dists, internal = self._search_batch_internal(
-            queries, top_k, probes_per_tree
-        )
-        idmap = self._ids_device()
-        if idmap is None:
-            raise ValueError(
-                "external ids exceed int32 range; the device-resident "
-                "path cannot map them — use search_batch()"
-            )
-        ext = torch.where(
-            internal >= 0,
-            idmap[torch.clamp(internal, 0, idmap.shape[0] - 1).to(torch.int64)],
-            -1,
-        )
-        return dists, ext
+        return self._search_batch_internal(queries, top_k, probes_per_tree,
+                                           ids=True)
 
     def search_batch(
         self, queries, top_k: int, probes_per_tree: Optional[int] = None
@@ -550,13 +545,21 @@ class ANNIndex(Index):
                         q_pad_rank=q_pad_rank)
 
     def _search_batch_internal(
-        self, queries, top_k: int, probes_per_tree: Optional[int] = None
+        self, queries, top_k: int, probes_per_tree: Optional[int] = None,
+        ids: bool = False,
     ):
         """Batched search on the SHARED-corpus device state
         (`ops/forest_shared`): multiprobe descent + per-tree packed scan
         (one tree's gathered view live at a time) + dedup merge. Memory
         parity with the reference (`lsh.rs:44,53`): the corpus lives on
-        the device exactly once. Returns (dists, internal rows)."""
+        the device exactly once. Returns (dists, internal rows), or with
+        ``ids`` (dists, external ids int32).
+
+        On a card the whole search is one CUDA graph (``graphs``: a
+        configuration's second call captures it), its view buffer in the
+        graph's pool, and the id map another of the same configuration;
+        the plain engine (``engine="xla"``) and top_k > 128 read their
+        work items on the host and run eagerly."""
         self._rebuild_dirty()
         qdev = as_query_matrix(queries, self.device)
         if probes_per_tree is None:
@@ -569,13 +572,35 @@ class ANNIndex(Index):
         if engine not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown engine {engine!r}")
         sh, plan = self._shared_plan(qdev.shape[0], top_k, n_probes)
-        return forest_search_shared(
-            qdev, sh["coeffs"], sh["consts"], sh["cbase"],
-            sh["splits"], sh["buckets"], sh["offsets"], sh["sizes_dev"],
-            sh["corpus_pad"], sh["xx"], sh["src"], sh["rbin"], sh["g_first"],
-            n_probes=n_probes, num_bins=sh["num_bins"], top_k=top_k,
-            deficit_k=deficit_k, plain=engine == "xla", **plan,
-        )
+        idmap = self._ids_device() if ids else None
+        if ids and idmap is None:
+            raise ValueError(
+                "external ids exceed int32 range; the device-resident "
+                "path cannot map them — use search_batch()"
+            )
+        plain = engine == "xla"
+
+        def search(q):
+            return forest_search_shared(
+                q, sh["coeffs"], sh["consts"], sh["cbase"],
+                sh["splits"], sh["buckets"], sh["offsets"], sh["sizes_dev"],
+                sh["corpus_pad"], sh["xx"], sh["src"], sh["rbin"],
+                sh["g_first"], n_probes=n_probes, num_bins=sh["num_bins"],
+                top_k=top_k, deficit_k=deficit_k, plain=plain, **plan,
+            )
+
+        def map_ids(dists, internal):
+            return dists, torch.where(
+                internal >= 0,
+                idmap[torch.clamp(internal, 0, idmap.shape[0] - 1).to(
+                    torch.int64)],
+                -1,
+            )
+
+        site = None if scans_on_host(top_k, plain) else self._graphs.site(
+            ("forest", top_k, n_probes, deficit_k), qdev, sh)
+        out = graphs.run(site, "search", search, qdev)
+        return graphs.run(site, "ids", map_ids, *out) if ids else out
 
     # -- single-query parity path (deficit/backup rule) ------------------
 

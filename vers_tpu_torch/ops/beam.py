@@ -31,6 +31,17 @@ the loop may stop at any step once no query is active, or run to the
 cap: ``sync_every`` says how often the host reads the active flag
 (0: never; run to the cap with no sync).
 
+Graphs. Given a ``graphs.Site`` (``site=``), the query descents
+(``full_descent_scan``, ``full_descent``, ``beam_inline``'s
+``full_descent_scan_inline``) replay CUDA graphs instead of enqueueing
+op by op: the prelude (the routing scan, the queries' rounding, the
+beam's start), one graph of ``sync_every`` steps replayed until the
+flag is down or the cap is reached (``replay_beam``), and the tail (the
+rescore). The host still reads the flag between
+replays, as the eager loop does: the JAX package's ``lax.while_loop``
+tests it on the device, and PyTorch has no stable device-side loop. The
+construction beam (``ops/hnsw_build``) runs eagerly.
+
 The layer-1 routing scan of ``full_descent_scan`` runs on kernel A
 (``ops/cuda_topk.cuda_distance_topk``) on a CUDA tensor and on its
 plain version on a CPU tensor; see ``route_scan``.
@@ -40,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.core import host_wait
 from vers_tpu_torch.ops import cuda_topk
 from vers_tpu_torch.ops.distance import _check_f32_matmul
@@ -180,6 +192,63 @@ def run_beam(state, step_fn, max_steps: int, sync_every: int):
     return state
 
 
+def replay_beam(site, name, state, make_step, aux, max_steps: int,
+                sync_every: int):
+    """``run_beam(state, make_step(*aux), max_steps, sync_every)`` by
+    replays of ``site``'s graphs: one of ``sync_every`` steps (all
+    ``max_steps`` when 0) taking ``(*aux, *state)`` and writing the
+    state back into its inputs, and one of the remainder when
+    ``max_steps`` is not a multiple. Between replays the host reads the
+    flag exactly where ``run_beam`` does. Returns the final state.
+
+    The state lives in the graphs' static inputs between replays, so the
+    whole loop holds the site's lock (``Site.held``)."""
+    with site.held():
+        chunk = sync_every or max_steps
+        n_aux = len(aux)
+        tensors = (*aux, *state)
+        g, done = None, 0
+        while done < max_steps:
+            n = min(chunk, max_steps - done)
+
+            def steps(*t, n=n):
+                step = make_step(*t[:n_aux])
+                st = t[n_aux:]
+                for _ in range(n):
+                    st, active = step(st)
+                for buf, v in zip(t[n_aux:], st):
+                    buf.copy_(v)
+                return (active,)
+
+            nxt = site.graph((name, n), steps, tensors)
+            if nxt is not g:
+                nxt.load(tensors if g is None else (*aux, *g.inputs[n_aux:]))
+                if g is not None:
+                    g.take(())
+                g = nxt
+            g.replay()
+            done += n
+            if sync_every and done < max_steps:
+                active = g.outputs[0]
+                host_wait(active)
+                if not bool(active):
+                    break
+        return g.take(g.inputs[n_aux:])
+
+
+def loop_beam(site, name, state, make_step, aux, max_steps: int,
+              sync_every: int = 4):
+    """The beam from ``state`` with the step ``make_step(*aux)``, eagerly
+    (``run_beam``) where ``site`` is None, else by ``replay_beam``.
+    Returns (beam_d, beam_i)."""
+    if site is None:
+        out = run_beam(tuple(state), make_step(*aux), max_steps, sync_every)
+    else:
+        out = replay_beam(site, name, tuple(state), make_step, aux,
+                          max_steps, sync_every)
+    return out[0], out[1]
+
+
 def gather_beam(queries_nav, vecs, adj, entry, ef: int, max_steps: int,
                 expand: int, entry_d=None, rank_map=None,
                 dedup_self: bool = True, sync_every: int = 4, scales=None):
@@ -190,6 +259,18 @@ def gather_beam(queries_nav, vecs, adj, entry, ef: int, max_steps: int,
     compact adjacency row (-1 absent); None: ids are rows. ``scales``:
     an int8 table's per-row factors. Returns (beam_d, beam_i)
     ascending, -1 / +inf padded."""
+    state = init_beam(entry, ef, lambda ids: cosine_to(
+        vecs, ids, queries_nav, scales), entry_d)
+    step = gather_step(queries_nav, vecs, adj, ef, expand, rank_map=rank_map,
+                       dedup_self=dedup_self, scales=scales)
+    beam_d, beam_i, _ = run_beam(state, step, max_steps, sync_every)
+    return beam_d, beam_i
+
+
+def gather_step(queries_nav, vecs, adj, ef: int, expand: int, rank_map=None,
+                dedup_self: bool = True, scales=None):
+    """The classic beam's step over ``adj`` (see ``gather_beam``):
+    ``step(state) -> (state, active)``."""
     q_n = queries_nav.shape[0]
     n_pad = vecs.shape[0]
     rows_total, deg = adj.shape
@@ -218,9 +299,7 @@ def gather_beam(queries_nav, vecs, adj, entry, ef: int, max_steps: int,
             beam_d, beam_i, expanded, nd, nbrs, ef)
         return (beam_d, beam_i, expanded), active
 
-    state = init_beam(entry, ef, dist_to, entry_d)
-    beam_d, beam_i, _ = run_beam(state, step, max_steps, sync_every)
-    return beam_d, beam_i
+    return step
 
 
 def beam_search_layer(
@@ -291,25 +370,48 @@ def full_descent(
     expand: int = 4,
     steps_cap=None,
     scales=None,  # (n_pad,) f32 dequant scales of an int8 vecs_nav
+    site=None,
 ):
     """The whole query descent (``route_mode="beam"``): routing beams on
     layers L-2..1, the ef-wide layer-0 beam, and the exact f32 rescore.
     ``adjs`` holds the searched layers only (the reference never
     searches the top layer, `hnsw.rs:526`). Returns (d (Q, top_k),
-    ids (Q, top_k))."""
+    ids (Q, top_k)).
+
+    ``site``: a ``graphs.Site`` to replay from (the queries' rounding,
+    each layer's start and chunks of steps, the tail); None: eager."""
+    (qn,) = graphs.run(site, "nav", lambda q: (nav_queries(q, vecs_nav),),
+                       queries)
     beam_d = beam_i = None
     for layer_idx in range(len(adjs) - 1, -1, -1):
         ef_l = ef if layer_idx == 0 else ef_r
-        beam_d, beam_i = beam_search_layer(
-            queries, vecs_nav, adjs[layer_idx], entry, ef=ef_l,
-            max_steps=steps_cap or max(4 * ef_l, 64),
-            expand_per_step=min(max(1, expand), ef_l), scales=scales,
-        )
+
+        def start(qn, entry, ef_l=ef_l):
+            return init_beam(entry, ef_l,
+                             lambda ids: cosine_to(vecs_nav, ids, qn, scales))
+
+        def make_step(qn, adj=adjs[layer_idx], ef_l=ef_l):
+            return gather_step(qn, vecs_nav, adj, ef_l,
+                               min(max(1, expand), ef_l), scales=scales)
+
+        state = graphs.run(site, ("start", layer_idx), start, qn, entry)
+        beam_d, beam_i = loop_beam(site, ("beam", layer_idx), state,
+                                   make_step, (qn,),
+                                   steps_cap or max(4 * ef_l, 64))
         if layer_idx != 0:
             entry = beam_i[:, 0]
-    if rescore:
-        beam_d, beam_i = rescore_cosine(queries, vecs_f32, beam_i, top_k)
-    return beam_d[:, :top_k], beam_i[:, :top_k]
+    return graphs.run(site, "tail", _tail(vecs_f32, top_k, rescore),
+                      queries, beam_d, beam_i)
+
+
+def _tail(vecs_f32, top_k: int, rescore: bool):
+    """A descent's last part: the f32 rescore of the beam (``rescore``),
+    then its top_k."""
+    def tail(queries, beam_d, beam_i):
+        if rescore:
+            beam_d, beam_i = rescore_cosine(queries, vecs_f32, beam_i, top_k)
+        return beam_d[:, :top_k], beam_i[:, :top_k]
+    return tail
 
 
 def full_descent_scan(
@@ -327,6 +429,7 @@ def full_descent_scan(
     expand: int = 8,
     steps_cap=None,
     scales=None,  # (n_pad,) f32 dequant scales of an int8 vecs_nav
+    site=None,
 ):
     """Query descent with brute-force routing (``route_mode="scan"``,
     PARITY D14): one exact scan over the layer-1 members (``route_scan``:
@@ -336,18 +439,24 @@ def full_descent_scan(
     layer 1, so the scan dominates any routing descent, and the layer-0
     beam starts from ``seeds`` good candidates.
 
-    Returns (d (Q, top_k), ids (Q, top_k))."""
-    seed_d, seed_ids = scan_seeds(queries, l1_tab, l1_members, n1,
-                                  min(seeds, ef))
-    beam_d, beam_i = beam_search_layer(
-        queries, vecs_nav, adj0, seed_ids, ef=ef,
-        max_steps=steps_cap or max(4 * ef, 64),
-        expand_per_step=min(max(1, expand), ef),
-        entry_d=seed_d, scales=scales,
-    )
-    if rescore:
-        beam_d, beam_i = rescore_cosine(queries, vecs_f32, beam_i, top_k)
-    return beam_d[:, :top_k], beam_i[:, :top_k]
+    Returns (d (Q, top_k), ids (Q, top_k)). ``site``: a ``graphs.Site``
+    to replay from (the prelude: the scan and the beam's start; chunks of
+    steps; the tail); None: eager."""
+    def prelude(q):
+        seed_d, seed_ids = scan_seeds(q, l1_tab, l1_members, n1,
+                                      min(seeds, ef))
+        return (nav_queries(q, vecs_nav),
+                *init_beam(seed_ids, ef, None, seed_d))
+
+    def make_step(qn):
+        return gather_step(qn, vecs_nav, adj0, ef, min(max(1, expand), ef),
+                           scales=scales)
+
+    qn, *state = graphs.run(site, "prelude", prelude, queries)
+    beam_d, beam_i = loop_beam(site, "beam", state, make_step, (qn,),
+                               steps_cap or max(4 * ef, 64))
+    return graphs.run(site, "tail", _tail(vecs_f32, top_k, rescore),
+                      queries, beam_d, beam_i)
 
 
 def insertion_candidates(

@@ -26,10 +26,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.ops.beam import (
     cosine_to,
     in_beam,
     init_beam,
+    loop_beam,
     merge_beam,
     pick_unexpanded,
     repeats_earlier,
@@ -143,6 +145,17 @@ def beam_search_layer_inline(
     only those full-dim bf16 rows, and merges with their exact
     distances; the beam ranks and retains in exact space (seeds
     included)."""
+    state = init_beam(entry, ef, None, entry_d)
+    step = inline_step(queries_p, inline_tab, adj, ef, expand_per_step,
+                       refine_r, queries_nav, vecs_nav)
+    beam_d, beam_i, _ = run_beam(state, step, max_steps, sync_every)
+    return beam_d, beam_i
+
+
+def inline_step(queries_p, inline_tab, adj, ef: int, expand_per_step: int,
+                refine_r: int = 0, queries_nav=None, vecs_nav=None):
+    """The inline beam's step (see ``beam_search_layer_inline``):
+    ``step(state) -> (state, active)``."""
     q_n, dp = queries_p.shape
     n_pad, deg = adj.shape
     e = max(1, min(expand_per_step, ef))
@@ -170,9 +183,7 @@ def beam_search_layer_inline(
             beam_d, beam_i, expanded, nd, nbrs, ef)
         return (beam_d, beam_i, expanded), active
 
-    state = init_beam(entry, ef, None, entry_d)
-    beam_d, beam_i, _ = run_beam(state, step, max_steps, sync_every)
-    return beam_d, beam_i
+    return step
 
 
 def full_descent_scan_inline(
@@ -192,34 +203,40 @@ def full_descent_scan_inline(
     expand: int = 8,
     steps_cap=None,
     refine_r: int = 0,
+    site=None,
 ):
     """``full_descent_scan`` with the inline layer-0 beam: the exact
     routing scan over layer 1 (kernel A on the card) for the seeds, the
     inline beam (projected, or projection-filtered exact when
     ``refine_r`` > 0), then an exact f32 rescore of the whole ef-wide
-    beam."""
-    scan_d, seed_ids = scan_seeds(queries, l1_tab, l1_members, n1,
-                                  min(seeds, ef))
+    beam. ``site`` as ``ops/beam.full_descent_scan`` takes it."""
     dp = proj.shape[1]
-    qp = project_rows(queries, basis, dp)
     n_pad = proj.shape[0]
-    if refine_r:
-        # the refined beam ranks in exact bf16 space — so do the seeds
-        sd = scan_d
-    else:
-        # the pure-projected beam ranks in projected space — ditto
-        sv = proj[seed_ids.clamp(0, n_pad - 1)].float()
-        sd = 1.0 - torch.bmm(sv, qp.float()[:, :, None])[:, :, 0]
-    beam_d, beam_i = beam_search_layer_inline(
-        qp, inline_tab, adj0, seed_ids, sd,
-        ef=ef,
-        max_steps=steps_cap or max(4 * ef, 64),
-        expand_per_step=min(max(1, expand), ef),
-        refine_r=refine_r,
-        queries_nav=queries.to(torch.bfloat16),
-        vecs_nav=vecs_nav,
-    )
-    # the projected ranking is noisier than bf16 full-dim navigation:
-    # exact-rescore the WHOLE ef-wide beam, then take top_k
-    rd, ri = rescore_cosine(queries, vecs_f32, beam_i, ef)
-    return rd[:, :top_k], ri[:, :top_k]
+
+    def prelude(q):
+        scan_d, seed_ids = scan_seeds(q, l1_tab, l1_members, n1,
+                                      min(seeds, ef))
+        qp = project_rows(q, basis, dp)
+        if refine_r:
+            # the refined beam ranks in exact bf16 space — so do the seeds
+            sd = scan_d
+        else:
+            # the pure-projected beam ranks in projected space — ditto
+            sv = proj[seed_ids.clamp(0, n_pad - 1)].float()
+            sd = 1.0 - torch.bmm(sv, qp.float()[:, :, None])[:, :, 0]
+        return (qp, q.to(torch.bfloat16), *init_beam(seed_ids, ef, None, sd))
+
+    def make_step(qp, qn):
+        return inline_step(qp, inline_tab, adj0, ef, min(max(1, expand), ef),
+                           refine_r, qn, vecs_nav)
+
+    def tail(q, beam_d, beam_i):
+        # the projected ranking is noisier than bf16 full-dim navigation:
+        # exact-rescore the WHOLE ef-wide beam, then take top_k
+        rd, ri = rescore_cosine(q, vecs_f32, beam_i, ef)
+        return rd[:, :top_k], ri[:, :top_k]
+
+    qp, qn, *state = graphs.run(site, "prelude", prelude, queries)
+    beam_d, beam_i = loop_beam(site, "beam", state, make_step, (qp, qn),
+                               steps_cap or max(4 * ef, 64))
+    return graphs.run(site, "tail", tail, queries, beam_d, beam_i)

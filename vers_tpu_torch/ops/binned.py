@@ -21,7 +21,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from vers_tpu_torch.core import host_wait, round_up
+from vers_tpu_torch import graphs
+from vers_tpu_torch.core import round_up
 from vers_tpu_torch.ops.cuda_binned import (
     _workitems_blocks,
     packed_scan,
@@ -36,7 +37,9 @@ def captured_scans(only=None, shard=None):
     """Record every packed-scan call the search path makes inside the
     block as (args, kwargs less ``plain``), the arguments
     ``cuda_packed_scan`` and ``packed_scan_plain`` take; the calls
-    themselves go through unchanged. For the tests and the timing tools.
+    themselves go through unchanged, eagerly (``graphs.disabled``: a
+    replayed graph makes no calls, and a capture's arguments live in its
+    pool). For the tests and the timing tools.
 
     ``only``: ordinals (from 0) of the calls to record, with their tensor
     arguments copied. The forest search scans every tree out of one view
@@ -71,7 +74,8 @@ def captured_scans(only=None, shard=None):
 
     packed_scan = record
     try:
-        yield calls
+        with graphs.disabled():
+            yield calls
     finally:
         packed_scan = scan
 
@@ -355,6 +359,18 @@ def merge_probe_results(all_d: torch.Tensor, all_i: torch.Tensor, top_k: int,
     return fin_d, torch.where(torch.isfinite(fin_d), fin_i, -1)
 
 
+def bin_counts(bins: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """(num_bins,) int64 count of each bin in ``bins`` (int64, values in
+    [0, num_bins]: the sentinel bin ``num_bins`` of gated ranks falls off
+    the count). A fixed-size scatter of ones, as the JAX package counts
+    (``zeros.at[bins].add(1)``): unlike ``torch.bincount``, which reads
+    the maximum on the host, it enqueues without waiting for the card.
+    Integer atomics are exact, so the counts are ``bincount``'s."""
+    counts = torch.zeros((num_bins + 1,), dtype=torch.int64, device=bins.device)
+    counts.index_add_(0, bins, torch.ones_like(bins))
+    return counts[:num_bins]
+
+
 def adaptive_probe_depth(sizes: np.ndarray, top_k: int) -> int:
     """Worst-case probe depth of the reference's adaptive cluster walk
     (`ivfflat.rs:166-195`): each probed bin contributes min(size, top_k)
@@ -431,10 +447,7 @@ def _fused_core(
         qbin_stack = torch.nn.functional.pad(
             bins_flat[order].to(torch.int32), (0, tail), value=-1
         )[None, :]
-        # sentinel (gated) bins == num_bins fall off the count (a host
-        # read of their maximum, on the card)
-        host_wait(bins_flat)
-        counts = torch.bincount(bins_flat, minlength=num_bins + 1)[:num_bins]
+        counts = bin_counts(bins_flat, num_bins)
         qb, gb = _workitems_blocks(
             counts, 0, g_first[row0], q_blk, w_rank, qb_scratch,
             g_base=g_base[row0],
@@ -478,8 +491,7 @@ def _fused_core(
         qbin_parts.append(torch.nn.functional.pad(
             bins[order].to(torch.int32), (0, q_pad_rank - q_n), value=-1))
         orders.append(order)
-        host_wait(bins)
-        counts = torch.bincount(bins, minlength=num_bins + 1)[:num_bins]
+        counts = bin_counts(bins, num_bins)
         row = 0 if rank_rows is None else rank_rows[r]
         qb_r, gb_r = _workitems_blocks(
             counts, r * q_pad_rank, g_first[row], q_blk, w_rank,
@@ -542,8 +554,28 @@ def binned_topk_kernel(
     Exact top-k over the probed bins; tie order may differ from other
     engines. ``kernel_ids``: the scan writes original ids instead of
     padded positions. ``plain``: run the scan's plain version."""
-    q_n = queries.shape[0]
     p = nprobe if probes is None else int(probes.shape[1])
+    padded, plan = kernel_plan(layout, queries.shape[0], p, top_k,
+                               q_blk=q_blk, r_blk=r_blk, chunk=chunk)
+    return _fused_core(
+        queries,
+        centroids if probes is None else probes,
+        padded["corpus"], padded["rbin"], padded["xx"], padded["s2o"],
+        padded["g_first"],
+        num_bins=layout["num_bins"], nprobe=p, top_k=top_k, metric=metric,
+        probes_given=probes is not None,
+        rank_rows=(0,) * p, g_base=padded["g_base"], dedup=dedup,
+        kernel_ids=kernel_ids, plain=plain, **plan,
+    )
+
+
+def kernel_plan(layout: Dict, q_n: int, p: int, top_k: int,
+                q_blk: int | None = None, r_blk: int | None = None,
+                chunk: int | None = None):
+    """The tiles of ``binned_topk_kernel`` for ``q_n`` queries at ``p``
+    probe ranks: (the layout's group-major padded corpus, built on the
+    first call and cached on the layout; the static arguments of
+    ``_fused_core``). Host work only once the padded corpus exists."""
     if chunk is None:
         chunk = 1024
     if r_blk is None:
@@ -557,16 +589,6 @@ def binned_topk_kernel(
     # sort applies at p > 1: each group visited once across all ranks
     combined = p > 1
     blocks = (p * q_pad_rank if combined else q_pad_rank) // q_blk
-    w_rank = blocks + padded["g_max"] + 1
-    return _fused_core(
-        queries,
-        centroids if probes is None else probes,
-        padded["corpus"], padded["rbin"], padded["xx"], padded["s2o"],
-        padded["g_first"],
-        num_bins=layout["num_bins"], nprobe=p, top_k=top_k,
-        q_blk=q_blk, r_blk=r_blk, chunk=chunk, w_rank=w_rank,
-        q_pad_rank=q_pad_rank, metric=metric,
-        probes_given=probes is not None,
-        rank_rows=(0,) * p, g_base=padded["g_base"], dedup=dedup,
-        combined=combined, kernel_ids=kernel_ids, plain=plain,
-    )
+    return padded, dict(q_blk=q_blk, r_blk=r_blk, chunk=chunk,
+                        w_rank=blocks + padded["g_max"] + 1,
+                        q_pad_rank=q_pad_rank, combined=combined)

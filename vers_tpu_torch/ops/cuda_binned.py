@@ -529,6 +529,13 @@ def _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
     return out_d, out_i
 
 
+def scans_on_host(top_k: int, plain: bool = False) -> bool:
+    """Whether ``packed_scan`` takes the plain version, which reads its
+    work items on the host (``plain``, or top_k > MAX_K): a search that
+    does cannot be captured in a CUDA graph (``graphs``)."""
+    return plain or top_k > MAX_K
+
+
 def packed_scan(*args, plain: bool = False, **kwargs):
     """The packed scan as the search path calls it: kernel B through
     ``cuda_packed_scan``, or the plain version when ``plain`` is set or
@@ -537,7 +544,6 @@ def packed_scan(*args, plain: bool = False, **kwargs):
     top_k = kwargs["top_k"]
     if top_k > MAX_K:
         count(globals(), "LARGE_K_PLAIN")
-        plain = True
-    if plain:
+    if scans_on_host(top_k, plain):
         return packed_scan_plain(*args, **kwargs)
     return cuda_packed_scan(*args, **kwargs)

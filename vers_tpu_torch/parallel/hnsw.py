@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.core import as_query_matrix
 from vers_tpu_torch.index.hnsw import HNSWIndex, resolve_beam_expand
 from vers_tpu_torch.models.candidates import SearchResult
@@ -49,6 +50,8 @@ class ShardedHNSWIndex:
         self.mesh = mesh or make_mesh()
         self.dim = base.dim
         self._replicas = {}  # device -> (base cache it copies, the copy)
+        # each shard's search graphs (``graphs``), replayed on its stream
+        self._graphs = [graphs.GraphCache() for _ in self.mesh.devices]
 
     @classmethod
     def build_index(
@@ -80,6 +83,8 @@ class ShardedHNSWIndex:
 
     def add(self, embedding, vec_id: int) -> None:
         self.base.add(embedding, vec_id)
+        for g in self._graphs:
+            g.invalidate()
 
     def search_approximate(self, query, top_k: int):
         return self.base.search_approximate(query, top_k)
@@ -122,19 +127,22 @@ class ShardedHNSWIndex:
         ef_r = max(1, min(ef_route, ef)) if ef_route else ef
         # the replicas, copied here so that no two shards copy one cache
         tables = [self._tables_on(cache, dev) for dev in self.mesh.devices]
+        expand = resolve_beam_expand(base.config)
+        steps_cap = getattr(base.config, "beam_steps", None)
 
         def body(s, dev, tabs):
             vecs, vecs_nav, scales, adjs = tabs
+            qs = q[s * q_local : (s + 1) * q_local].to(dev)
+            # the graphs read the base's cache (or this card's copy of it)
+            site = self._graphs[s].site(
+                ("hnsw", top_k, ef, ef_r, expand, steps_cap), qs, cache)
             return full_descent(
-                q[s * q_local : (s + 1) * q_local].to(dev), vecs, vecs_nav,
-                adjs[: len(base.layers) - 1],
+                qs, vecs, vecs_nav, adjs[: len(base.layers) - 1],
                 torch.full((q_local,), cache["entry"], dtype=torch.int64,
                            device=dev),
                 top_k=top_k, ef=ef, ef_r=ef_r,
-                rescore=vecs_nav.dtype != vecs.dtype,
-                expand=resolve_beam_expand(base.config),
-                steps_cap=getattr(base.config, "beam_steps", None),
-                scales=scales,
+                rescore=vecs_nav.dtype != vecs.dtype, expand=expand,
+                steps_cap=steps_cap, scales=scales, site=site,
             )
 
         parts = map_shards(self.mesh, body, tables)

@@ -254,14 +254,22 @@ class PartitionedHNSWIndex(PartitionedIndexBase):
         seeds = getattr(cfg, "route_seeds", 0) or min(ef, 8)
         per = cache["per"]
 
+        expand = resolve_beam_expand(cfg)
+        steps_cap = getattr(cfg, "beam_steps", None)
+
         def body(s, dev):
+            qs = q.to(dev)
+            n1 = int(cache["n1s"][s])
+            # the graphs read the assembled tables, which an add patches
+            # in place (rows, and n1: a static argument, so in the key)
+            site = self._graphs[s].site(
+                ("hnsw", top_k, ef, seeds, expand, steps_cap, n1), qs, cache)
             d, rows = full_descent_scan(
-                q.to(dev), cache["vecs"][s], cache["vecs_nav"][s],
+                qs, cache["vecs"][s], cache["vecs_nav"][s],
                 cache["adj0"][s], cache["l1_tab"][s],
-                cache["l1_members"][s], int(cache["n1s"][s]),
+                cache["l1_members"][s], n1,
                 top_k=top_k, ef=ef, seeds=seeds, rescore=True,
-                expand=resolve_beam_expand(cfg),
-                steps_cap=getattr(cfg, "beam_steps", None),
+                expand=expand, steps_cap=steps_cap, site=site,
             )
             return d, torch.where(rows >= 0, rows + s * per, -1)
 

@@ -37,11 +37,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.core import as_query_matrix
 from vers_tpu_torch.index.base import Index
 from vers_tpu_torch.io.bincode import Reader, Writer
 from vers_tpu_torch.models.candidates import SearchResult
-from vers_tpu_torch.ops.binned import binned_topk_kernel, make_layout
+from vers_tpu_torch.ops.binned import binned_topk_kernel, kernel_plan, make_layout
+from vers_tpu_torch.ops.cuda_binned import scans_on_host
 from vers_tpu_torch.ops.distance import pairwise_sq_euclidean
 from vers_tpu_torch.ops.topk import topk_smallest
 from vers_tpu_torch.parallel.kmeans import sharded_build_kmeans
@@ -132,6 +134,8 @@ class ShardedIVFFlatIndex(Index):
         self._shard_ids = [np.asarray(i, np.int64) for i in shard_ids]
         self.dim = self._centroids.shape[1]
         self._state = None
+        # each shard's search graphs (``graphs``), replayed on its stream
+        self._graphs = [graphs.GraphCache() for _ in self.mesh.devices]
 
     # -- build ----------------------------------------------------------
 
@@ -217,6 +221,8 @@ class ShardedIVFFlatIndex(Index):
         self._shard_values[s] = np.concatenate([self._shard_values[s], emb])
         self._shard_ids[s] = np.append(self._shard_ids[s], np.int64(vec_id))
         self._state = None
+        for g in self._graphs:
+            g.invalidate()
 
     def _search_batch_rows(self, queries, top_k: int, nprobe: int = 1):
         """(dists (Q, k) f32, rows (Q, k) int64 into the shards'
@@ -232,18 +238,29 @@ class ShardedIVFFlatIndex(Index):
         _, probes = topk_smallest(
             pairwise_sq_euclidean(q, state["centroids"]), nprobe)
         probes = probes.to(torch.int32)
+        for layout in state["layouts"]:
+            if layout is not None:  # its padded corpus, before any graph
+                kernel_plan(layout, q_n, nprobe, top_k)
 
         def body(s, dev, layout):
             if layout is None:
                 return None  # nothing to scan
-            # dedup=False: a row lives in exactly one cluster and a
-            # query's probes are distinct clusters
-            d, pos = binned_topk_kernel(
-                q.to(dev), None, nprobe, layout, top_k=top_k,
-                metric=self.metric, probes=probes.to(dev), dedup=False,
-            )
-            pos = pos.to(torch.int64)
-            return d, torch.where(pos >= 0, pos + int(state["offsets"][s]), -1)
+            offset = int(state["offsets"][s])
+
+            def search(qs, ps):
+                # dedup=False: a row lives in exactly one cluster and a
+                # query's probes are distinct clusters
+                d, pos = binned_topk_kernel(
+                    qs, None, nprobe, layout, top_k=top_k,
+                    metric=self.metric, probes=ps, dedup=False,
+                )
+                pos = pos.to(torch.int64)
+                return d, torch.where(pos >= 0, pos + offset, -1)
+
+            qs = q.to(dev)
+            site = None if scans_on_host(top_k) else self._graphs[s].site(
+                ("ivf", top_k, nprobe), qs, layout)
+            return graphs.run(site, "search", search, qs, probes.to(dev))
 
         parts = [p for p in map_shards(self.mesh, body, state["layouts"])
                  if p is not None]

@@ -31,9 +31,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.core import as_query_matrix
 from vers_tpu_torch.index.lsh import Q_BLK, ANNIndex
 from vers_tpu_torch.models.candidates import SearchResult
+from vers_tpu_torch.ops.cuda_binned import scans_on_host
 from vers_tpu_torch.ops.forest_shared import forest_search_shared
 from vers_tpu_torch.parallel.mesh import (
     SHARD_AXIS,
@@ -58,6 +60,8 @@ class ShardedANNIndex:
         self.mesh = mesh or make_mesh()
         self.dim = base.dim
         self._replicas = {}  # device -> (base state it copies, the copy)
+        # each shard's search graphs (``graphs``), replayed on its stream
+        self._graphs = [graphs.GraphCache() for _ in self.mesh.devices]
 
     @classmethod
     def build_index(
@@ -90,6 +94,8 @@ class ShardedANNIndex:
 
     def add(self, embedding, vec_id: int) -> None:
         self.base.add(embedding, vec_id)
+        for g in self._graphs:
+            g.invalidate()
 
     def search_approximate(self, query, top_k: int):
         return self.base.search_approximate(query, top_k)
@@ -134,13 +140,20 @@ class ShardedANNIndex:
         # the replicas, copied here so that no two shards copy one state
         states = [self._state_on(sh, dev) for dev in self.mesh.devices]
 
+        plain = engine == "xla"
+
         def body(s, dev, st):
-            return forest_search_shared(
-                q[s * q_local : (s + 1) * q_local].to(dev),
-                *(st[k] for k in _STATE),
-                n_probes=n_probes, num_bins=sh["num_bins"], top_k=top_k,
-                deficit_k=deficit_k, plain=engine == "xla", **plan,
-            )
+            def search(qs):
+                return forest_search_shared(
+                    qs, *(st[k] for k in _STATE),
+                    n_probes=n_probes, num_bins=sh["num_bins"], top_k=top_k,
+                    deficit_k=deficit_k, plain=plain, **plan,
+                )
+
+            qs = q[s * q_local : (s + 1) * q_local].to(dev)
+            site = None if scans_on_host(top_k, plain) else self._graphs[s].site(
+                ("forest", top_k, n_probes, deficit_k), qs, st)
+            return graphs.run(site, "search", search, qs)
 
         parts = map_shards(self.mesh, body, states)
         dists = all_gather([d for d, _ in parts], 0)[:q_n]

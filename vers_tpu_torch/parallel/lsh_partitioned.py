@@ -36,8 +36,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.core import as_query_matrix, device_id_map, round_up
 from vers_tpu_torch.index.lsh import ANNIndex
+from vers_tpu_torch.ops.cuda_binned import scans_on_host
 from vers_tpu_torch.ops.forest_shared import forest_search_shared
 from vers_tpu_torch.parallel.lsh import _STATE
 from vers_tpu_torch.parallel.mesh import (
@@ -153,13 +155,21 @@ class PartitionedANNIndex(PartitionedIndexBase):
             if engine not in ("auto", "pallas", "xla"):
                 raise ValueError(f"unknown engine {engine!r}")
             sh, plan = shard._shared_plan(q.shape[0], top_k, n_probes)
-            d, rows = forest_search_shared(
-                q.to(shard.device), *(sh[k] for k in _STATE),
-                n_probes=n_probes, num_bins=sh["num_bins"], top_k=top_k,
-                deficit_k=deficit_k, plain=engine == "xla", **plan,
-            )
-            rows = rows.to(torch.int64)
-            return d, torch.where(rows >= 0, rows + s * pern, -1)
+            plain = engine == "xla"
+
+            def search(qs):
+                d, rows = forest_search_shared(
+                    qs, *(sh[k] for k in _STATE),
+                    n_probes=n_probes, num_bins=sh["num_bins"], top_k=top_k,
+                    deficit_k=deficit_k, plain=plain, **plan,
+                )
+                rows = rows.to(torch.int64)
+                return d, torch.where(rows >= 0, rows + s * pern, -1)
+
+            qs = q.to(shard.device)
+            site = None if scans_on_host(top_k, plain) else self._graphs[s].site(
+                ("forest", top_k, n_probes, deficit_k, pern), qs, sh)
+            return graphs.run(site, "search", search, qs)
 
         parts = map_shards(self.mesh, body, self.shards)
         return merge_topk([d for d, _ in parts], [i for _, i in parts], top_k)

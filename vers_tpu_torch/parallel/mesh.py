@@ -13,13 +13,17 @@ shards on different cards overlap fully.
 
 The host is shared by a lock (``Mesh.host``): a body holds it while it
 enqueues, and lets go of it only while it waits for its own stream
-before a host read (``core.host_wait``: the beam's stop flag, the
-binned scans' ``bincount``, the k-means counts). So the shards' waits
+before a host read (``core.host_wait``: the beam's stop flag between
+its graphs' replays, the k-means counts). So the shards' waits
 overlap each other's enqueues, and their eager ops are not interleaved
 one by one: threads that take turns at the interpreter at every op
 (each torch op lets go of the GIL) enqueue several times slower than
 one thread does (``tools/time_executor.py`` times both). A CPU body
-reads no stream and runs whole.
+reads no stream and runs whole. A search body replays its shard's CUDA
+graphs (``graphs``) on the shard's stream; a configuration's second
+call captures them there, under the host lock, in the "thread_local"
+capture mode, so the other shards' waits on their own streams do not
+void the capture.
 
 The two collectives the layer needs are plain tensor ops on the lead
 device (shard 0's), run by the caller after every body has joined:

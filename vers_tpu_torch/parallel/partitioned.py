@@ -27,6 +27,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from vers_tpu_torch import graphs
 from vers_tpu_torch.io.bincode import Reader, Writer
 from vers_tpu_torch.models.candidates import SearchResult
 from vers_tpu_torch.parallel.mesh import SHARD_AXIS, make_mesh
@@ -62,6 +63,8 @@ class PartitionedIndexBase:
             ]
         self.gids = [np.asarray(g, np.int64) for g in gids]
         self._device_cache = None
+        # each shard's search graphs (``graphs``), replayed on its stream
+        self._graphs = [graphs.GraphCache() for _ in shards]
 
     # -- subclass hooks ----------------------------------------------------
 
@@ -99,6 +102,8 @@ class PartitionedIndexBase:
         supports it, else dropped (re-assembled lazily)."""
         s = int(np.argmin([len(g) for g in self.gids]))
         shard = self.shards[s]
+        for g in self._graphs:
+            g.invalidate()
         emb = np.asarray(embedding, np.float32).reshape(-1)
         local_id = int(len(self.gids[s]))
         shard.add(emb, local_id)
