@@ -120,7 +120,11 @@ port's default device:
      card, the queen's neighbours printed) and ``demo.main(["--index",
      "ivfflat"])`` on the card. Then each route of kernel A is held to
      its plain version at the same setting (tie-aware, distances within
-     1e-4, a repeat call bit-identical) and timed beside its bound; and
+     1e-4, a repeat call bit-identical) at 2048 and 16384 queries and
+     timed beside its bound, with its plan printed (query tile, slots,
+     resident query parts, shared bytes, blocks an SM from the card's
+     occupancy query, splits) and its shared bytes held to the built
+     kernel's layout; and
      a 100k x 300 `.vec` file and a saved 100k-row HNSW index are read
      by the native and the Python readers, equal, both times printed.
      (Phase 6's routing scan runs the bf16 route at "default" over a
@@ -544,19 +548,26 @@ def hold_kernel_a(torch, q, corpus, n, k, label, metric="sq_euclidean",
     ms = cuda_ms(torch, call, reps=reps)
     plain = cuda_ms(torch, plain_call, reps=1)
     q_n, d = q.shape
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split, split_rows = cuda_topk.split_geometry(q_n, n, sms)
+    plan = cuda_topk.plan_for(q, corpus, n, k, precision)
+    smem, blocks = cuda_topk.card_plan(plan, d, k)
+    assert smem == plan.smem_bytes, (plan, smem)
     route = cuda_topk.route_name(corpus.dtype, precision)
     bound = roofline.distance_topk_bound(q_n, n, d, k,
                                          corpus=route.split("/")[0],
                                          precision=precision)
     log(f"kernel A {route} vs plain on {label} (Q={q_n} over {n} rows, k={k}, "
-        f"{metric}): max |d| {err:g}, {ms:.3f} ms vs {plain:.2f} ms; "
-        f"{n_split} splits of {split_rows} rows; bound {bound['bound_ms']:.3f} "
-        f"ms ({bound['bound_by']}), {bound['bound_ms'] / ms:.0%} of it")
-    return dict(q=q_n, rows=n, k=k, route=route, n_split=n_split,
-                split_rows=split_rows, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+        f"{metric}): max |d| {err:g}, {ms:.3f} ms vs {plain:.2f} ms; plan: "
+        f"{plan.query_tile}-query tile, {plan.slots} slots, query parts "
+        f"{'resident' if plan.resident else 'in registers'} ({plan.parts}), "
+        f"{plan.smem_bytes} B shared, {blocks} block(s) an SM, "
+        f"{plan.n_split} splits of {plan.split_rows} rows; bound "
+        f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}), "
+        f"{bound['bound_ms'] / ms:.0%} of it")
+    return dict(q=q_n, rows=n, k=k, route=route, plan=plan.as_dict(),
+                blocks_per_sm=blocks, n_split=plan.n_split,
+                split_rows=plan.split_rows, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bound["bound_ms"],
+                bound_by=bound["bound_by"])
 
 
 def hold_route_scan(torch, args, label):
@@ -1220,7 +1231,8 @@ def bf16_phase(torch, vt, x, qd, truth, xd):
                              f"phase 8's {c} corpus", precision=p,
                              reps=2 if qn >= N_QUERIES else 5)
 
-    a_rows = {"bf16/highest": {N_QUERIES: hold("bf16", "highest", N_QUERIES)}}
+    a_rows = {"bf16/highest": {qn: hold("bf16", "highest", qn)
+                               for qn in A8_QUERIES}}
     for c, p, qn in settings:
         a_rows.setdefault(f"{c}/{p}", {})[qn] = hold(c, p, qn)
     del flat, store, corpora
@@ -1882,7 +1894,8 @@ def main():
     log(f"build: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_info['seconds']:.2f} s) -> {_build.library_path().name}")
     for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "C75" in line):  # C7510..C7520: wgmma serialised
             log(f"  ptxas: {line.strip()}")
 
     # -- data --------------------------------------------------------
@@ -2094,7 +2107,6 @@ def main():
     # kernel A (with kernel C as its second pass when the corpus is split)
     # at the flat index's query counts, from one query up
     xd = flat._store.data
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     a_rows = {}
     for qn in A_QUERIES:
         qs = qd[:qn]
@@ -2108,8 +2120,9 @@ def main():
         assert_topk_match(ka[0], ka[1], pa[0], pa[1], rtol=0.0, atol=TOL)
         err = max_abs_diff(ka[0], pa[0])
         del ka, again, pa
-        n_split, split_rows = cuda_topk.split_geometry(qn, N, sms)
-        grid = [-(-qn // cuda_topk.QUERY_TILE), n_split]
+        plan = cuda_topk.plan_for(qs, xd, N, TOP_K)
+        n_split, split_rows = plan.n_split, plan.split_rows
+        grid = [-(-qn // plan.query_tile), n_split]
         reps = 2 if qn >= 2048 else 20
         ms = cuda_ms(torch, lambda: cuda_topk.cuda_distance_topk(qs, xd, N, TOP_K),
                      reps=reps)

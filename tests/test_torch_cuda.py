@@ -136,26 +136,35 @@ def _count(fn):
     return out, cuda_topk.launches() - a, cuda_topk.LAUNCHES_VALUES - c
 
 
+@pytest.mark.parametrize("route", ["f32/highest", "bf16/default",
+                                   "bf16/highest", "f32/high"])
 @pytest.mark.parametrize("metric", ["sq_euclidean", "cosine"])
-@pytest.mark.parametrize("q_n,k", [(1, 10), (3, 1), (65, 10), (65, cuda_topk.MAX_K)])
-def test_distance_topk_split_corpus(cuda, metric, q_n, k):
-    """Small Q over 200k x 300 rows: the corpus is split across blocks
-    (kernel A), then kernel C takes the final k; n_valid ends mid-split."""
+@pytest.mark.parametrize("q_n,k", [(1, 10), (3, 1), (65, 10),
+                                   (65, cuda_topk.MAX_K), (257, 100),
+                                   (2048, 8)])
+def test_distance_topk_split_corpus(cuda, route, metric, q_n, k):
+    """Q up to 2048 over 200k x 300 rows: the corpus is split across
+    blocks (kernel A, the route's plan), then kernel C takes the final k;
+    n_valid ends mid-split; a repeat call is bit-identical."""
+    dt, precision = route.split("/")
     x, rng = _corpus(cuda, 200_000, 300, 7)
     q = x[rng.integers(0, 200_000, q_n)] + 0.05 * torch.from_numpy(
         rng.normal(size=(q_n, 300)).astype(np.float32)).to(cuda)
     if metric == "cosine":
         q = torch.nn.functional.normalize(q, dim=1)
+    if dt == "bf16":
+        x = x.to(torch.bfloat16)
     n_valid = 200_000 - 77
-    n_split, split_rows = cuda_topk.split_geometry(
-        q_n, n_valid, torch.cuda.get_device_properties(cuda).multi_processor_count)
-    assert n_split > 1 and n_valid % split_rows
-    got, a, c = _count(lambda: cuda_topk.cuda_distance_topk(q, x, n_valid, k,
-                                                            metric=metric))
+    plan = cuda_topk.plan_for(q, x, n_valid, k, precision)
+    assert plan.n_split > 1 and n_valid % plan.split_rows
+    got, a, c = _count(lambda: cuda_topk.cuda_distance_topk(
+        q, x, n_valid, k, metric=metric, precision=precision))
     assert (a, c) == (1, 1)
     assert (got[1] < n_valid).all()
-    _check(got, fused_scan_topk(q, x, n_valid, k, metric=metric))
-    again = cuda_topk.cuda_distance_topk(q, x, n_valid, k, metric=metric)
+    _check(got, fused_scan_topk(q, x, n_valid, k, metric=metric,
+                                precision=precision))
+    again = cuda_topk.cuda_distance_topk(q, x, n_valid, k, metric=metric,
+                                         precision=precision)
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
@@ -213,25 +222,46 @@ ROUTES = [(dtype, precision) for dtype in (torch.float32, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype,precision", ROUTES)
-@pytest.mark.parametrize("q_n,n,n_valid,d,k,metric", [
-    (100, 3000, 2999, 37, 10, "sq_euclidean"),  # odd d: 2-byte bf16 loads
-    (130, 1000, 900, 300, cuda_topk.MAX_K, "cosine"),  # queries through L1
-    (70, 5000, 5000, 64, 8, "cosine"),  # 16-byte rows: one copy a unit
-    (200, 4000, 3999, 300, 10, "sq_euclidean"),  # 4-byte bf16 copies
-    (7, 200, 5, 8, 9, "sq_euclidean"),  # k > n_valid: (+inf, -1) tail
+@pytest.mark.parametrize("q_n,n,n_valid,d,k,metric,layout", [
+    # odd d: a bf16 corpus by 2-byte loads, f32 by 4-byte cp.async
+    (100, 3000, 2999, 37, 10, "sq_euclidean", ""),
+    # k = 128 at d = 300: "highest" on a bf16 corpus splits in registers
+    (130, 1000, 900, 300, cuda_topk.MAX_K, "cosine", ""),
+    (70, 5000, 5000, 64, 8, "cosine", ""),  # 16-byte rows: TMA in order
+    (200, 4000, 3999, 300, 10, "sq_euclidean", ""),  # bf16: even/odd TMA
+    (7, 200, 5, 8, 9, "sq_euclidean", ""),  # k > n_valid: (+inf, -1) tail
+    (1, 3001, 3001, 300, 1, "cosine", ""),  # odd row count, its last row
+    (63, 2600, 2600, 16, 100, "sq_euclidean", ""),
+    (64, 5000, 4321, 512, 10, "cosine", ""),  # a 64-query tile exactly
+    (65, 9000, 9000, 7, 8, "sq_euclidean", ""),  # the 128-query tile
+    (127, 6000, 6000, 300, cuda_topk.MAX_K, "sq_euclidean", ""),
+    (128, 6000, 5999, 512, 1, "sq_euclidean", ""),
+    (129, 6000, 6000, 37, 100, "cosine", ""),
+    (255, 7000, 7000, 300, 10, "cosine", "ties"),  # rows r, r + n / 2 equal
+    (257, 20_000, 19_999, 16, 10, "sq_euclidean", "ties"),
+    (2048, 20_001, 20_001, 300, 8, "sq_euclidean", ""),
+    (129, 6001, 6001, 300, 10, "cosine", "offset"),  # bf16 rows off 16 bytes
 ])
 def test_distance_topk_routes_match_plain(cuda, dtype, precision, q_n, n,
-                                          n_valid, d, k, metric):
+                                          n_valid, d, k, metric, layout):
     """Each of kernel A's six routes (corpus f32 or bf16, precision
     highest, high or default) against the plain version at the same
-    setting: exact products summed in f32 on both sides."""
+    setting: exact products summed in f32 on both sides. The shapes walk
+    what the plans branch on: query tiles of 64 and 128 and their ragged
+    edges, k from 1 to MAX_K, d odd, 16-byte, 8-byte and 4-byte aligned
+    rows (TMA in row order, as even and odd rows, or cp.async), an odd
+    row count, a base 8 bytes off 16, and exact ties across tiles, query
+    tiles and splits."""
     rng = np.random.default_rng(12)
-    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    n_all = n + (layout == "offset")
+    x = torch.from_numpy(rng.normal(size=(n_all, d)).astype(np.float32)).to(cuda)
     q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32)).to(cuda)
     if metric == "cosine":
         x = torch.nn.functional.normalize(x, dim=1)
         q = torch.nn.functional.normalize(q, dim=1)
-    x = x.to(dtype)
+    if layout == "ties":
+        x[n // 2: n // 2 * 2] = x[: n // 2]
+    x = x.to(dtype)[n_all - n:]
     route = cuda_topk.route_name(dtype, precision)
     before = cuda_topk.LAUNCHES_BY_ROUTE.get(route, 0)
     got = cuda_topk.cuda_distance_topk(q, x, n_valid, k, metric=metric,
@@ -247,6 +277,25 @@ def test_distance_topk_routes_match_plain(cuda, dtype, precision, q_n, n,
         near = float((got[0] - want[0]).abs().max())
         far = float((got[0] - exact[0]).abs().max())
         assert far > 10 * near, (near, far)
+
+
+@pytest.mark.parametrize("route", [f"{'bf16' if dt == torch.bfloat16 else 'f32'}/{p}"
+                                   for dt, p in ROUTES])
+@pytest.mark.parametrize("d,k", [(7, 1), (16, 8), (37, cuda_topk.MAX_K),
+                                 (300, 10), (300, 100), (512, cuda_topk.MAX_K)])
+def test_distance_topk_plan_matches_the_card(cuda, route, d, k):
+    """The host's plan (``kernel_plan``, from its shared-memory
+    arithmetic) is what the built kernel lays out (``make_layout`` /
+    ``make_layout_b``), and the card runs its block: no more blocks an SM
+    than the shared memory allows."""
+    props = torch.cuda.get_device_properties(cuda)
+    for q_n in (1, 2048):
+        plan = cuda_topk.kernel_plan(route, q_n, 100_000, d, k,
+                                     props.multi_processor_count,
+                                     props.shared_memory_per_block_optin)
+        smem, blocks = cuda_topk.card_plan(plan, d, k)
+        assert smem == plan.smem_bytes, (route, d, k, q_n)
+        assert 1 <= blocks <= plan.blocks_per_sm, (route, d, k, q_n)
 
 
 # Rows whose every value is hi + lo + r, three bf16 parts: hi = bf16(v),

@@ -1,5 +1,6 @@
 """Kernel A's design on the CPU: the corpus split and its tie rule, the
-split geometry, and the 3xTF32 numerics of its tensor-core products.
+split geometry and the launch plan of each route, and the 3xTF32
+numerics of its tensor-core products.
 
 ``split_scan_topk_plain`` (the two-pass design in plain torch) is held
 to ``fused_scan_topk`` and to ``vers_tpu``'s ``pallas_distance_topk`` in
@@ -106,13 +107,35 @@ def test_split_scan_nothing_valid():
     assert torch.isinf(d).all() and (i == -1).all()
 
 
+@pytest.mark.parametrize("query_tile", [64, 128])
+@pytest.mark.parametrize("n", [100, 41_368, 1_000_000])
+@pytest.mark.parametrize("q_n", [1, 64, 256, 2048, 16384])
+def test_split_geometry(q_n, n, query_tile):
+    """The bf16 routes' split: whole tiles in row order covering [0, n),
+    none empty, and the most splits whose blocks fit one wave of the
+    card (132 SMs, a block an SM)."""
+    sms = 132
+    n_split, split_rows = cuda_topk.split_geometry(q_n, n, sms, query_tile)
+    tiles = -(-n // cuda_topk.TILE_ROWS)
+    q_tiles = -(-q_n // query_tile)
+    assert split_rows % cuda_topk.TILE_ROWS == 0
+    assert 1 <= n_split <= min(tiles, 65535)
+    assert (n_split - 1) * split_rows < n <= n_split * split_rows  # none empty
+    assert n_split == 1 or q_tiles * n_split <= sms  # one wave
+    if q_tiles < sms and n_split < tiles:  # no fewer than whole tiles allow
+        per = -(-tiles // (sms // q_tiles))
+        assert n_split == -(-tiles // per)
+
+
 @pytest.mark.parametrize("n", [100, 1_000_000])
 @pytest.mark.parametrize("q_n", [1, 64, 2048, 16384])
-def test_split_geometry(q_n, n):
+def test_split_geometry_tf32(q_n, n):
+    """The f32/highest route's split, as it was: at least two blocks an
+    SM wherever the corpus has tiles enough."""
     sms = 132
-    n_split, split_rows = cuda_topk.split_geometry(q_n, n, sms)
+    n_split, split_rows = cuda_topk.split_geometry_tf32(q_n, n, sms)
     tiles = -(-n // cuda_topk.TILE_ROWS)
-    q_tiles = -(-q_n // cuda_topk.QUERY_TILE)
+    q_tiles = -(-q_n // cuda_topk.TF32_QUERY_TILE)
     assert split_rows % cuda_topk.TILE_ROWS == 0
     assert 1 <= n_split <= min(tiles, 65535)
     assert (n_split - 1) * split_rows < n <= n_split * split_rows  # none empty
@@ -120,6 +143,70 @@ def test_split_geometry(q_n, n):
         assert q_tiles * n_split >= 2 * sms
     else:
         assert n_split == tiles
+
+
+ROUTES = ("f32/highest", "bf16/highest", "bf16/high", "bf16/default",
+          "f32/high", "f32/default")
+PARTS = {"f32/highest": 0, "bf16/highest": 3, "bf16/high": 2,
+         "bf16/default": 1, "f32/high": 2, "f32/default": 1}
+
+
+@pytest.mark.parametrize("k", [1, 8, 10, 100, 128])
+@pytest.mark.parametrize("d", [7, 16, 37, 300, 512])
+@pytest.mark.parametrize("route", ROUTES)
+def test_kernel_plan_fits(route, d, k):
+    """Every route has a plan within a block's 227 KB at d <= 512 and k <=
+    128, at any query count: a query tile of 64 or 128 (128 only with
+    resident parts and more than 64 queries), 2 to SLOTS_MAX slots, the
+    route's query parts, and a split of whole tiles covering the corpus
+    in row order, none empty."""
+    for q_n, n in ((1, 1_000_000), (64, 200), (65, 41_368), (2048, 41_368),
+                   (16384, 1_000_000)):
+        plan = cuda_topk.kernel_plan(route, q_n, n, d, k, 132)
+        assert plan.route == route and plan.parts == PARTS[route]
+        assert plan.smem_bytes <= cuda_topk.SMEM_BLOCK
+        assert plan.blocks_per_sm >= 1
+        assert plan.query_tile in (64, 128)
+        if plan.query_tile == 128:
+            assert plan.resident and q_n > 64
+        assert 2 <= plan.slots <= cuda_topk.SLOTS_MAX
+        assert plan.split_rows % cuda_topk.TILE_ROWS == 0
+        assert (plan.n_split - 1) * plan.split_rows < n <= (
+            plan.n_split * plan.split_rows)
+        if route != "f32/highest":
+            assert plan.smem_bytes == cuda_topk.bf16_smem_bytes(
+                route, d, k, plan.query_tile, plan.slots, plan.resident)
+
+
+def test_kernel_plan_layout():
+    """The bf16/default plan of the 16384 x 1M x 300 scan, k = 10, byte by
+    byte: 128 queries, three slots of a 16 KB slice (+1 KB where d % 8 ==
+    4, + three mbarriers), 80 KB of resident query parts, the 64 KB
+    distance tile, two mask copies, norms and kth, two tiles' |x|^2,
+    four mbarriers, the best sets at pitch 11 and 1 KB to align."""
+    plan = cuda_topk.kernel_plan("bf16/default", 16384, 1_000_000, 300, 10,
+                                 132)
+    assert (plan.query_tile, plan.slots, plan.resident) == (128, 3, True)
+    want = (3 * (16384 + 1024 + 24) + 5 * 128 * 128 + 128 * 128 * 4
+            + 2 * 128 * 16 + 2 * 128 * 4 + 2 * 128 * 4 + 4 * 8
+            + 11 * 128 * 8 + 1024)
+    assert plan.smem_bytes == want == 218216
+    assert (plan.n_split, plan.blocks_per_sm) == (1, 1)
+    # where the 128-query parts leave no room for three slots, 64 queries
+    assert cuda_topk.tile_plan("bf16/high", 300, 10, 16384)[:3] == (64, 6, True)
+    # and where even theirs leave none for two, queries split in registers
+    assert cuda_topk.tile_plan("bf16/highest", 300, 128, 16384)[2] is False
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_kernel_plan_raises_where_nothing_fits(route):
+    """No plan quietly falls back: a k above MAX_K, or a card whose blocks
+    hold too little shared memory, raises and names the shape."""
+    with pytest.raises(ValueError, match="k <= 128"):
+        cuda_topk.kernel_plan(route, 64, 1000, 300, 129, 132)
+    with pytest.raises(ValueError, match=f"{route}.*d=300, k=10"):
+        cuda_topk.kernel_plan(route, 64, 1000, 300, 10, 132,
+                              smem_limit=48 * 1024)
 
 
 def test_split_pass_refuses_cpu_tensors():

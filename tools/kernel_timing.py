@@ -95,11 +95,12 @@ class Variant:
             raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
-def build_variants(_build, source, entry, ablations):
+def build_variants(_build, source, entry, ablations, unchanged=()):
     """Compile an edited copy of ``csrc/<source>`` per entry of
     ``ablations`` (name -> [(text, replacement)]), all at once, each into
-    a library of its own with the C entry point ``entry`` and its nvcc
-    log beside it (``.log``). Returns name -> (ctypes library, path)."""
+    a library of its own (with the sources ``unchanged`` as they are)
+    with the C entry point ``entry`` and its nvcc log beside it
+    (``.log``). Returns name -> (ctypes library, path)."""
     src = (_build.CSRC / source).read_text()
     out = _build.BUILD_DIR / "ablate"
     out.mkdir(parents=True, exist_ok=True)
@@ -114,7 +115,8 @@ def build_variants(_build, source, entry, ablations):
         cu.write_text(text)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-             str(_build.CSRC), "-o", str(out / f"lib_{stem}_{name}.so"), str(cu)],
+             str(_build.CSRC), "-o", str(out / f"lib_{stem}_{name}.so"), str(cu),
+             *(str(_build.CSRC / u) for u in unchanged)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, p in procs.items():

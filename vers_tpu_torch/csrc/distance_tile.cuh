@@ -23,14 +23,9 @@
 // features 8j + t and 8j + t + 4 side by side, so that (a0, a2) and
 // (a1, a3) are 8-byte loads.
 //
-// The bf16 routes (a bf16 corpus, precisions "high" and "default") use
-// wgmma.m64n64k16 .bf16 instead: the same 16 KB slot holds a 128-row x
-// 64-feature bf16 slice in the same 128-byte swizzle (chunk = 8
-// features), and A is per warp a0 (16w + g, 2t..2t+1), a1 (16w + g + 8,
-// 2t..2t+1), a2 (16w + g, 2t+8..2t+9), a3 (16w + g + 8, 2t+8..2t+9), two
-// bf16 a register, the lower feature in the low half. The resident query
-// tile of those routes is row-major. A product of two bf16 values is
-// exact in the tensor core; the sums are f32.
+// The bf16 routes (distance_bf16.cu) use wgmma .bf16 over the same
+// 128-byte swizzle with 64-feature slices (chunk = 8 features); their
+// shared-memory plan is make_layout_b below.
 #pragma once
 
 #include <cstdint>
@@ -67,11 +62,9 @@ struct Layout {
   size_t xs, lo, qs, dist, mask, qq, kth, xx, bar, bd, bi, bytes;
 };
 
-// bf: the bf16 routes, whose MMA steps are 16 features deep.
-__host__ __device__ inline Layout make_layout(int d, int k, bool resident,
-                                              bool bf = false) {
+__host__ __device__ inline Layout make_layout(int d, int k, bool resident) {
   Layout L;
-  const int dm = bf ? (d + 15) / 16 * 16 : (d + 7) / 8 * 8;  // MMA depth
+  const int dm = (d + 7) / 8 * 8;  // MMA depth
   L.qp = resident ? (dm % 16 ? dm : dm + 8) : 0;
   size_t o = 0;
   L.xs = o;
@@ -96,6 +89,85 @@ __host__ __device__ inline Layout make_layout(int d, int k, bool resident,
   o += (size_t)k * QT * sizeof(float);
   L.bi = o;
   o += (size_t)k * QT * sizeof(int);
+  L.bytes = o + 1024;  // room to align the base
+  return L;
+}
+
+// Kernel A's routes: the corpus dtype and the precision setting.
+// HIGHEST_F32 is the 3xTF32 route (distance_topk.cu); the others
+// multiply bf16 parts with wgmma .bf16 (distance_bf16.cu). A bf16 corpus
+// at "highest" splits each query into three bf16 parts, which hold all of
+// its f32 mantissa, against the exact bf16 rows; "high" is the TPU's
+// bf16_3x (hi*hi + hi*lo + lo*hi over hi = bf16(v), lo = bf16(v - hi); a
+// bf16 corpus has lo = 0), "default" one bf16 product. |q|^2 and |x|^2
+// are always f32 sums of the operands as given.
+enum Route : int {
+  HIGHEST_F32 = 0,  // f32 corpus, precision "highest"
+  HIGHEST_B16 = 1,  // bf16 corpus, "highest"
+  HIGH_B16 = 2,     // bf16 corpus, "high"
+  DEFAULT_B16 = 3,  // bf16 corpus, "default"
+  HIGH_F32 = 4,     // f32 corpus, "high"
+  DEFAULT_F32 = 5,  // f32 corpus, "default"
+};
+
+// bf16 parts of each query in a bf16 route's products.
+__host__ __device__ constexpr int route_query_parts(int route) {
+  return route == HIGHEST_B16 ? 3
+         : route == HIGH_B16 || route == HIGH_F32 ? 2
+                                                  : 1;
+}
+
+// A bf16 route's shared memory (from a 1024-byte aligned base): the ring
+// of ns slots (slot_bytes), the
+// resident query parts (parts x slices x qt rows of 128 bytes; absent on
+// the RS path), the distance tile (qt x CT f32), candidate masks (one
+// copy a consumer warpgroup), norms,
+// kth distances, two tiles' |x|^2, the mbarriers (full, ready and empty
+// per slot; two xready, filtered, merged) and the best sets. ops/cuda_topk.kernel_plan repeats
+// this arithmetic to choose (qt, ns, resident).
+struct LayoutB {
+  size_t slot, ring, a, dist, mask, qq, kth, xx, bar, bd, bi, bytes;
+};
+
+// A slot's bytes: a 16 KB bf16 part of a 128-row x 64-feature slice; 32
+// KB for an f32 corpus, which lands as f32 and is converted in place; 1
+// KB more for a bf16 corpus whose rows are 8-byte but not 16-byte aligned
+// (d % 8 == 4), whose odd rows land as 64 rows x 144 bytes over the
+// slot's second half and past it, and are moved into place
+// (distance_bf16.cu corpus_maps).
+__host__ __device__ constexpr int slot_bytes(int route, int d) {
+  return route == HIGH_F32 || route == DEFAULT_F32 ? 2 * CT * 128
+         : d % 8 == 4                              ? CT * 128 + 1024
+                                                   : CT * 128;
+}
+
+__host__ __device__ inline LayoutB make_layout_b(int route, int d, int k,
+                                                 int qt, int ns,
+                                                 bool resident) {
+  const int nk = (d + 63) / 64;  // 64-feature slices
+  LayoutB L;
+  L.slot = slot_bytes(route, d);
+  size_t o = 0;
+  L.ring = o;
+  o += (size_t)ns * L.slot;
+  L.a = o;
+  o += resident ? (size_t)route_query_parts(route) * nk * qt * 128 : 0;
+  L.dist = o;
+  o += (size_t)qt * CT * sizeof(float);
+  L.mask = o;
+  o += (size_t)2 * qt * MASKW * sizeof(unsigned);
+  L.qq = o;
+  o += (size_t)qt * sizeof(float);
+  L.kth = o;
+  o += (size_t)qt * sizeof(float);
+  L.xx = o;
+  o += (size_t)2 * CT * sizeof(float);
+  L.bar = o;
+  o += (size_t)(3 * ns + 4) * sizeof(uint64_t);
+  L.bd = o;  // a query row's k best at an odd pitch (k | 1)
+  o += (size_t)(k | 1) * qt * sizeof(float);
+  L.bi = o;
+  o += (size_t)(k | 1) * qt * sizeof(int);
   L.bytes = o + 1024;  // room to align the base
   return L;
 }
@@ -193,140 +265,6 @@ __device__ inline void copy_units(float* dst, const float* __restrict__ x,
   }
 }
 
-// cp.async of N bytes (4 or 16) with zero fill: valid == false copies
-// nothing and writes N zero bytes.
-template <int N>
-__device__ inline void cp_async_n(void* dst, const void* src, bool valid) {
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "n"(N), "r"(valid ? N : 0)
-                 : "memory");
-}
-
-// A bf16 corpus: features k0 .. k0 + 63 of corpus rows [g0, g0 + CT) into
-// the slice dst (128-byte rows, 16-byte unit u = row u / 8, features
-// k0 + 8 ((u % 8) ^ (row % 8)) ..), rows >= r_end and features >= d as
-// zeros. No TMA: a row of d bf16 is 16-byte aligned only when d % 8 == 0.
-// gran 16 copies a unit by one cp.async, gran 4 by four (d even), and
-// gran 2 (d odd) loads it by plain 2-byte loads and stores it. Producer p
-// copies the units it later sums (square_unit_bf16), so its own
-// cp.async.wait_group is enough before it reads them.
-__device__ inline void copy_units_bf16(float* dst,
-                                       const uint16_t* __restrict__ x,
-                                       long long g0, long long r_end, int d,
-                                       int k0, int p, int gran) {
-#pragma unroll
-  for (int i = 0; i < UNITS; ++i) {
-    const int u = i * PRODUCERS + p, r = u / 8;
-    const int c = k0 + ((u % 8) ^ (r % 8)) * 8;  // the unit's first feature
-    const bool row = g0 + r < r_end;
-    const uint16_t* src = x + (g0 + r) * d + c;
-    unsigned char* out = reinterpret_cast<unsigned char*>(dst) + u * 16;
-    if (gran == 16) {
-      cp_async_n<16>(out, row && c < d ? src : x, row && c < d);
-    } else if (gran == 4) {
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = row && c + 2 * e < d;
-        cp_async_n<4>(out + 4 * e, ok ? src + 2 * e : x, ok);
-      }
-    } else {
-      uint32_t w[4];
-      for (int e = 0; e < 4; ++e) {
-        const uint32_t a = row && c + 2 * e < d ? __ldg(src + 2 * e) : 0u;
-        const uint32_t b = row && c + 2 * e + 1 < d ? __ldg(src + 2 * e + 1) : 0u;
-        w[e] = a | (b << 16);
-      }
-      *reinterpret_cast<uint4*>(out) = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
-
-// The squares of the 8 bf16 values of unit u of a landed slice, widened
-// to f32, added to xacc.
-__device__ inline void square_unit_bf16(const float* xs, int u, float& xacc) {
-  const uint4 v = *reinterpret_cast<const uint4*>(xs + u * 4);
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float a = __uint_as_float(w[e] << 16);
-    const float b = __uint_as_float(w[e] & 0xFFFF0000u);
-    xacc = fmaf(a, a, xacc);
-    xacc = fmaf(b, b, xacc);
-  }
-}
-
-// bf16 bits of v rounded to nearest even, as torch and XLA round f32 to
-// bf16 (finite v), and the value of such bits.
-__device__ inline uint32_t bf16_bits(float v) {
-  const uint32_t u = __float_as_uint(v);
-  return (u + 0x7FFFu + ((u >> 16) & 1u)) >> 16;
-}
-__device__ inline float bf16_value(uint32_t b) { return __uint_as_float(b << 16); }
-
-// v as P bf16 parts, each the rounding of what the parts before it leave
-// (each residual is exact in f32): P = 1 is bf16(v); P = 2 the TPU's
-// bf16_3x split hi + lo; P = 3 holds all 24 bits of an f32 mantissa.
-template <int P>
-__device__ inline void split_bf16(float v, uint32_t (&part)[P]) {
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    part[i] = bf16_bits(v);
-    v -= bf16_value(part[i]);
-  }
-}
-
-// An f32 corpus on a bf16 route: the 8 features of unit u (as in
-// copy_units_bf16) of corpus rows [g0, g0 + CT), loaded straight from
-// global memory (two 16-byte loads when vec: rows 16-byte aligned),
-// zeros past r_end and d.
-__device__ inline void load_unit_f32(float (&v)[8],
-                                     const float* __restrict__ x, long long g0,
-                                     long long r_end, int d, int k0, int u,
-                                     bool vec) {
-  const int r = u / 8, c = k0 + ((u % 8) ^ (r % 8)) * 8;
-  const bool row = g0 + r < r_end;
-  const float* src = x + (g0 + r) * d + c;
-  if (vec) {
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 a =
-        row && c < d ? __ldg(reinterpret_cast<const float4*>(src)) : z;
-    const float4 b =
-        row && c + 4 < d ? __ldg(reinterpret_cast<const float4*>(src + 4)) : z;
-    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = row && c + e < d ? __ldg(src + e) : 0.f;
-  }
-}
-
-// ... stored as P bf16 parts (split_bf16): part 0 into the slice xs,
-// part 1 into lo, at unit u; the squares of the f32 values go to xacc.
-template <int P>
-__device__ inline void store_unit_bf16(const float (&v)[8], float* xs,
-                                       float* lo, int u, float& xacc) {
-  uint32_t h[4], l[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    uint32_t a[P], b[P];
-    split_bf16<P>(v[2 * e], a);
-    split_bf16<P>(v[2 * e + 1], b);
-    h[e] = a[0] | (b[0] << 16);
-    l[e] = P > 1 ? a[P - 1] | (b[P - 1] << 16) : 0u;
-    xacc = fmaf(v[2 * e], v[2 * e], xacc);
-    xacc = fmaf(v[2 * e + 1], v[2 * e + 1], xacc);
-  }
-  *reinterpret_cast<uint4*>(xs + u * 4) = make_uint4(h[0], h[1], h[2], h[3]);
-  if (P > 1)
-    *reinterpret_cast<uint4*>(lo + u * 4) = make_uint4(l[0], l[1], l[2], l[3]);
-}
-
 // The split. A tf32 MMA reads the top 19 bits of each operand and
 // ignores the 13 below. hi: add half a tf32 ulp to the magnitude (the
 // sign bit is apart) and clear the 13 bits, which rounds v to nearest,
@@ -400,27 +338,6 @@ __device__ inline void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4],
       : "memory");
 }
 
-// acc = (scale ? acc : 0) + A (registers) x B (descriptor)^T,
-// m64n64k16 bf16 -> f32, B K-major.
-__device__ inline void wgmma_bf16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                     uint64_t desc, int scale) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale)
-      : "memory");
-}
-
 // Pin registers at this point of the volatile asm sequence: the A
 // fragments are computed before the wgmma fence and the accumulators are
 // not touched while the wgmmas run (otherwise ptxas fences between them).
@@ -441,12 +358,15 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// A row-major (rows x cols) matrix of elem-byte values as a TMA tensor:
-// boxes of box_rows x box_cols, 128-byte swizzle, zeros outside. Needs
-// 16-byte aligned rows and a box row of at most 128 bytes.
+// A row-major (rows x cols) matrix of elem-byte values, rows `pitch`
+// values apart (cols where pitch is 0), as a TMA tensor: boxes of
+// box_rows x box_cols, 128-byte swizzle (none where swizzle is false),
+// zeros outside. Needs a 16-byte aligned base and pitch, and a box row of
+// at most 128 bytes where swizzled.
 inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type,
                              int elem, const void* p, long long rows,
-                             long long cols, int box_rows, int box_cols) {
+                             long long cols, int box_rows, int box_cols,
+                             long long pitch = 0, bool swizzle = true) {
   static EncodeTiled encode = nullptr;
   if (!encode) {
     cudaDriverEntryPointQueryResult found;
@@ -458,12 +378,13 @@ inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type,
       return cudaErrorSymbolNotFound;
   }
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem};
+  const cuuint64_t strides[1] = {(cuuint64_t)(pitch ? pitch : cols) * elem};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(
       map, type, 2, const_cast<void*>(p), dims, strides, box, step,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -6,62 +6,50 @@
 // axis, with the product on the MXU in the corpus's own dtype (f32 or
 // bf16) at the caller's precision: HIGHEST (f32 from several bf16
 // passes), HIGH (bf16_3x) or DEFAULT (one bf16 pass). Each of the six
-// (corpus dtype, precision) pairs is a route of this kernel (Route
-// below); the TPU's meaning of each is ops/topk.product_operands.
+// (corpus dtype, precision) pairs is a route of this kernel (Route,
+// distance_tile.cuh); the TPU's meaning of each is ops/topk.product_operands.
 //
 // Design on the H100. The grid is (query tile, corpus split), query tile
 // fastest so that the blocks in flight share one split in L2. A split is
-// a contiguous range of 128-row tiles; the host picks the number of
-// splits S from Q, N and the SM count so that at least two blocks per SM
-// are launched at any Q, where one block per query tile would leave most
-// SMs idle at small Q. Each block
-// walks its split in ascending row order and writes its ascending (64, k)
-// best set into columns [split * k, split * k + k) of a (Q, S * k)
-// table; kernel C then takes the final k of each row (S = 1 writes the
-// result directly). Splits are in row order and kernel C keeps column
-// order among equal values, so ties still go to the lower row.
+// a contiguous range of 128-row tiles; the host picks the route's plan
+// (ops/cuda_topk.kernel_plan: query tile, ring slots, where the query
+// parts live, split count). Each block walks its split in ascending row
+// order and writes its ascending (query tile, k) best set into columns
+// [split * k, split * k + k) of a (Q, S * k) table; kernel C then takes
+// the final k of each row (S = 1 writes the result directly). Splits are
+// in row order and kernel C keeps column order among equal values, so
+// ties still go to the lower row.
 //
-// Bound on the H100: the 2 Q N d flop of the dot products (9.8e12 at
-// 16384 x 1M x 300), and the corpus streamed once per 64-query tile, so
-// (Q / 64) x 1.2 GB from L2 (one read from HBM at small Q, 0.36 ms at
-// 3.35 TB/s). The products run on the tensor cores as warpgroup MMAs:
-// an f32 corpus at HIGHEST as wgmma m64n64k8 .tf32 in the 3xTF32 split
-// (distance_tile.cuh), f32 accurate, three MMAs per product; every other
-// route as wgmma m64n64k16 .bf16 over bf16 parts of the operands (one
-// such MMA takes the time of one tf32 k8 MMA over twice the features):
-// one MMA for DEFAULT, three for HIGH (two over a bf16 corpus), three
-// for a bf16 corpus at HIGHEST (the query in three bf16 parts against
-// the exact row). At DEFAULT that is 9.94 ms at 16384 x 1M x 300.
+// Bound on the H100: the dot products on the tensor cores, 2 Q N d flop
+// (9.8e12 at 16384 x 1M x 300) times the route's products, and the
+// corpus streamed once per query tile from L2 (one read from HBM at
+// small Q). A block is three warpgroups: a producer warpgroup that
+// stages the corpus into a ring of shared-memory slots, sums |x|^2 from
+// what lands and merges each tile's candidates into the best sets, and
+// two consumer warpgroups that run the MMAs and at a tile's end filter
+// the distances (a candidate beats its row's kth best). The kernel is
+// deterministic.
 //
-// A block is three warpgroups. The producer warpgroup streams 128 x 32
-// slices of the corpus into a ring of three shared-memory slots by TMA
-// (mbarriers; 128-byte swizzle, zeros past the corpus), splits each
-// landed slice into tf32 hi (in place) and lo (beside it), which wgmma
-// reads as B, sums |x|^2 from it (no pass over the corpus outside the
-// kernel), and merges each tile's candidates. The two consumer
-// warpgroups keep the 64 queries resident as f32, split them into A
-// fragments in registers (a resident hi/lo copy at d = 300 would not
-// fit beside the ring), multiply 64 corpus rows each, and at a tile's end
-// filter its distances: an entry is a candidate only if it beats its
-// row's kth distance (a bit in a per-row mask; atomicOr only sets bits,
-// so the order of the atomics does not matter). The merge walks the set
-// bits in ascending column order with strict-less sorted insertion. The
-// kernel is deterministic. Measured on an NVIDIA H100 80GB HBM3 at 700 W
-// (PERF.md): at Q = 2048 the loads alone take about half the time (38.5
-// GB from L2 at ~3.6 TB/s), and the split, the A fragments and the MMAs
-// add to it rather than hide behind it; a 128-query tile or cluster
-// multicast would halve the L2 traffic.
+// The f32 corpus at HIGHEST (this file) multiplies by wgmma m64n64k8
+// .tf32 in the 3xTF32 split (distance_tile.cuh), f32 accurate, three MMAs
+// a product, over 64-query tiles and 128 x 32 slices that TMA lands in a
+// ring of three slots (128-byte swizzle, zeros past the corpus); the
+// producers split each landed slice into tf32 hi (in place) and lo; the
+// consumers keep the queries resident as f32 where they fit and split
+// them into A fragments in registers. Measured on an NVIDIA H100 80GB
+// HBM3 at 700 W (PERF.md): at Q = 2048 the loads alone take about half
+// the time (38.5 GB from L2 at ~3.6 TB/s).
 //
-// The bf16 routes keep that structure with 64-feature slices (128 bf16
-// bytes a row, the same 16 KB slot and swizzle) and split the resident
-// f32 queries into bf16 parts in registers. A bf16 corpus is staged by
-// cp.async in 16-byte pieces where its rows are 16-byte aligned (d % 8 ==
-// 0) and in 4-byte pieces otherwise (d = 300: 600-byte rows, which a TMA
-// map cannot stride; d odd: 2-byte loads), with no copy of the store; the
-// producers sum |x|^2 from the landed slice. An f32 corpus on a bf16 route
-// is read by the producers into registers and stored as its bf16 parts
-// (its |x|^2 from the f32 values). Features past d are zeros in both
-// operands up to the 16-feature MMA step.
+// The five bf16 routes (distance_bf16.cu, whose note has the design and
+// its measured limits) multiply bf16 parts with wgmma .bf16 over
+// 64-feature slices: the query parts made once a block and resident as
+// wgmma's A operand, a 128-query tile where two slots fit beside it
+// (half the L2 traffic), a slice's MMAs in flight while the next is
+// waited for, the corpus staged by TMA (the 600-byte rows of a bf16
+// corpus at d = 300 as even and odd rows), an f32 corpus converted in
+// place, a merge a row a lane with a warp-wide rank merge for rows with
+// many candidates, and a split of one wave of blocks. On the H100 they
+// run at 1.4-2.3x the times of their first port (PERF.md §6).
 #include <cstdint>
 
 #include "distance_tile.cuh"
@@ -69,47 +57,16 @@
 namespace vers {
 namespace dtk {
 
-// The operand routes. HIGHEST_F32 is the 3xTF32 route above; the others
-// multiply bf16 operands with wgmma .bf16 (distance_tile.cuh). A bf16
-// corpus at "highest" splits each query into three bf16 parts, which hold
-// all of its f32 mantissa, against the exact bf16 rows: three bf16 MMAs
-// where the TF32 split would take two at half the rate. "high" is the
-// TPU's bf16_3x (hi*hi + hi*lo + lo*hi over hi = bf16(v), lo = bf16(v -
-// hi); a bf16 corpus has lo = 0), "default" one bf16 product. |q|^2 and
-// |x|^2 are always f32 sums of the operands as given.
-enum Route : int {
-  HIGHEST_F32 = 0,  // f32 corpus, precision "highest"
-  HIGHEST_B16 = 1,  // bf16 corpus, "highest"
-  HIGH_B16 = 2,     // bf16 corpus, "high"
-  DEFAULT_B16 = 3,  // bf16 corpus, "default"
-  HIGH_F32 = 4,     // f32 corpus, "high"
-  DEFAULT_F32 = 5,  // f32 corpus, "default"
-};
-
-template <int ROUTE>
-struct RouteTraits {
-  static constexpr bool BF = ROUTE != HIGHEST_F32;  // bf16 MMAs
-  static constexpr bool XB16 =
-      ROUTE == HIGHEST_B16 || ROUTE == HIGH_B16 || ROUTE == DEFAULT_B16;
-  static constexpr int AP = ROUTE == HIGHEST_B16 ? 3
-                            : ROUTE == HIGH_B16 || ROUTE == HIGH_F32 ? 2
-                                                                     : 1;
-  static constexpr int BP = ROUTE == HIGH_F32 ? 2 : 1;  // corpus parts
-  static constexpr int KF = BF ? 16 : 8;                // features an MMA
-  static constexpr int DKS = BF ? 64 : DK;              // ... a slice
-};
-
-template <bool RESIDENT, int ROUTE>
+template <bool RESIDENT>
 __global__ void __launch_bounds__(THREADS, 1)
 distance_topk_kernel(const __grid_constant__ CUtensorMap map,
                      const float* __restrict__ q, const void* __restrict__ xv,
                      float* __restrict__ out_d, int* __restrict__ out_i,
                      int ld_out, int Q, int d, int n_valid, int split_rows,
-                     int k, int cosine, int tma, int gran) {
-  using R = RouteTraits<ROUTE>;
+                     int k, int cosine, int tma) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - smem_addr(smem_raw) % 1024) % 1024);
-  const Layout L = make_layout(d, k, RESIDENT, R::BF);
+  const Layout L = make_layout(d, k, RESIDENT);
   float* xs = reinterpret_cast<float*>(smem + L.xs);
   float* lo = reinterpret_cast<float*>(smem + L.lo);
   float* qs = reinterpret_cast<float*>(smem + L.qs);
@@ -132,9 +89,9 @@ distance_topk_kernel(const __grid_constant__ CUtensorMap map,
   const long long r_begin = (long long)blockIdx.y * split_rows;
   const long long r_end = min(r_begin + split_rows, (long long)n_valid);
   const int ntile = r_end > r_begin ? (int)((r_end - r_begin + CT - 1) / CT) : 0;
-  const int nk = (d + R::DKS - 1) / R::DKS;  // slices per tile
+  const int nk = (d + DK - 1) / DK;  // slices per tile
   const int nsteps = ntile * nk;
-  const int dm = (d + R::KF - 1) / R::KF * R::KF;  // MMA depth
+  const int dm = (d + 7) / 8 * 8;  // MMA depth
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -148,12 +105,11 @@ distance_topk_kernel(const __grid_constant__ CUtensorMap map,
     mbar_init(merged, PRODUCERS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // the 3xTF32 resident tile stores features 8j + t, 8j + t + 4 at
-  // 8j + 2t, + 1; the bf16 routes' tile is row-major
+  // the resident tile stores features 8j + t, 8j + t + 4 at 8j + 2t, + 1
   if (RESIDENT) {
     for (int e = tid; e < QT * L.qp; e += THREADS) {
       const int r = e / L.qp, p = e % L.qp;
-      const int c = R::BF ? p : (p & ~7) + (p & 7) / 2 + 4 * (p & 1);
+      const int c = (p & ~7) + (p & 7) / 2 + 4 * (p & 1);
       qs[e] = (r < nq && c < d) ? qt[(size_t)r * d + c] : 0.f;
     }
   }
@@ -182,11 +138,8 @@ distance_topk_kernel(const __grid_constant__ CUtensorMap map,
     // Producers: slice s lands in slot s % NS (TMA, or their own
     // cp.async copies), is split into hi (in place) and lo, with |x|^2,
     // and handed to the consumers (ready); once they release it (empty),
-    // its slot takes slice s + NS. On the bf16 routes a bf16 corpus lands
-    // as it is (cp.async) and only its |x|^2 is summed; an f32 corpus is
-    // read straight into registers and stored as bf16 parts. The
-    // producers also merge each tile's candidates once the consumers
-    // have filtered them.
+    // its slot takes slice s + NS. The producers also merge each tile's
+    // candidates once the consumers have filtered them.
     const int p = tid - CONSUMERS;
     auto merge = [&](int t) {
       mbar_wait(filtered, (uint32_t)t & 1u);
@@ -196,19 +149,14 @@ distance_topk_kernel(const __grid_constant__ CUtensorMap map,
       mbar_arrive(merged);
     };
     auto fill = [&](int s) {
-      const int t = s / nk, k0 = (s - t * nk) * R::DKS;
+      const int t = s / nk, k0 = (s - t * nk) * DK;
       const long long g0 = r_begin + (long long)t * CT;
       float* dst = xs + (size_t)(s % NS) * SLICE;
-      if constexpr (ROUTE == HIGHEST_F32) {
-        if (tma) {
-          if (p == 0) tma_slice(dst, &map, k0, (int)g0, &full[s % NS]);
-        } else {
-          copy_units(dst, static_cast<const float*>(xv), g0, r_end, d, k0, p);
-        }
-      } else if constexpr (R::XB16) {
-        copy_units_bf16(dst, static_cast<const uint16_t*>(xv), g0, r_end, d,
-                        k0, p, gran);
-      }  // an f32 corpus on a bf16 route is read when its slice is due
+      if (tma) {
+        if (p == 0) tma_slice(dst, &map, k0, (int)g0, &full[s % NS]);
+      } else {
+        copy_units(dst, static_cast<const float*>(xv), g0, r_end, d, k0, p);
+      }
     };
     for (int s = 0; s < NS; ++s) {
       if (s < nsteps) fill(s);
@@ -225,29 +173,9 @@ distance_topk_kernel(const __grid_constant__ CUtensorMap map,
         cp_async_wait<NS - 2>();
       float* xslot = xs + (size_t)slot * SLICE;
       float* lslot = lo + (size_t)slot * SLICE;
-      if constexpr (ROUTE == HIGHEST_F32) {
 #pragma unroll
-        for (int i = 0; i < UNITS; ++i)
-          split_unit(xslot, lslot, i * PRODUCERS + p, xacc[i]);
-      } else if constexpr (R::XB16) {
-#pragma unroll
-        for (int i = 0; i < UNITS; ++i)
-          square_unit_bf16(xslot, i * PRODUCERS + p, xacc[i]);
-      } else {
-        // the slot was released before its refill wait (iteration
-        // s - NS + 1); all loads first, then the conversions
-        const int t = s / nk, k0 = (s - t * nk) * R::DKS;
-        const long long g0 = r_begin + (long long)t * CT;
-        float v[UNITS][8];
-#pragma unroll
-        for (int i = 0; i < UNITS; ++i)
-          load_unit_f32(v[i], static_cast<const float*>(xv), g0, r_end, d, k0,
-                        i * PRODUCERS + p, gran == 16);
-#pragma unroll
-        for (int i = 0; i < UNITS; ++i)
-          store_unit_bf16<R::BP>(v[i], xslot, lslot, i * PRODUCERS + p,
-                                 xacc[i]);
-      }
+      for (int i = 0; i < UNITS; ++i)
+        split_unit(xslot, lslot, i * PRODUCERS + p, xacc[i]);
       if (s % nk == nk - 1) {  // the tile's |x|^2, rows 16 i + p / 8
 #pragma unroll
         for (int i = 0; i < UNITS; ++i) {
@@ -275,9 +203,8 @@ distance_topk_kernel(const __grid_constant__ CUtensorMap map,
     if (!tma) cp_async_wait<0>();
   } else {
     // Consumers: per slice, the A fragments (queries, split in
-    // registers) and the wgmmas into the tile's accumulators (12 on the
-    // 3xTF32 route; on a bf16 route 4 per product of parts); at a tile's
-    // end, the distances and the filter.
+    // registers) and the 12 wgmmas into the tile's accumulators; at a
+    // tile's end, the distances and the filter.
     const int g = lane / 4, t4 = lane % 4;
     const int wg = warp / 4;              // corpus rows 64 wg + ...
     const int qr0 = (warp % 4) * 16 + g;  // the thread's query rows qr0, + 8
@@ -291,86 +218,35 @@ distance_topk_kernel(const __grid_constant__ CUtensorMap map,
       return make_float2(ok && c + t4 < d ? __ldg(pq) : 0.f,
                          ok && c + t4 + 4 < d ? __ldg(pq + 4) : 0.f);
     };
-    // bf16 routes: features c and c + 1 of query row r (c even)
-    auto qpair = [&](int r, int c) -> float2 {
-      if (RESIDENT)
-        return *reinterpret_cast<const float2*>(qs + r * L.qp + c);
-      const bool ok = r < nq;
-      const float* pq = qt + (size_t)r * d + c;
-      return make_float2(ok && c < d ? __ldg(pq) : 0.f,
-                         ok && c + 1 < d ? __ldg(pq + 1) : 0.f);
-    };
     float acc[32] = {};
     for (int s = 0; s < nsteps; ++s) {
       const int slot = s % NS;
       const int t = s / nk, j = s - t * nk;
-      const int nks = min(R::DKS, dm - j * R::DKS) / R::KF;  // MMA steps
+      const int nks = min(DK, dm - j * DK) / 8;  // MMA steps
       const float* xb = xs + (size_t)slot * SLICE + wg * 64 * DK;
       const float* lb = lo + (size_t)slot * SLICE + wg * 64 * DK;
-      if constexpr (ROUTE == HIGHEST_F32) {
-        uint32_t ah[DK / 8][4], al[DK / 8][4];
+      uint32_t ah[DK / 8][4], al[DK / 8][4];
 #pragma unroll
-        for (int ks = 0; ks < DK / 8; ++ks) {  // steps past dm multiply zeros
-          const bool live = ks < nks;
-          const float2 top = live ? qval(qr0, j * DK + ks * 8) : float2{};
-          const float2 bot = live ? qval(qr0 + 8, j * DK + ks * 8) : float2{};
-          split3(top.x, ah[ks][0], al[ks][0]);
-          split3(bot.x, ah[ks][1], al[ks][1]);
-          split3(top.y, ah[ks][2], al[ks][2]);
-          split3(bot.y, ah[ks][3], al[ks][3]);
-          pin(ah[ks]);
-          pin(al[ks]);
-        }
-        mbar_wait(&ready[slot], (uint32_t)(s / NS) & 1u);
-        pin(acc);
-        wgmma_fence();
+      for (int ks = 0; ks < DK / 8; ++ks) {  // steps past dm multiply zeros
+        const bool live = ks < nks;
+        const float2 top = live ? qval(qr0, j * DK + ks * 8) : float2{};
+        const float2 bot = live ? qval(qr0 + 8, j * DK + ks * 8) : float2{};
+        split3(top.x, ah[ks][0], al[ks][0]);
+        split3(bot.x, ah[ks][1], al[ks][1]);
+        split3(top.y, ah[ks][2], al[ks][2]);
+        split3(bot.y, ah[ks][3], al[ks][3]);
+        pin(ah[ks]);
+        pin(al[ks]);
+      }
+      mbar_wait(&ready[slot], (uint32_t)(s / NS) & 1u);
+      pin(acc);
+      wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < DK / 8; ++ks) {
-          const uint64_t dh = b_desc(xb, ks * 32), dl = b_desc(lb, ks * 32);
-          wgmma_tf32(acc, al[ks], dh, j > 0 || ks > 0);  // a tile starts at 0
-          wgmma_tf32(acc, ah[ks], dl, 1);
-          wgmma_tf32(acc, ah[ks], dh, 1);
-        }
-      } else {
-        // a[ks][part]: the A fragment of MMA step ks, query part `part`
-        uint32_t a[4][R::AP][4];
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {  // steps past dm multiply zeros
-          const bool live = ks < nks;
-          const int c = j * R::DKS + ks * 16 + 2 * t4;
-          const float2 v[4] = {live ? qpair(qr0, c) : float2{},
-                               live ? qpair(qr0 + 8, c) : float2{},
-                               live ? qpair(qr0, c + 8) : float2{},
-                               live ? qpair(qr0 + 8, c + 8) : float2{}};
-#pragma unroll
-          for (int f = 0; f < 4; ++f) {
-            uint32_t lo16[R::AP], hi16[R::AP];
-            split_bf16<R::AP>(v[f].x, lo16);
-            split_bf16<R::AP>(v[f].y, hi16);
-#pragma unroll
-            for (int pa = 0; pa < R::AP; ++pa)
-              a[ks][pa][f] = lo16[pa] | (hi16[pa] << 16);
-          }
-#pragma unroll
-          for (int pa = 0; pa < R::AP; ++pa) pin(a[ks][pa]);
-        }
-        mbar_wait(&ready[slot], (uint32_t)(s / NS) & 1u);
-        pin(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          const uint64_t dh = b_desc(xb, ks * 32);
-          const int first = j > 0 || ks > 0;  // a tile starts at 0
-          if constexpr (R::BP == 2) {  // lo*hi + hi*lo + hi*hi
-            wgmma_bf16_rs(acc, a[ks][1], dh, first);
-            wgmma_bf16_rs(acc, a[ks][0], b_desc(lb, ks * 32), 1);
-            wgmma_bf16_rs(acc, a[ks][0], dh, 1);
-          } else {  // the smallest query part first
-#pragma unroll
-            for (int pa = R::AP - 1; pa >= 0; --pa)
-              wgmma_bf16_rs(acc, a[ks][pa], dh, pa == R::AP - 1 ? first : 1);
-          }
-        }
+      for (int ks = 0; ks < DK / 8; ++ks) {
+        const uint64_t dh = b_desc(xb, ks * 32), dl = b_desc(lb, ks * 32);
+        wgmma_tf32(acc, al[ks], dh, j > 0 || ks > 0);  // a tile starts at 0
+        wgmma_tf32(acc, ah[ks], dl, 1);
+        wgmma_tf32(acc, ah[ks], dh, 1);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -426,43 +302,46 @@ inline cudaError_t corpus_map(CUtensorMap* map, const float* x, int n_rows,
                    n_rows, d, CT, DK);
 }
 
-template <bool RESIDENT, int ROUTE>
-int launch(const CUtensorMap& map, const float* q, const void* x,
+template <bool RESIDENT>
+int launch(const CUtensorMap& map, const float* q, const float* x,
            float* out_d, int* out_i, int Q, int d, int n_valid, int k,
-           int cosine, int n_split, int split_rows, int tma, int gran,
+           int cosine, int n_split, int split_rows, int tma,
            cudaStream_t stream) {
-  const size_t smem =
-      make_layout(d, k, RESIDENT, RouteTraits<ROUTE>::BF).bytes;
-  auto kernel = distance_topk_kernel<RESIDENT, ROUTE>;
+  const size_t smem = make_layout(d, k, RESIDENT).bytes;
+  auto kernel = distance_topk_kernel<RESIDENT>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Q + QT - 1) / QT, n_split);
   kernel<<<grid, THREADS, smem, stream>>>(map, q, x, out_d, out_i, n_split * k,
                                           Q, d, n_valid, split_rows, k, cosine,
-                                          tma, gran);
+                                          tma);
   return (int)cudaGetLastError();
 }
 
-template <bool RESIDENT>
-int launch_route(int route, const CUtensorMap& map, const float* q,
-                 const void* x, float* out_d, int* out_i, int Q, int d,
-                 int n_valid, int k, int cosine, int n_split, int split_rows,
-                 int tma, int gran, cudaStream_t st) {
-#define VERS_ROUTE(R)                                                      \
-  case R:                                                                  \
-    return launch<RESIDENT, R>(map, q, x, out_d, out_i, Q, d, n_valid, k,  \
-                               cosine, n_split, split_rows, tma, gran, st);
-  switch (route) {
-    VERS_ROUTE(HIGHEST_F32)
-    VERS_ROUTE(HIGHEST_B16)
-    VERS_ROUTE(HIGH_B16)
-    VERS_ROUTE(DEFAULT_B16)
-    VERS_ROUTE(HIGH_F32)
-    VERS_ROUTE(DEFAULT_F32)
-  }
-#undef VERS_ROUTE
-  return (int)cudaErrorInvalidValue;
+// distance_bf16.cu: the bf16 routes' launch and occupancy.
+int launch_b16(int route, const float* q, const void* x, float* out_d,
+               int* out_i, int Q, int n_rows, int d, int n_valid, int k,
+               int cosine, int n_split, int split_rows, int gran, int qt,
+               int ns, int resident, int max_smem, cudaStream_t stream);
+int occupancy_b16(int route, int d, int k, int qt, int ns, int resident,
+                  int* blocks);
+
+inline int route_of(int x_bf16, int precision) {
+  return x_bf16 ? (precision == 0   ? HIGHEST_B16
+                   : precision == 1 ? HIGH_B16
+                                    : DEFAULT_B16)
+                : (precision == 0   ? HIGHEST_F32
+                   : precision == 1 ? HIGH_F32
+                                    : DEFAULT_F32);
+}
+
+inline int max_smem_optin(int* max_smem) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(
+      max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
 }  // namespace dtk
@@ -472,11 +351,16 @@ int launch_route(int route, const CUtensorMap& map, const float* q,
 // tile i, columns [s * k, s * k + k). Split s covers corpus rows
 // [s * split_rows, (s + 1) * split_rows) below n_valid. x is (n_rows, d)
 // f32, or bf16 when x_bf16; precision 0 = "highest", 1 = "high", 2 =
-// "default".
+// "default". The plan (query_tile, slots, resident) is the host's
+// (ops/cuda_topk.kernel_plan); a plan this card's shared memory cannot
+// hold, or one the route does not have, is refused. The f32 "highest"
+// route has one plan: 64 queries, NS slots, its query tile resident where
+// it fits (k <= 31 at d = 300; 216 KB at k = 10), else read through L1.
 extern "C" int vers_distance_topk(const float* q, const void* x, float* out_d,
                                   int* out_i, int Q, int n_rows, int d,
                                   int n_valid, int k, int cosine, int n_split,
                                   int split_rows, int x_bf16, int precision,
+                                  int query_tile, int slots, int resident,
                                   void* stream) {
   using namespace vers::dtk;
   if (Q <= 0) return 0;
@@ -485,43 +369,63 @@ extern "C" int vers_distance_topk(const float* q, const void* x, float* out_d,
     return (int)cudaErrorInvalidValue;
   if (n_valid > n_rows) n_valid = n_rows;
   if (n_valid < 0) n_valid = 0;
-  int dev = 0, max_smem = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return (int)e;
-  const int route = x_bf16 ? (precision == 0   ? HIGHEST_B16
-                              : precision == 1 ? HIGH_B16
-                                               : DEFAULT_B16)
-                           : (precision == 0   ? HIGHEST_F32
-                              : precision == 1 ? HIGH_F32
-                                               : DEFAULT_F32);
+  int max_smem = 0;
+  int e = max_smem_optin(&max_smem);
+  if (e != 0) return e;
+  const int route = route_of(x_bf16, precision);
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (route != HIGHEST_F32) {
+    // where TMA cannot stage the corpus (distance_bf16.cu corpus_maps), a
+    // bf16 corpus is copied by 4-byte cp.async pieces, or 2-byte loads
+    // where its rows are not 4-byte aligned (8-byte pieces measured slower
+    // than 4-byte ones, PERF.md §6)
+    const int gran = x_bf16 && (d % 2 || xa % 4) ? 2 : 4;
+    return launch_b16(route, q, x, out_d, out_i, Q, n_rows, d, n_valid, k,
+                      cosine, n_split, split_rows, gran, query_tile, slots,
+                      resident, max_smem, st);
+  }
+  const bool fits = make_layout(d, k, true).bytes <= (size_t)max_smem;
+  if (query_tile != QT || slots != NS || resident != (int)fits ||
+      make_layout(d, k, false).bytes > (size_t)max_smem)
+    return (int)cudaErrorInvalidValue;
   // TMA needs 16-byte aligned rows; otherwise 4-byte cp.async copies
-  const int tma = route == HIGHEST_F32 && d % 4 == 0 && xa % 16 == 0;
-  // the widest piece the rows' alignment allows (see copy_units_bf16 and
-  // load_unit_f32)
-  const int gran = x_bf16 ? (d % 8 == 0 && xa % 16 == 0  ? 16
-                             : d % 2 == 0 && xa % 4 == 0 ? 4
-                                                         : 2)
-                          : (d % 4 == 0 && xa % 16 == 0 ? 16 : 4);
+  const int tma = d % 4 == 0 && xa % 16 == 0;
+  const float* xf = static_cast<const float*>(x);
   CUtensorMap map = {};
   if (tma) {
-    e = corpus_map(&map, static_cast<const float*>(x), n_rows, d);
-    if (e != cudaSuccess) return (int)e;
+    e = (int)corpus_map(&map, xf, n_rows, d);
+    if (e != 0) return e;
   }
-  cudaStream_t st = (cudaStream_t)stream;
-  const bool bf = route != HIGHEST_F32;
-  // the resident query tile where it fits (k <= 31 at d = 300; 216 KB
-  // at k = 10), else queries read through L1 (k = 128 at d = 300: 197 KB)
-  if (make_layout(d, k, true, bf).bytes <= (size_t)max_smem)
-    return launch_route<true>(route, map, q, x, out_d, out_i, Q, d, n_valid, k,
-                              cosine, n_split, split_rows, tma, gran, st);
-  if (make_layout(d, k, false, bf).bytes <= (size_t)max_smem)
-    return launch_route<false>(route, map, q, x, out_d, out_i, Q, d, n_valid,
-                               k, cosine, n_split, split_rows, tma, gran, st);
-  return (int)cudaErrorInvalidValue;
+  if (fits)
+    return launch<true>(map, q, xf, out_d, out_i, Q, d, n_valid, k, cosine,
+                        n_split, split_rows, tma, st);
+  return launch<false>(map, q, xf, out_d, out_i, Q, d, n_valid, k, cosine,
+                       n_split, split_rows, tma, st);
+}
+
+// A plan's shared-memory bytes a block and the blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into out[0], out[1].
+extern "C" int vers_distance_topk_plan(int d, int k, int x_bf16,
+                                       int precision, int query_tile,
+                                       int slots, int resident, int* out) {
+  using namespace vers::dtk;
+  if (precision < 0 || precision > 2 || d <= 0 || k <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int route = route_of(x_bf16, precision);
+  if (route != HIGHEST_F32) {
+    out[0] = (int)make_layout_b(route, d, k, query_tile, slots, resident).bytes;
+    return occupancy_b16(route, d, k, query_tile, slots, resident, &out[1]);
+  }
+  const size_t smem = make_layout(d, k, resident).bytes;
+  out[0] = (int)smem;
+  const auto kernel =
+      resident ? distance_topk_kernel<true> : distance_topk_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel,
+                                                            THREADS, smem);
 }
 
 extern "C" const char* vers_error_string(int e) {

@@ -8,11 +8,12 @@ with carried ids, replaces ``pallas_topk.py:pallas_topk_values``; its
 plain version is ``ops/topk.topk_values_plain``. Kernel A takes an f32
 or a bf16 corpus at each of the TPU's precision settings ("highest",
 "high", "default"; ``topk.product_operands`` says what each computes),
-six routes of one kernel (``route_name``). Kernel A cuts the
-corpus into splits (``split_geometry``) and, when there is more than
-one, takes the final k from the splits' best sets with kernel C. What
-bounds each on the H100 and how the design answers that is in the
-source note at the top of its ``.cu`` file.
+six routes of one kernel (``route_name``). Each call follows a plan
+(``kernel_plan``, a pure function of the shapes and the card: query
+tile, ring slots, where the query parts live, corpus splits); when the
+corpus is split, kernel C takes the final k from the splits' best sets.
+What bounds each on the H100 and how the design answers that is in the
+source notes of ``csrc/distance_topk.cu`` and ``csrc/distance_bf16.cu``.
 
 One dispatch rule, by the input tensor's device: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version. The JAX
@@ -23,6 +24,7 @@ device, counted in ``LARGE_K_PLAIN`` (kernel A) and
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -116,15 +118,148 @@ def _check_precision(precision: str) -> None:
                          f"{PRECISIONS}")
 
 
-# Kernel A's tiles (csrc/distance_tile.cuh: QT, CT).
-QUERY_TILE = 64
+# Kernel A's shapes (csrc/distance_tile.cuh, csrc/distance_bf16.cu): corpus
+# rows a tile; the f32/highest route's query tile and ring slots; the
+# bf16 routes' most ring slots and bytes of a bf16 part of a slice.
 TILE_ROWS = 128
+TF32_QUERY_TILE = 64
+TF32_SLOTS = 3
+SLOTS_MAX = 8
+_PART_BYTES = TILE_ROWS * 128
+# Shared memory: what a block may opt into and what an SM holds (a block
+# reserves 1 KB beside its own), on the H100.
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472
+
+# (query parts, f32 corpus) of each bf16 route
+_BF16_ROUTES = {
+    "bf16/highest": (3, False),
+    "bf16/high": (2, False),
+    "bf16/default": (1, False),
+    "f32/high": (2, True),
+    "f32/default": (1, True),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Kernel A's launch plan for one call: the query tile (rows a
+    block), the ring's slots, whether the query parts are resident in
+    shared memory (else split a slice at a time in registers), the bf16
+    parts of each query in its products (0 on the 3xTF32 route), the
+    block's shared bytes, the blocks an SM holds by those bytes, and the
+    corpus split (``n_split`` splits of ``split_rows`` rows)."""
+
+    route: str
+    query_tile: int
+    slots: int
+    resident: bool
+    parts: int
+    smem_bytes: int
+    blocks_per_sm: int
+    n_split: int
+    split_rows: int
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def tf32_smem_bytes(d: int, k: int, resident: bool) -> int:
+    """``make_layout`` of csrc/distance_tile.cuh: the f32/highest route's
+    shared bytes a block (3 slots of 128 x 32 f32 and their lo parts, the
+    resident f32 query tile at pitch qp, the distance tile, masks, norms,
+    kth, |x|^2, 11 mbarriers, the best sets)."""
+    qt, dm = TF32_QUERY_TILE, -(-d // 8) * 8
+    qp = (dm if dm % 16 else dm + 8) if resident else 0
+    return (2 * TF32_SLOTS * TILE_ROWS * 32 * 4 + qt * qp * 4
+            + qt * (TILE_ROWS + 4) * 4 + qt * 16 + qt * 8
+            + TF32_SLOTS * TILE_ROWS * 4 + (3 * TF32_SLOTS + 2) * 8
+            + k * qt * 8 + 1024)
+
+
+def bf16_smem_bytes(route: str, d: int, k: int, query_tile: int, slots: int,
+                    resident: bool) -> int:
+    """``make_layout_b`` of csrc/distance_tile.cuh: a bf16 route's shared
+    bytes a block. Per slot a 16 KB bf16 part of a 128 x 64 slice (32 KB
+    for an f32 corpus, staged as f32 and converted in place; for a bf16
+    corpus with d % 8 == 4, 1 KB more: its odd rows land 144 bytes a row
+    over the slot's second half and are moved into place) and three
+    mbarriers; the resident query parts (parts x 64-feature slices x rows
+    of 128 bytes); the distance tile (query_tile x 128 f32), two copies of
+    the candidate masks, norms, kth, two tiles' |x|^2, four mbarriers and
+    the best sets (query_tile rows of k f32 and int32 at an odd pitch, k |
+    1); 1 KB to align the base."""
+    ap, f32 = _BF16_ROUTES[route]
+    qt = query_tile
+    a = ap * -(-d // 64) * qt * 128 if resident else 0
+    slot = 2 * _PART_BYTES if f32 else _PART_BYTES + (1024 if d % 8 == 4 else 0)
+    return (slots * (slot + 24) + a
+            + qt * TILE_ROWS * 4 + qt * 32 + qt * 8 + 2 * TILE_ROWS * 4 + 32
+            + (k | 1) * qt * 8 + 1024)
+
+
+def tile_plan(route: str, d: int, k: int, q_n: int,
+              smem_limit: int = SMEM_BLOCK):
+    """(query_tile, slots, resident, smem bytes) for one route, from the
+    shared-memory arithmetic alone. The f32/highest route keeps its one
+    plan (64 queries, 3 slots, its f32 query tile resident where it
+    fits). A bf16 route takes the first of: 128 queries with resident
+    parts (only where Q > 64), 64 queries with resident parts, 64 queries
+    split in registers, that leaves room for two slots; then as many
+    slots as fit, up to SLOTS_MAX. The order is measured
+    (``tools/time_kernel_a.py --plans`` at 16384 x 1M x 300, PERF.md
+    §6): 128 queries with two slots beat 64 with three to eight
+    (bf16/default 69.4 against 87.9-89.1 ms, f32/default 84.8 against
+    94.9-95.3; the corpus is read from L2 half as often), more slots
+    never lost (two to three: 69.4 to 53.2 ms), and the RS path lost to
+    resident parts at any slot count (bf16/highest 187-219 ms against
+    135.4 with two slots). Raises, naming the shape, where none fits."""
+    _check_k(k)
+    if route == "f32/highest":
+        for resident in (True, False):
+            smem = tf32_smem_bytes(d, k, resident)
+            if smem <= smem_limit:
+                return TF32_QUERY_TILE, TF32_SLOTS, resident, smem
+        raise ValueError(f"kernel A f32/highest: no plan fits {smem_limit} "
+                         f"bytes of shared memory at d={d}, k={k}")
+    if route not in _BF16_ROUTES:
+        raise ValueError(f"unknown route {route!r}")
+    options = [(128, True)] if q_n > 64 else []
+    for qt, resident in options + [(64, True), (64, False)]:
+        fixed = bf16_smem_bytes(route, d, k, qt, 0, resident)
+        per_slot = bf16_smem_bytes(route, d, k, qt, 1, resident) - fixed
+        slots = min(SLOTS_MAX, (smem_limit - fixed) // per_slot)
+        if slots >= 2:
+            return (qt, slots, resident,
+                    bf16_smem_bytes(route, d, k, qt, slots, resident))
+    raise ValueError(f"kernel A {route}: no plan fits {smem_limit} bytes of "
+                     f"shared memory at d={d}, k={k}")
+
+
+def kernel_plan(route: str, q_n: int, n_valid: int, d: int, k: int,
+                sm_count: int, smem_limit: int = SMEM_BLOCK) -> Plan:
+    """Kernel A's plan: ``tile_plan``, then the corpus split
+    (``split_geometry``; the f32/highest route keeps
+    ``split_geometry_tf32``). A pure function of the shapes and the card
+    (its SM count and the shared memory a block may take)."""
+    qt, slots, resident, smem = tile_plan(route, d, k, q_n, smem_limit)
+    blocks = max(1, SMEM_SM // (smem + 1024))
+    if route == "f32/highest":
+        n_split, split_rows = split_geometry_tf32(q_n, n_valid, sm_count)
+        parts = 0
+    else:
+        n_split, split_rows = split_geometry(q_n, n_valid, sm_count * blocks,
+                                             qt)
+        parts = _BF16_ROUTES[route][0]
+    return Plan(route, qt, slots, resident, parts, smem, blocks, n_split,
+                split_rows)
 
 
 @functools.lru_cache(maxsize=None)
-def split_geometry(q_n: int, n_valid: int, sm_count: int):
-    """Kernel A's corpus split: (n_split, split_rows), with split_rows a
-    multiple of TILE_ROWS and the splits covering rows [0, n_valid).
+def split_geometry_tf32(q_n: int, n_valid: int, sm_count: int):
+    """The f32/highest route's corpus split: (n_split, split_rows), with
+    split_rows a multiple of TILE_ROWS and the splits covering rows [0,
+    n_valid).
 
     At least two blocks per SM are launched (query tiles x splits >=
     2 x sm_count) wherever the corpus has tiles enough. Among such
@@ -132,7 +267,7 @@ def split_geometry(q_n: int, n_valid: int, sm_count: int):
     times the tiles per block (plus one for each block's set-up and
     flush), fewer splits on a tie."""
     tiles = max(1, -(-n_valid // TILE_ROWS))
-    q_tiles = max(1, -(-q_n // QUERY_TILE))
+    q_tiles = max(1, -(-q_n // TF32_QUERY_TILE))
     lo = min(tiles, -(-2 * sm_count // q_tiles))
     hi = min(tiles, max(lo, -(-8 * sm_count // q_tiles)), 65535)
     best = None
@@ -150,8 +285,48 @@ def split_geometry(q_n: int, n_valid: int, sm_count: int):
 
 
 @functools.lru_cache(maxsize=None)
+def split_geometry(q_n: int, n_valid: int, slots_on_card: int,
+                   query_tile: int):
+    """A bf16 route's corpus split: (n_split, split_rows), split_rows a
+    multiple of TILE_ROWS, the splits covering rows [0, n_valid) in row
+    order, none empty. ``slots_on_card``: the blocks the card runs at
+    once (SMs x blocks an SM).
+
+    The most splits whose blocks (query tiles x splits) fit one wave, at
+    least one, at most one a tile. Every block pays its set-up and the
+    fill of its k best sets (the first tiles' merges, which grow with k),
+    so a second wave pays them again where one block a slot would have
+    walked more tiles; within one wave more splits only shorten each
+    block's walk, against a second pass (kernel C) of 0.04-0.13 ms. The
+    sweeps of ``tools/time_kernel_a.py --splits`` on the H100 (PERF.md
+    §6) peak there at k = 1, 8, 10 and 100: e.g. the scan-routed build's
+    k = 100 scan (Q = 256 over 41,368 rows) at 33 splits (4 x 33 = 132
+    blocks) against 47 (two waves) and 25."""
+    tiles = max(1, -(-n_valid // TILE_ROWS))
+    q_tiles = max(1, -(-q_n // query_tile))
+    n_split = min(tiles, 65535, max(1, slots_on_card // q_tiles))
+    per = -(-tiles // n_split)
+    return -(-tiles // per), per * TILE_ROWS
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_limit(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
+def plan_for(queries: torch.Tensor, corpus: torch.Tensor, n_valid: int,
+             k: int, precision: str = "highest") -> Plan:
+    """``kernel_plan`` for these inputs on their card."""
+    q_n, d = queries.shape
+    n_valid = max(0, min(int(n_valid), corpus.shape[0]))
+    return kernel_plan(route_name(corpus.dtype, precision), q_n, n_valid, d,
+                       k, _sm_count(queries.device),
+                       _smem_limit(queries.device))
 
 
 def split_pass(
@@ -163,14 +338,18 @@ def split_pass(
     n_split: int | None = None,
     split_rows: int | None = None,
     precision: str = "highest",
+    plan: Plan | None = None,
 ):
     """Launch kernel A once: (vals, ids, n_split), each table (Q,
     n_split * k), columns [s * k, s * k + k) the ascending best set of
-    split s. ``n_split`` / ``split_rows`` default to ``split_geometry``
-    (given, they may leave splits wholly past n_valid: those hold (+inf,
-    -1)). With one split the table is the result. The corpus is f32 or
-    bf16; ``precision`` picks the kernel's route (the source note of
-    ``csrc/distance_topk.cu``), counted in ``LAUNCHES_BY_ROUTE``."""
+    split s. The launch follows ``plan_for`` (``kernel_plan`` on these
+    inputs' card); ``n_split`` / ``split_rows`` or a whole ``plan`` (a
+    sweep's) replace its split or all of it (given splits may leave some
+    wholly past n_valid: those hold (+inf, -1)); the card refuses a plan
+    it cannot hold. With one split the table is the result. The corpus
+    is f32 or bf16; ``precision`` picks the kernel's route (the source
+    note of ``csrc/distance_topk.cu``), counted in
+    ``LAUNCHES_BY_ROUTE``."""
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     _check_precision(precision)
@@ -178,9 +357,11 @@ def split_pass(
     q_n, d = queries.shape
     n_rows = corpus.shape[0]
     n_valid = max(0, min(int(n_valid), n_rows))
-    if n_split is None:
-        n_split, split_rows = split_geometry(q_n, n_valid,
-                                             _sm_count(queries.device))
+    if plan is None:
+        plan = plan_for(queries, corpus, n_valid, k, precision)
+    if n_split is not None:
+        plan = dataclasses.replace(plan, n_split=n_split, split_rows=split_rows)
+    n_split = plan.n_split
     width = n_split * k
     if n_split == 1:  # the result itself: prefilled as the contract says
         vals = torch.full((q_n, width), float("inf"), dtype=torch.float32,
@@ -196,13 +377,30 @@ def split_pass(
         rc = lib.vers_distance_topk(
             queries.data_ptr(), corpus.data_ptr(), vals.data_ptr(),
             ids.data_ptr(), q_n, n_rows, d, n_valid, k,
-            int(metric == "cosine"), n_split, split_rows,
+            int(metric == "cosine"), n_split, plan.split_rows,
             int(corpus.dtype == torch.bfloat16), _PRECISION_CODE[precision],
+            plan.query_tile, plan.slots, int(plan.resident),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "vers_distance_topk")
     count(LAUNCHES_BY_ROUTE, route_name(corpus.dtype, precision))
     return vals, ids, n_split
+
+
+def card_plan(plan: Plan, d: int, k: int) -> tuple:
+    """(shared bytes, blocks an SM) of ``plan`` as the built kernel and
+    the current card have them (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    dt, precision = plan.route.split("/")
+    out = (ctypes.c_int * 2)()
+    lib = _build.load_library()
+    rc = lib.vers_distance_topk_plan(d, k, int(dt == "bf16"),
+                                     _PRECISION_CODE[precision],
+                                     plan.query_tile, plan.slots,
+                                     int(plan.resident), out)
+    _build.check(lib, rc, "vers_distance_topk_plan")
+    return out[0], out[1]
 
 
 def cuda_distance_topk(
