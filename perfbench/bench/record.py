@@ -1,0 +1,26 @@
+"""What one run hands the metric readers (``metrics/<name>.py``)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from perfbench.bench.trace import Trace
+from perfbench.bench.traffic import Window
+
+
+@dataclass
+class Run:
+    batch: int                     # queries a call
+    window: Window                 # the measured window's calls
+    setup_s: float                 # process start to the window's start
+    build_s: Optional[float] = None        # build, then the first call drained
+    build_index_s: Optional[float] = None  # the build alone, synchronised
+    enqueue_s: List[float] = field(default_factory=list)  # each call into the system
+    judged: Dict[str, float] = field(default_factory=dict)  # the check's numbers
+    trace: Optional[Trace] = None
+    # kernel B's work a call, by pool batch (fixed nprobe only):
+    # packed_scan_bound's arguments
+    work: Optional[List[dict]] = None
+    pool_batches: int = 1
+    memory_peak_bytes: int = 0
