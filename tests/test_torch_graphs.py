@@ -19,6 +19,11 @@
   swallowed; replays count the launches their capture recorded; the
   beam's replayed chunks equal the eager loop; replayed searches equal
   eager ones, bit for bit;
+- with ``trace`` on, each call is one outcome span (``graph.eager``,
+  ``graph.capture`` or ``graph.replay``, the last around ``graph.load``
+  and ``graph.take``); a replayed IVF search records no stage span (its
+  stages run as the graph's markers on a card); a site captured with
+  tracing off is not replayed with it on, nor the reverse;
 - a CPU index never captures.
 
 The card's own graphs are held to the eager searches by
@@ -34,7 +39,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from vers_tpu_torch import core, graphs
+from vers_tpu_torch import core, graphs, trace
 from vers_tpu_torch.index.hnsw import HNSWIndex
 from vers_tpu_torch.index.ivfflat import IVFFlatIndex
 from vers_tpu_torch.index.lsh import ANNIndex
@@ -490,3 +495,87 @@ def test_device_and_host_searches_share_a_site(stand_in, data, kind):
     _assert_same(got_dev, want_dev)
     (site,) = idx._graphs.sites()
     assert "ids" in {name for name, _ in site.graphs}
+
+
+# -- the trace's graph outcomes -----------------------------------------
+
+
+@pytest.fixture
+def tracing():
+    trace.reset()
+    trace.enable()
+    try:
+        yield trace
+    finally:
+        trace.disable()
+        trace.reset()
+
+
+def _call_spans(call):
+    """Names of the spans of the outermost span ``call`` (a name), by
+    parent name."""
+    spans = trace.snapshot()["recent"]
+    (top,) = [s for s in spans if s.name == call]
+    names = {s.id: s.name for s in spans}
+    return {(names.get(s.parent), s.name) for s in spans
+            if s.call == top.call and s is not top}
+
+
+def test_each_call_is_one_outcome_span(stand_in, tracing):
+    cache = graphs.GraphCache()
+    x, y = torch.ones(3, 4), torch.arange(12.0).reshape(3, 4)
+    state = {}
+    outcomes = []
+    for _ in range(4):  # the first call, the capture, two replays
+        trace.reset()
+        with trace.span("call"):
+            graphs.run(cache.site(("toy",), x, state), "f", _toy, x, y)
+        outcomes.append(_call_spans("call"))
+    assert outcomes[0] == {("call", "graph.eager")}
+    assert outcomes[1] == {("call", "graph.capture")}
+    assert outcomes[2] == outcomes[3] == {
+        ("call", "graph.replay"), ("graph.replay", "graph.load"),
+        ("graph.replay", "graph.take")}
+    assert stand_in.made[0].replays == 2
+
+
+def test_a_replayed_ivf_search_records_no_stage_span(stand_in, tracing, data):
+    idx = _ivf(data)
+    q = torch.from_numpy(data["q"])
+    want = _eager(lambda: idx.search_batch_device(q, 5, 2))
+    stages = {"probe", "sort", "scan", "merge"}
+    seen = []
+    for _ in range(3):
+        trace.reset()
+        _assert_same(idx.search_batch_device(q, 5, 2), want)
+        seen.append(_call_spans("ivf.search"))
+    assert {(p, n) for p, n in seen[0] if n in stages} == {
+        ("graph.eager", n) for n in stages}
+    # the warm-up and the capture both run the stages
+    assert {(p, n) for p, n in seen[1] if n in stages} == {
+        ("graph.capture", n) for n in stages}
+    assert not {n for _, n in seen[2]} & stages
+    assert ("ivf.search", "graph.replay") in seen[2]
+
+
+@pytest.mark.parametrize("first_on", [False, True])
+def test_tracing_is_part_of_a_sites_key(stand_in, first_on):
+    """A graph captured with tracing off holds no stage markers, and one
+    captured with it on holds them: neither replays in the other state."""
+    cache = graphs.GraphCache()
+    x = torch.ones(2, 3)
+    state = {}
+
+    def call():
+        return graphs.run(cache.site(("toy",), x, state), "f", _toy, x, x)
+
+    try:
+        for on in (first_on, not first_on, first_on):
+            (trace.enable if on else trace.disable)()
+            for _ in range(3):
+                _assert_same(call(), _toy(x, x))
+        assert [g.replays for g in stand_in.made] == [1 + 3, 1]
+        assert sorted(s.key[-2] for s in cache.sites()) == [False, True]
+    finally:
+        trace.disable()
+        trace.reset()

@@ -37,11 +37,15 @@ eagerly in the package, so it has no eager twin here.
 as the package runs them and eagerly, on one index each with its graphs
 dropped before every trace: one shape (repeated, as a server that pads
 its batches sends), 4 shapes and 8 shapes (drawn at random from
-Q, Q/2, ... or Q, 7Q/8, ...), and a new shape at every call. It prints
-each call's outcome (eager, capture or replay; the hit rate is the
-share of replays), the trace's wall time both ways, the median call of
-each outcome, and the pool bytes after the trace; the 8-shape trace
-runs again with ``graphs.MAX_SITES`` halved.
+Q, Q/2, ... or Q, 7Q/8, ...), and a new shape at every call, with the
+program's tracing on (``vers_tpu_torch.trace``). It prints each call's
+outcome (eager, capture or replay, from the program's ``graph.*`` spans;
+the hit rate is the share of replays), the trace's wall time both ways,
+the median call of each outcome, and the pool bytes after the trace;
+the 8-shape trace runs again with ``graphs.MAX_SITES`` halved. Every
+time of ``--traffic`` is taken with tracing on, and so includes its
+cost: about ten host spans and five stage-marker kernels a search
+(``vers_tpu_torch/TRACING.md``); the other modes run with tracing off.
 
 Usage, from the repository root:
 
@@ -166,46 +170,48 @@ def traces(q_n, calls, seed=0):
             "a new shape each call": [int(v) for v in fresh]}
 
 
-def run_trace(torch, graphs, cache, search, queries, counts):
+def outcome_counts(trace):
+    """Calls so far of each graph outcome span (``graphs.run``)."""
+    spans = trace.snapshot()["spans"]
+    return {k: spans.get(f"graph.{k}", {}).get("count", 0)
+            for k in ("eager", "capture", "replay")}
+
+
+def run_trace(torch, graphs, trace, cache, search, queries, counts):
     """One trace through ``search(q)`` as the package runs it, then
-    eagerly, each call drained: the outcome of each graph call
-    (``cache.site``), wall seconds both ways, the median ms of each
-    outcome and of the eager calls, the pool bytes after it."""
+    eagerly, each call drained, with the program's tracing on: the
+    outcome of each graph call from its ``graph.*`` spans (eager where
+    any of its graphs ran eagerly, else capture where any captured,
+    else replay), wall seconds both ways, the median ms of each outcome
+    and of the eager calls, the pool bytes after it."""
     import statistics
 
     outcomes = []
-    real = cache.site
-
-    def site(*args, **kwargs):
-        s = real(*args, **kwargs)
-        if s is not None or graphs.enabled():
-            outcomes.append("eager" if s is None else
-                            "replay" if s.graphs else "capture")
-        return s
-
     cache.invalidate()
-    cache.site = site
     times = {"eager": [], "capture": [], "replay": [], "eager mode": []}
-    try:
-        walls = {}
-        for mode in ("graph", "eager"):
-            total = 0.0
-            for n in counts:
-                q = queries[:n]
-                t0 = time.perf_counter()
-                if mode == "graph":
+    walls = {}
+    for mode in ("graph", "eager"):
+        total = 0.0
+        for n in counts:
+            q = queries[:n]
+            before = outcome_counts(trace)
+            t0 = time.perf_counter()
+            if mode == "graph":
+                search(q)
+            else:
+                with graphs.disabled():
                     search(q)
-                else:
-                    with graphs.disabled():
-                        search(q)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                total += dt
-                key = outcomes[-1] if mode == "graph" else "eager mode"
-                times[key].append(dt * 1e3)
-            walls[mode] = total
-    finally:
-        del cache.site
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            total += dt
+            if mode == "graph":
+                ran = outcome_counts(trace)
+                outcomes.append(next(
+                    (k for k in ("eager", "capture")
+                     if ran[k] > before[k]), "replay"))
+            key = outcomes[-1] if mode == "graph" else "eager mode"
+            times[key].append(dt * 1e3)
+        walls[mode] = total
     calls = len(counts)
     return dict(
         calls=calls, shapes=len(set(counts)),
@@ -216,28 +222,29 @@ def run_trace(torch, graphs, cache, search, queries, counts):
         sites=len(cache.sites()), pool_bytes=cache.pool_bytes())
 
 
-def traffic(torch, graphs, searches, q_n, calls):
+def traffic(torch, graphs, trace, searches, q_n, calls):
     """``run_trace`` of every trace (``traces``) through each of
     ``searches`` (name -> (search(q), its index's GraphCache, the
-    queries)); returns name -> trace -> row."""
+    queries)), with the program's tracing on (``trace.enable()``);
+    returns name -> trace -> row."""
     out = {}
     for name, (search, cache, queries) in searches.items():
         n = min(q_n, queries.shape[0])
         rows = out[name] = {}
-        for trace, counts in traces(n, calls).items():
-            rows[trace] = run_trace(torch, graphs, cache, search, queries,
-                                    counts)
+        for shapes, counts in traces(n, calls).items():
+            rows[shapes] = run_trace(torch, graphs, trace, cache, search,
+                                     queries, counts)
         default = graphs.MAX_SITES
         graphs.MAX_SITES = default // 2
         try:
             rows[f"8 shapes, MAX_SITES={default // 2}"] = run_trace(
-                torch, graphs, cache, search, queries,
+                torch, graphs, trace, cache, search, queries,
                 traces(n, calls)["8 shapes"])
         finally:
             graphs.MAX_SITES = default
         cache.invalidate()
-        for trace, r in rows.items():
-            print(f"== traffic {name}, {trace}: {r['calls']} calls of "
+        for shapes, r in rows.items():
+            print(f"== traffic {name}, {shapes}: {r['calls']} calls of "
                   f"{r['shapes']} shapes, {r['outcomes']}, hit rate "
                   f"{r['hit_rate']:.3f}; graph {r['graph_s']:.3f} s, eager "
                   f"{r['eager_s']:.3f} s; median ms {r['median_ms']}; "
@@ -291,7 +298,7 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     import vers_tpu_torch as vt
-    from vers_tpu_torch import graphs
+    from vers_tpu_torch import graphs, trace
     from vers_tpu_torch.utils.data import synthetic_gaussian
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -447,8 +454,12 @@ def main(argv=None):
         if wanted("hnsw"):
             searches["hnsw ef=32 inline"] = (
                 lambda q: hnsw.search_batch_device(q, k), hnsw._graphs, hqd)
-        extra["traffic"] = traffic(torch, graphs, searches, args.queries,
-                                   args.trace_calls)
+        trace.enable()
+        try:
+            extra["traffic"] = traffic(torch, graphs, trace, searches,
+                                       args.queries, args.trace_calls)
+        finally:
+            trace.disable()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(

@@ -13,7 +13,8 @@ and replayed:
   search configuration by the caller's ``key`` (the path, ``top_k``,
   nprobe, probes or ef and the other static arguments), the device, the
   queries' shape and dtype, the TF32 settings (the exact paths read them
-  only while they capture) and the cache's ``version``, which
+  only while they capture), whether ``trace`` is on (a graph captured
+  with its stage markers replays them) and the cache's ``version``, which
   ``invalidate`` bumps: every ``add``, layout rebuild or cache rebuild
   of the index calls it, and a site asked for over other state than the
   last one (a rebuilt layout or serving cache) bumps it too.
@@ -77,6 +78,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from vers_tpu_torch import trace
 from vers_tpu_torch.core import CAPTURE, count, host_released
 
 # Which configurations get graphs (see the module docstring): an index's
@@ -283,21 +285,26 @@ class Site:
             g = self.graphs.get(sub)
             if g is not None:
                 return g, False
-            g = self.graphs[sub] = Graph(fn, inputs, self.owner)
+            with trace.span("graph.capture"):
+                g = self.graphs[sub] = Graph(fn, inputs, self.owner)
             return g, True
 
     def run(self, name, fn: Callable, inputs: Sequence[torch.Tensor]) -> tuple:
         """``fn(*inputs)``: on the graph's first use the warm-up's
-        results, then by a replay of the graph ``name``, clones of its
-        outputs."""
+        results (the span ``graph.capture``), then by a replay of the
+        graph ``name``, clones of its outputs (``graph.replay``, around
+        ``graph.load`` and ``graph.take``)."""
         with self.held():
             g, new = self._graph(name, fn, inputs)
             if new:
                 first, g.first = g.first, None
                 return first
-            g.load(inputs)
-            g.replay()
-            return g.take(g.outputs)
+            with trace.span("graph.replay"):
+                with trace.span("graph.load"):
+                    g.load(inputs)
+                g.replay()
+                with trace.span("graph.take"):
+                    return g.take(g.outputs)
 
 
 class GraphCache:
@@ -376,7 +383,7 @@ class GraphCache:
                 self._drop()
                 self._state = state
             full = (tuple(key), queries.device, tuple(queries.shape),
-                    queries.dtype, tf32_flags(), self.version)
+                    queries.dtype, tf32_flags(), trace.enabled(), self.version)
             self._calls += 1
             s = self._sites.get(full)
             if s is None:
@@ -401,8 +408,10 @@ class GraphCache:
 
 
 def run(site: Optional[Site], name, fn: Callable, *inputs: torch.Tensor) -> tuple:
-    """``fn(*inputs)``: eagerly when ``site`` is None, else replayed from
-    the site's graph ``name``."""
+    """``fn(*inputs)``: eagerly when ``site`` is None (the span
+    ``graph.eager``), else replayed from the site's graph ``name``
+    (``Site.run``)."""
     if site is None:
-        return tuple(fn(*inputs))
+        with trace.span("graph.eager"):
+            return tuple(fn(*inputs))
     return site.run(name, fn, inputs)

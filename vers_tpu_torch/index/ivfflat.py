@@ -23,12 +23,13 @@ With no ``device`` an index lives on the first CUDA card
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vers_tpu_torch import graphs
+from vers_tpu_torch import graphs, trace
 from vers_tpu_torch.config import IVFFlatConfig
 from vers_tpu_torch.core import as_query_matrix, resolve_device, round_up
 from vers_tpu_torch.index.base import Index
@@ -99,36 +100,40 @@ class IVFFlatIndex(Index):
         """Parity signature with `ivfflat.rs:102-136`. ``vectors``: (n, d)
         numpy array or tensor; the build runs on ``device``, else on the
         tensor's device, else on the first CUDA card. ``init``: optional
-        (num_attempts, k, d) initial centroids in place of random rows."""
-        config = config or IVFFlatConfig(
-            num_clusters=num_clusters,
-            num_attempts=num_attempts,
-            max_iterations=max_iterations,
-        )
-        if device is None and isinstance(vectors, torch.Tensor):
-            device = vectors.device
-        device = resolve_device(device)
-        if isinstance(vectors, torch.Tensor):
-            data = vectors.to(device=device, dtype=torch.float32)
-            vectors_np = None
-        else:
-            vectors_np = np.asarray(vectors, dtype=np.float32)
-            data = torch.as_tensor(vectors_np, device=device)
-        n, d = data.shape
-        data = torch.nn.functional.pad(data, (0, 0, 0, round_up(n, 128) - n))
-        gen = torch.Generator(device=data.device).manual_seed(config.seed)
-        centroids, _ = kmeans_ops.build_kmeans_restarts(
-            gen, data, n, num_clusters, num_attempts, max_iterations, init=init
-        )
-        assignments = kmeans_ops.assign_clusters(data, n, centroids)[:n]
-        assignments = assignments.cpu().numpy().astype(np.int64)
-        ids: List[List[int]] = [[] for _ in range(num_clusters)]
-        for vec_id, c in enumerate(assignments):
-            ids[int(c)].append(vec_id)
-        if vectors_np is None:
-            vectors_np = data[:n].cpu().numpy()
-        return cls(num_clusters, vectors_np, centroids.cpu().numpy(),
-                   assignments, ids, config, device=data.device)
+        (num_attempts, k, d) initial centroids in place of random rows.
+        The build is the span ``ivf.build``; it ends in reads to the host."""
+        with trace.span("ivf.build"):
+            config = config or IVFFlatConfig(
+                num_clusters=num_clusters,
+                num_attempts=num_attempts,
+                max_iterations=max_iterations,
+            )
+            if device is None and isinstance(vectors, torch.Tensor):
+                device = vectors.device
+            device = resolve_device(device)
+            if isinstance(vectors, torch.Tensor):
+                data = vectors.to(device=device, dtype=torch.float32)
+                vectors_np = None
+            else:
+                vectors_np = np.asarray(vectors, dtype=np.float32)
+                data = torch.as_tensor(vectors_np, device=device)
+            n, d = data.shape
+            data = torch.nn.functional.pad(data,
+                                           (0, 0, 0, round_up(n, 128) - n))
+            gen = torch.Generator(device=data.device).manual_seed(config.seed)
+            centroids, _ = kmeans_ops.build_kmeans_restarts(
+                gen, data, n, num_clusters, num_attempts, max_iterations,
+                init=init,
+            )
+            assignments = kmeans_ops.assign_clusters(data, n, centroids)[:n]
+            assignments = assignments.cpu().numpy().astype(np.int64)
+            ids: List[List[int]] = [[] for _ in range(num_clusters)]
+            for vec_id, c in enumerate(assignments):
+                ids[int(c)].append(vec_id)
+            if vectors_np is None:
+                vectors_np = data[:n].cpu().numpy()
+            return cls(num_clusters, vectors_np, centroids.cpu().numpy(),
+                       assignments, ids, config, device=data.device)
 
     @classmethod
     def build_index_device(
@@ -193,7 +198,10 @@ class IVFFlatIndex(Index):
         self._ids = ids
 
     def _ensure_layout(self):
-        if self._layout is None:
+        """The cluster-major layout; its build is the span ``ivf.layout``."""
+        if self._layout is not None:
+            return self._layout
+        with trace.span("ivf.layout"):
             if self._values is None and self._values_dev is not None:
                 # device-built index whose layout was dropped (slack
                 # exhaustion): rebuild on device
@@ -298,59 +306,70 @@ class IVFFlatIndex(Index):
         walk (`ivfflat.rs:166-195`): each query probes just enough
         nearest clusters for their min(size, top_k) contributions to
         reach top_k, and the result is the exact top_k over those
-        clusters' union."""
-        layout = self._ensure_layout()
-        qdev = as_query_matrix(queries, self.device)
-        nprobe = nprobe if nprobe is not None else self.config.nprobe
-        p_max = None
-        if nprobe == 0:
-            # worst-case depth comes from OCCUPIED sizes: a slacked
-            # layout's sizes_host holds per-bin capacities
-            p_max = adaptive_probe_depth(
-                layout.get("true_sizes_host", layout["sizes_host"]), top_k
-            )
-            nprobe = min(p_max, layout["num_bins"])
-        else:
-            nprobe = max(1, min(nprobe, self.num_centroids))
-        engine = self.config.engine
-        if engine not in ("auto", "pallas", "xla"):
-            raise ValueError(f"unknown engine {engine!r}")
-        # precision reaches only the plain ("xla") engine, as in the JAX
-        # package; the kernel engine is f32-exact whatever it says
-        if engine == "xla" and self.config.precision != "highest":
-            raise ValueError("engine='xla' exists only at precision='highest' "
-                             "(float32)")
-        plain = engine == "xla"
-        centroids = self._centroids_dev
-        # the padded corpus (cached on the layout), made here on the
-        # caller's stream rather than in a graph's warm-up
-        kernel_plan(layout, qdev.shape[0], nprobe, top_k)
+        clusters' union. The call is the span ``ivf.search``."""
+        with trace.span("ivf.search"):
+            layout = self._ensure_layout()
+            on_device = (isinstance(queries, torch.Tensor)
+                         and queries.device == self.device)
+            with (contextlib.nullcontext() if on_device
+                  else trace.span("ivf.upload")):
+                qdev = as_query_matrix(queries, self.device)
+            nprobe = nprobe if nprobe is not None else self.config.nprobe
+            p_max = None
+            if nprobe == 0:
+                # worst-case depth comes from OCCUPIED sizes: a slacked
+                # layout's sizes_host holds per-bin capacities
+                p_max = adaptive_probe_depth(
+                    layout.get("true_sizes_host", layout["sizes_host"]), top_k
+                )
+                nprobe = min(p_max, layout["num_bins"])
+            else:
+                nprobe = max(1, min(nprobe, self.num_centroids))
+            engine = self.config.engine
+            if engine not in ("auto", "pallas", "xla"):
+                raise ValueError(f"unknown engine {engine!r}")
+            # precision reaches only the plain ("xla") engine, as in the JAX
+            # package; the kernel engine is f32-exact whatever it says
+            if engine == "xla" and self.config.precision != "highest":
+                raise ValueError("engine='xla' exists only at "
+                                 "precision='highest' (float32)")
+            plain = engine == "xla"
+            centroids = self._centroids_dev
+            # the padded corpus (cached on the layout), made here on the
+            # caller's stream rather than in a graph's warm-up
+            with trace.span("ivf.plan"):
+                kernel_plan(layout, qdev.shape[0], nprobe, top_k)
 
-        def search(q):
-            probes = None
-            if p_max is not None:
-                probes = adaptive_probes(q, centroids, layout["size"],
-                                         layout["num_bins"], p_max, top_k)
-            # dedup=False: every row lives in exactly ONE cluster and a
-            # query's probes are distinct clusters, so probe ranks cover
-            # disjoint ids
-            return binned_topk_kernel(
-                q, centroids, nprobe, layout, top_k=top_k, probes=probes,
-                dedup=False, plain=plain,
-            )
+            def search(q):
+                probes = None
+                if p_max is not None:
+                    with trace.stage("probe", q.device):
+                        probes = adaptive_probes(
+                            q, centroids, layout["size"], layout["num_bins"],
+                            p_max, top_k)
+                # dedup=False: every row lives in exactly ONE cluster and a
+                # query's probes are distinct clusters, so probe ranks cover
+                # disjoint ids
+                return binned_topk_kernel(
+                    q, centroids, nprobe, layout, top_k=top_k, probes=probes,
+                    dedup=False, plain=plain,
+                )
 
-        eager = scans_on_host(top_k, plain) or p_max is not None
-        site = None if eager else self._graphs.site(("ivf", top_k, nprobe),
-                                                    qdev, layout)
-        return graphs.run(site, "search", search, qdev)
+            eager = scans_on_host(top_k, plain) or p_max is not None
+            site = None if eager else self._graphs.site(
+                ("ivf", top_k, nprobe), qdev, layout)
+            return graphs.run(site, "search", search, qdev)
 
     def search_batch(self, queries, top_k: int,
                      nprobe: Optional[int] = None) -> SearchResult:
+        """``search_batch_device``, then its results read to the host (the
+        span ``ivf.download``)."""
         dists, rows = self.search_batch_device(queries, top_k, nprobe)
-        return SearchResult(
-            ids=rows.cpu().numpy().astype(np.int64),
-            distances=dists.cpu().numpy(),
-        )
+        with trace.span("ivf.download"):
+            return SearchResult(
+                ids=rows.cpu().numpy().astype(np.int64),
+                distances=dists.cpu().numpy(),
+            )
 
     def search_approximate(self, query, top_k: int) -> List[Tuple[int, float]]:
         """Behavioral parity with the adaptive cluster walk

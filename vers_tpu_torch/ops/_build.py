@@ -57,6 +57,8 @@ _SIGNATURES = {
     # span, n_super, cosine, stream
     "vers_bucket_scan": [_P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _P],
+    # stage (an index of trace.STAGES), stream
+    "vers_trace_mark": [_I, _P],
 }
 
 _lib = None

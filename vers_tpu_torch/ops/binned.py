@@ -21,7 +21,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from vers_tpu_torch import graphs
+from vers_tpu_torch import graphs, trace
 from vers_tpu_torch.core import round_up
 from vers_tpu_torch.ops.cuda_binned import (
     _workitems_blocks,
@@ -417,15 +417,20 @@ def _fused_core(
     ``combined=True`` (every probe rank on ONE group table, w_rank sized
     p*q_pad_rank//q_blk + g_max + 1): all (query, rank) PAIRS sort into
     one bin ordering, so each corpus group is visited once instead of
-    once per rank."""
+    once per rank.
+
+    With ``trace`` on, the stages probe (unless the probes are given),
+    sort (pairs, work items), scan (kernel B) and merge (unsort, masks,
+    merge) are spans and, on a card, each opens with its marker; the
+    marker ``end`` closes the last."""
     q_n, d = queries.shape
     dev = queries.device
     if probes_given:
-        probes = centroids_or_probes
+        probes = centroids_or_probes.to(torch.int64)
     else:
-        cdist = pairwise_distance(queries, centroids_or_probes, metric)
-        _, probes = topk_smallest(cdist, nprobe)
-    probes = probes.to(torch.int64)
+        with trace.stage("probe", dev):
+            cdist = pairwise_distance(queries, centroids_or_probes, metric)
+            probes = topk_smallest(cdist, nprobe)[1].to(torch.int64)
     p = probes.shape[1]
     scan_kw = dict(top_k=top_k, q_blk=q_blk, chunk=chunk,
                    r_chunks=r_blk // chunk, q_pad_rank=q_pad_rank,
@@ -437,101 +442,114 @@ def _fused_core(
         pq = p * q_n
         rows_pad = p * q_pad_rank
         qb_scratch = rows_pad // q_blk
-        # rank-major pair index i = r*q_n + q; a stable sort keeps pairs
-        # of one bin in pair order
-        bins_flat = probes.T.reshape(-1)
-        order = torch.argsort(bins_flat, stable=True)
-        qidx = torch.remainder(order, q_n)
-        tail = rows_pad - pq + q_blk  # pad + scratch block
-        q_stack = torch.nn.functional.pad(queries[qidx], (0, 0, 0, tail))
-        qbin_stack = torch.nn.functional.pad(
-            bins_flat[order].to(torch.int32), (0, tail), value=-1
-        )[None, :]
-        counts = bin_counts(bins_flat, num_bins)
-        qb, gb = _workitems_blocks(
-            counts, 0, g_first[row0], q_blk, w_rank, qb_scratch,
-            g_base=g_base[row0],
-        )
-        res_d, res_i = packed_scan(
-            q_stack.contiguous(), qbin_stack.contiguous(), qb, gb,
-            corpus_padded, rbin_padded, xx_padded, plain=plain, **scan_kw,
-        )
-        inv = torch.empty_like(order)
-        inv[order] = torch.arange(pq, device=dev)
-        # q-major inverse gather: output row q*p + r is pair (r, q), so
-        # the (p, q, k) -> (q, p*k) transpose is a reshape
-        idx_qm = inv.reshape(p, q_n).T.reshape(-1)
-        dd = res_d[idx_qm]
-        pos = res_i[idx_qm]
-        live = (probes < num_bins).reshape(-1)[:, None]
-        dd = torch.where(live, dd, float("inf"))
-        if kernel_ids:
-            ii = torch.where(live & (pos >= 0), pos, -1)
-        else:
-            ii = torch.where(
-                live & (pos >= 0),
-                s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
+        with trace.stage("sort", dev):
+            # rank-major pair index i = r*q_n + q; a stable sort keeps
+            # pairs of one bin in pair order
+            bins_flat = probes.T.reshape(-1)
+            order = torch.argsort(bins_flat, stable=True)
+            qidx = torch.remainder(order, q_n)
+            tail = rows_pad - pq + q_blk  # pad + scratch block
+            q_stack = torch.nn.functional.pad(queries[qidx], (0, 0, 0, tail))
+            qbin_stack = torch.nn.functional.pad(
+                bins_flat[order].to(torch.int32), (0, tail), value=-1
+            )[None, :]
+            counts = bin_counts(bins_flat, num_bins)
+            qb, gb = _workitems_blocks(
+                counts, 0, g_first[row0], q_blk, w_rank, qb_scratch,
+                g_base=g_base[row0],
             )
-        return merge_probe_results(dd.reshape(q_n, p * top_k),
-                                   ii.reshape(q_n, p * top_k), top_k,
-                                   dedup=dedup)
+        with trace.stage("scan", dev):
+            res_d, res_i = packed_scan(
+                q_stack.contiguous(), qbin_stack.contiguous(), qb, gb,
+                corpus_padded, rbin_padded, xx_padded, plain=plain, **scan_kw,
+            )
+        with trace.stage("merge", dev):
+            inv = torch.empty_like(order)
+            inv[order] = torch.arange(pq, device=dev)
+            # q-major inverse gather: output row q*p + r is pair (r, q), so
+            # the (p, q, k) -> (q, p*k) transpose is a reshape
+            idx_qm = inv.reshape(p, q_n).T.reshape(-1)
+            dd = res_d[idx_qm]
+            pos = res_i[idx_qm]
+            live = (probes < num_bins).reshape(-1)[:, None]
+            dd = torch.where(live, dd, float("inf"))
+            if kernel_ids:
+                ii = torch.where(live & (pos >= 0), pos, -1)
+            else:
+                ii = torch.where(
+                    live & (pos >= 0),
+                    s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
+                )
+            out = merge_probe_results(dd.reshape(q_n, p * top_k),
+                                      ii.reshape(q_n, p * top_k), top_k,
+                                      dedup=dedup)
+        trace.mark("end", dev)
+        return out
 
     q_parts, qbin_parts, orders, lives = [], [], [], []
     qb_parts, gb_parts = [], []
     qb_scratch = p * q_pad_rank // q_blk
-    for r in range(p):
-        bins = probes[:, r]
-        # gated ranks (sentinel bin == num_bins) sort to the tail; query
-        # blocks that are all sentinel get NO work item, so their output
-        # rows are never written: mask every rank by its gate status
-        lives.append((bins < num_bins)[:, None])
-        order = torch.argsort(bins, stable=True)
-        q_parts.append(torch.nn.functional.pad(queries[order],
-                                               (0, 0, 0, q_pad_rank - q_n)))
-        qbin_parts.append(torch.nn.functional.pad(
-            bins[order].to(torch.int32), (0, q_pad_rank - q_n), value=-1))
-        orders.append(order)
-        counts = bin_counts(bins, num_bins)
-        row = 0 if rank_rows is None else rank_rows[r]
-        qb_r, gb_r = _workitems_blocks(
-            counts, r * q_pad_rank, g_first[row], q_blk, w_rank,
-            qb_scratch, g_base=g_base[row],
+    with trace.stage("sort", dev):
+        for r in range(p):
+            bins = probes[:, r]
+            # gated ranks (sentinel bin == num_bins) sort to the tail;
+            # query blocks that are all sentinel get NO work item, so
+            # their output rows are never written: mask every rank by
+            # its gate status
+            lives.append((bins < num_bins)[:, None])
+            order = torch.argsort(bins, stable=True)
+            q_parts.append(torch.nn.functional.pad(
+                queries[order], (0, 0, 0, q_pad_rank - q_n)))
+            qbin_parts.append(torch.nn.functional.pad(
+                bins[order].to(torch.int32), (0, q_pad_rank - q_n), value=-1))
+            orders.append(order)
+            counts = bin_counts(bins, num_bins)
+            row = 0 if rank_rows is None else rank_rows[r]
+            qb_r, gb_r = _workitems_blocks(
+                counts, r * q_pad_rank, g_first[row], q_blk, w_rank,
+                qb_scratch, g_base=g_base[row],
+            )
+            qb_parts.append(qb_r)
+            gb_parts.append(gb_r)
+        # scratch block rows at the tail (invalid work items park there)
+        q_parts.append(torch.zeros((q_blk, d), dtype=queries.dtype,
+                                   device=dev))
+        qbin_parts.append(torch.full((q_blk,), -1, dtype=torch.int32,
+                                     device=dev))
+        q_stack = torch.cat(q_parts).contiguous()
+        qbin_stack = torch.cat(qbin_parts)[None, :]
+        qb, gb = torch.cat(qb_parts), torch.cat(gb_parts)
+    with trace.stage("scan", dev):
+        res_d, res_i = packed_scan(
+            q_stack, qbin_stack, qb, gb,
+            corpus_padded, rbin_padded, xx_padded, plain=plain, **scan_kw,
         )
-        qb_parts.append(qb_r)
-        gb_parts.append(gb_r)
-    # scratch block rows at the tail (invalid work items park there)
-    q_parts.append(torch.zeros((q_blk, d), dtype=queries.dtype, device=dev))
-    qbin_parts.append(torch.full((q_blk,), -1, dtype=torch.int32, device=dev))
-    res_d, res_i = packed_scan(
-        torch.cat(q_parts).contiguous(), torch.cat(qbin_parts)[None, :],
-        torch.cat(qb_parts), torch.cat(gb_parts),
-        corpus_padded, rbin_padded, xx_padded, plain=plain, **scan_kw,
-    )
 
     # per-rank unsort (stride q_pad_rank) + map to original rows + merge
-    out_d, out_i = [], []
-    for r in range(p):
-        seg_d = res_d[r * q_pad_rank : r * q_pad_rank + q_n]
-        seg_i = res_i[r * q_pad_rank : r * q_pad_rank + q_n]
-        inv = torch.empty_like(orders[r])
-        inv[orders[r]] = torch.arange(q_n, device=dev)
-        pos = seg_i[inv]
-        live = lives[r]
-        out_d.append(torch.where(live, seg_d[inv], float("inf")))
-        if kernel_ids:
-            out_i.append(torch.where(live & (pos >= 0), pos, -1))
-        else:
-            out_i.append(torch.where(
-                live & (pos >= 0),
-                s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
-            ))
-    all_d = torch.cat(out_d, dim=1)
-    all_i = torch.cat(out_i, dim=1)
-    if p == 1 and all_d.shape[1] == top_k:
-        # single probe: the scan already emits each query's top_k in
-        # ascending order with distinct ids, so the merge is an identity
-        return all_d, all_i
-    return merge_probe_results(all_d, all_i, top_k, dedup=dedup)
+    with trace.stage("merge", dev):
+        out_d, out_i = [], []
+        for r in range(p):
+            seg_d = res_d[r * q_pad_rank : r * q_pad_rank + q_n]
+            seg_i = res_i[r * q_pad_rank : r * q_pad_rank + q_n]
+            inv = torch.empty_like(orders[r])
+            inv[orders[r]] = torch.arange(q_n, device=dev)
+            pos = seg_i[inv]
+            live = lives[r]
+            out_d.append(torch.where(live, seg_d[inv], float("inf")))
+            if kernel_ids:
+                out_i.append(torch.where(live & (pos >= 0), pos, -1))
+            else:
+                out_i.append(torch.where(
+                    live & (pos >= 0),
+                    s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
+                ))
+        out = torch.cat(out_d, dim=1), torch.cat(out_i, dim=1)
+        if p != 1 or out[0].shape[1] != top_k:
+            # a single probe needs no merge: the scan already emits each
+            # query's top_k in ascending order with distinct ids
+            out = merge_probe_results(*out, top_k, dedup=dedup)
+    trace.mark("end", dev)
+    return out
 
 
 def binned_topk_kernel(

@@ -30,6 +30,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from vers_tpu_torch import trace
 from vers_tpu_torch.core import count
 from vers_tpu_torch.ops import _build
 from vers_tpu_torch.ops.cuda_topk import MAX_K
@@ -55,13 +56,20 @@ def padded_forest_layout(layout: Dict, r_blk: int, bounds) -> Dict:
     [bounds[t], bounds[t+1]), concatenated into one global group list.
     Returns the padded arrays plus stacked per-table tables
     (g_first (T, Gmax+1)) and each table's global group base. Cached on
-    the layout per (r_blk, bounds)."""
-    from vers_tpu_torch.ops.binned import stack_group_tables, static_groups
-
+    the layout per (r_blk, bounds); a build is the span
+    ``layout.padded``."""
     cache = layout.setdefault("_padded_forest", {})
     key = (r_blk, tuple(int(b) for b in bounds))
-    if key in cache:
-        return cache[key]
+    if key not in cache:
+        with trace.span("layout.padded"):
+            cache[key] = _padded_forest(layout, r_blk, key[1])
+    return cache[key]
+
+
+def _padded_forest(layout: Dict, r_blk: int, bounds) -> Dict:
+    """`padded_forest_layout`'s build."""
+    from vers_tpu_torch.ops.binned import stack_group_tables, static_groups
+
     tables = [
         static_groups(layout, r_blk, int(bounds[t]), int(bounds[t + 1]))
         for t in range(len(bounds) - 1)
@@ -111,7 +119,6 @@ def padded_forest_layout(layout: Dict, r_blk: int, bounds) -> Dict:
         g_max=max(len(r) for _, r in tables),
         r_blk=r_blk,
     )
-    cache[key] = out
     return out
 
 

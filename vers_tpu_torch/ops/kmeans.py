@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from vers_tpu_torch import trace
 from vers_tpu_torch.core import bitwise_equal, host_wait
 from vers_tpu_torch.ops.distance import pairwise_sq_euclidean
 
@@ -92,14 +93,17 @@ def build_kmeans(
 ):
     """Full Lloyd run (parity with `build_kmeans`, `ivfflat.rs:73-100`):
     random-row init (or ``init``, (k, d)), iterate until bitwise-stable
-    centroids or max_iterations. Returns (centroids (k, d), cost)."""
+    centroids or max_iterations (each step the span ``kmeans.step``).
+    Returns (centroids (k, d), cost)."""
     if init is not None:
         centroids = init.to(device=data.device, dtype=torch.float32)
     else:
         centroids = init_centroids(generator, data, n_valid, k)
     for _ in range(max_iterations):
-        new_centroids, _ = lloyd_step(data, n_valid, centroids, chunk_size)
-        converged = bitwise_equal(centroids, new_centroids)
+        # the step ends in bitwise_equal's read to the host
+        with trace.span("kmeans.step"):
+            new_centroids, _ = lloyd_step(data, n_valid, centroids, chunk_size)
+            converged = bitwise_equal(centroids, new_centroids)
         # Parity with `ivfflat.rs:91-95`: on convergence the reference
         # breaks before adopting new_centroids; they are bitwise
         # identical then, so adopting is equivalent.
