@@ -136,7 +136,9 @@ The launch counters of kernels C and D are zeroed just before phase 2
 and must have moved by its end; those of A and B likewise around phases
 1-4, and kernel B's again around phase 5 (8 launches a search). The
 packed-scan inputs of the main path's own searches (each nprobe of the
-sweep, the adaptive nprobe=0, and the forest's first and last tree at
+sweep, the adaptive nprobe=0, a 64-query ``search_batch`` at nprobe 2
+from host queries, the batch of online retrieval, which kernel B walks
+split (``cuda_binned.split_walk``), and the forest's first and last tree at
 each probe setting, copied as they pass because the trees share one
 view buffer) are captured as they pass. Then each kernel is held against its plain torch version on the
 card at the main path's shapes and timed with CUDA events: kernel A
@@ -159,8 +161,12 @@ Kernel B's lines also carry its geometry (r_blk, grid) and its work as
 the kernel itself reports it in one more launch (the blocks that work
 and the live tiles each walks, hence the products issued and, against
 the products its probes need, the masked share); at the operating
-nprobe, and for the forest's first tree at each probe setting, the
-host mirror of the walk is held to that report block by block. Kernel
+nprobe, on the 64-query scan, and for the forest's first tree at each
+probe setting, the host mirror of the walk is held to that report block
+by block, and the other of kernel B's two walks, forced, gives the same
+answer bit for bit and its own report equal to its own mirror. Kernel
+B's entry counts its launches on the split walk (``LAUNCHES_SPLIT``)
+apart, by phase. Kernel
 A is also held on HNSW's captured routing scan (Q = 16384 over the
 layer-1 members, k = 8, cosine, its bf16 route at "default" over the
 bf16 table): tie-aware, distances within 1e-5, a repeat call
@@ -210,6 +216,7 @@ from pathlib import Path
 import numpy as np
 
 N, DIM, N_QUERIES, TOP_K = 1_000_000, 300, 16384, 10
+SMALL_QUERIES = 64  # online retrieval's batch: kernel B's split walk
 A_QUERIES = (1, 64, 2048, N_QUERIES)  # query counts of the kernel-A phase
 D_QUERIES = (64, 2048, N_QUERIES)     # ... and of the kernel-D phase
 K_CLUSTERS = 2048
@@ -434,7 +441,9 @@ def hold_kernel_b(torch, args, kw, label, mirror, time_plain=True):
     tie-aware, distances within TOL, a repeat call bit-identical; its
     time, its bound from these inputs and its work as the kernel reports
     it (``mirror``: the host mirror of the walk held to that report block
-    by block). Returns the scan's row for the ``kernels`` line."""
+    by block, and the other walk, forced, held to the walk taken bit for
+    bit and its report to its own mirror). Returns the scan's row for
+    the ``kernels`` line."""
     from vers_tpu_torch.ops import cuda_binned
     from vers_tpu_torch.utils import roofline
     from vers_tpu_torch.utils.parity import assert_topk_match, max_abs_diff
@@ -444,15 +453,23 @@ def hold_kernel_b(torch, args, kw, label, mirror, time_plain=True):
     cuda_binned.check_work_items(qb, gb, q_stack.shape[0], kw["q_blk"],
                                  corpus_padded.shape[0], r_blk)
     kb = cuda_binned.cuda_packed_scan(*args, **kw)
-    # a repeat call, which also reports the tiles each block walked
-    again = cuda_binned.cuda_packed_scan_walk(*args, **kw)
+    # a repeat call on the walk ``split_walk`` picks, which also reports
+    # the tiles each block walked
+    split = cuda_binned.walk_splits(q_stack, kw["q_blk"])
+    again = cuda_binned.cuda_packed_scan_walk(*args, **kw, split=split)
     assert torch.equal(kb[0], again[0]) and torch.equal(kb[1], again[1]), label
     walked = again[2].cpu().numpy()
     if mirror:
-        units = cuda_binned.packed_scan_units(args[1], qb, gb, args[5],
-                                              kw["q_blk"], r_blk)
-        assert np.array_equal(walked, cuda_binned.units_walked(
-            units, qb.shape[0], kw["q_blk"])), label
+        other = cuda_binned.cuda_packed_scan_walk(*args, **kw, split=not split)
+        assert torch.equal(other[1], kb[1]), label
+        assert torch.equal(other[0].view(torch.int32),
+                           kb[0].view(torch.int32)), label
+        for flag, report in ((split, walked), (not split, other[2].cpu().numpy())):
+            units = cuda_binned.packed_scan_units(
+                args[1], qb, gb, args[5], kw["q_blk"], r_blk, flag)
+            assert np.array_equal(report, cuda_binned.units_walked(
+                units, qb.shape[0], kw["q_blk"])), (label, flag)
+        del other
     pb = cuda_binned.packed_scan_plain(*args, **kw)
     assert_topk_match(kb[0], kb[1], pb[0], pb[1], rtol=0.0, atol=TOL)
     err_b = max_abs_diff(kb[0], pb[0])
@@ -475,7 +492,9 @@ def hold_kernel_b(torch, args, kw, label, mirror, time_plain=True):
     assert issued >= useful > 0, (issued, useful)
     units_n = walked.shape[0] * walked.shape[1]
     log(f"kernel B vs plain, {label} "
-        f"({q_stack.shape[0]} query rows, {qb.shape[0]} work items): "
+        f"({q_stack.shape[0]} query rows, {qb.shape[0]} work items, "
+        f"{'split' if split else 'run'} walk"
+        f"{', the other walk forced: bit-identical' if mirror else ''}): "
         f"max |d| {err_b:g}, {ms_b:.3f} ms vs "
         f"{'not timed' if plain_b is None else f'{plain_b:.2f} ms'}; bound "
         f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}, "
@@ -487,6 +506,7 @@ def hold_kernel_b(torch, args, kw, label, mirror, time_plain=True):
         f"reports them, masked share {1.0 - useful / issued:.4f} of "
         f"{issued:.4g} products issued")
     return dict(rows=q_stack.shape[0], work_items=qb.shape[0],
+                walk="split" if split else "run",
                 r_blk=r_blk, grid=list(walked.shape),
                 max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
@@ -664,13 +684,14 @@ def forest_phase(torch, vt, x, q, qd, truth_ids, dev):
                               peak_search_gb=peak_gb,
                               over_plan_max=[u > cuda_binned.PLAN_MAX
                                              for u in units])
-        counted = cuda_binned.LAUNCHES  # comparisons do not count
+        # comparisons do not count
+        counted = cuda_binned.LAUNCHES, cuda_binned.LAUNCHES_SPLIT
         for tree, (args, kw) in zip(first_last, calls):
             b_rows[f"forest probes={name} tree {tree}"] = hold_kernel_b(
                 torch, args, kw,
                 f"forest scan, probes_per_tree={name}, tree {tree}",
                 mirror=tree == 0, time_plain=tree == 0)
-        cuda_binned.LAUNCHES = counted
+        cuda_binned.LAUNCHES, cuda_binned.LAUNCHES_SPLIT = counted
         del calls
 
     # the search as CUDA graphs against itself eagerly, with no host
@@ -1907,7 +1928,7 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
     # -- the main path, counted --------------------------------------
     cuda_topk.LAUNCHES_BY_ROUTE.clear()
-    cuda_binned.LAUNCHES = 0
+    cuda_binned.LAUNCHES = cuda_binned.LAUNCHES_SPLIT = 0
 
     flat = vt.FlatIndex(x)
     assert flat.device == dev, flat.device
@@ -1995,6 +2016,14 @@ def main():
     with binned.captured_scans() as calls:
         res0 = ivf.search_batch(qd, TOP_K, nprobe=0)
     scans[0] = calls
+    # online retrieval's batch: host queries in, kernel B's split walk
+    with binned.captured_scans() as small_scan:
+        res_small = ivf.search_batch(q[:SMALL_QUERIES], TOP_K, nprobe=2)
+    (small_args, small_kw), = small_scan
+    assert cuda_binned.walk_splits(small_args[0], small_kw["q_blk"])
+    log(f"ivf search_batch of {SMALL_QUERIES} host queries, nprobe=2: "
+        f"recall@10 {vt.recall_at_k(res_small.ids, truth.ids[:SMALL_QUERIES]):.4f}"
+        f", kernel B's split walk")
     ms0 = cuda_ms(torch, lambda: ivf.search_batch_device(qd, TOP_K, 0))
     log(f"ivf adaptive nprobe=0: recall@10 {vt.recall_at_k(res0.ids, truth.ids):.4f}, "
         f"{N_QUERIES / ms0 * 1e3:.0f} qps")
@@ -2049,7 +2078,8 @@ def main():
         f"({io_s:.1f} s for {path.name})")
 
     launches = {"distance_topk": cuda_topk.launches(),
-                "packed_scan": cuda_binned.LAUNCHES}
+                "packed_scan": cuda_binned.LAUNCHES,
+                "packed_scan_split": cuda_binned.LAUNCHES_SPLIT}
     main_routes = dict(cuda_topk.LAUNCHES_BY_ROUTE)
     log(f"kernel launches on the main path: {launches}, kernel A by route "
         f"{main_routes}")
@@ -2057,9 +2087,12 @@ def main():
     assert main_routes == {"f32/highest": launches["distance_topk"]}
 
     # -- the forest, kernel B's second caller, counted on its own -----
+    cuda_binned.LAUNCHES_SPLIT = 0
     forest_rows, forest_scans, forest_launches, forest = forest_phase(
         torch, vt, x, q, qd, truth.ids, dev)
-    log(f"kernel B launches in the forest phase: {forest_launches}")
+    forest_split = cuda_binned.LAUNCHES_SPLIT
+    log(f"kernel B launches in the forest phase: {forest_launches}, "
+        f"{forest_split} of them on the split walk")
     assert forest_launches > 0
     torch.cuda.empty_cache()
 
@@ -2074,12 +2107,14 @@ def main():
     # -- shapes, counted on its own -----------------------------------
     cuda_topk.LAUNCHES_VALUES = 0
     cuda_topk.LAUNCHES_BY_ROUTE.clear()
-    cuda_binned.LAUNCHES = cuda_bucket.LAUNCHES = 0
+    cuda_binned.LAUNCHES = cuda_binned.LAUNCHES_SPLIT = 0
+    cuda_bucket.LAUNCHES = 0
     parallel_rows, held = parallel_phase(
         torch, vt, x, qd, truth, dev, flat, ivf, forest, hnsw_index, qd2,
         cards_mesh(torch, vt))
     parallel_launches = {"distance_topk": cuda_topk.launches(),
                          "packed_scan": cuda_binned.LAUNCHES,
+                         "packed_scan_split": cuda_binned.LAUNCHES_SPLIT,
                          "topk_values": cuda_topk.LAUNCHES_VALUES,
                          "bucket_scan": cuda_bucket.LAUNCHES}
     parallel_routes = dict(cuda_topk.LAUNCHES_BY_ROUTE)
@@ -2258,6 +2293,12 @@ def main():
             torch, *calls[0], f"main-path scan of nprobe={nprobe}",
             mirror=nprobe == operating)
     del scans
+    small_row = hold_kernel_b(
+        torch, small_args, small_kw,
+        f"main-path scan of a {SMALL_QUERIES}-query search_batch, nprobe=2",
+        mirror=True)
+    assert small_row["walk"] == "split", small_row
+    del small_scan, small_args
 
     bound_a = roofline.distance_topk_bound(N_QUERIES, N, DIM, TOP_K)
     by_route = {"flat": main_routes, "hnsw": hnsw_rows["launches_by_route"],
@@ -2325,15 +2366,21 @@ def main():
          "launches_ivf": launches["packed_scan"],
          "launches_forest": forest_launches,
          "launches_parallel": parallel_launches["packed_scan"],
+         "launches_split": launches["packed_scan_split"] + forest_split
+                           + parallel_launches["packed_scan_split"],
+         "launches_split_by_phase": {
+             "ivf": launches["packed_scan_split"], "forest": forest_split,
+             "parallel": parallel_launches["packed_scan_split"]},
          "max_abs_err": max(r["max_abs_err"] for r in
-                            (*b_rows.values(), *forest_scans.values(),
-                             *shard_b.values())),
+                            (*b_rows.values(), small_row,
+                             *forest_scans.values(), *shard_b.values())),
          "ms": b_rows[operating]["ms"], "plain_ms": b_rows[operating]["plain_ms"],
          "bound_ms": b_rows[operating]["bound_ms"],
          "bound_by": b_rows[operating]["bound_by"], "library_ms": None,
          "shape": f"Q={N_QUERIES} nprobe={operating} k={TOP_K} of the "
                   f"{K_CLUSTERS}-cluster layout",
-         "by_nprobe": b_rows, "by_forest_scan": forest_scans,
+         "by_nprobe": b_rows, "small_batch": small_row,
+         "by_forest_scan": forest_scans,
          "forest": forest_rows, "parallel_scans": shard_b,
          "ivf_graphs": ivf_graphs},
         {"name": "topk_values", "route": "cuda",

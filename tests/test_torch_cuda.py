@@ -13,7 +13,10 @@ fewer than k finite values) at W in {1, 20, 33, 1001, 8960, 70000} and k
 in {1, 10, 32, 128}, and kernel B directly on the scans of small binned
 searches (d in {8, 37, 300}, k in {1, 10, 128}, skewed bins, bins larger
 than a tile, groups that end inside a tile, a run of more than 512
-tiles, cosine, ids on and off, exact ties, repeat calls bit-identical),
+tiles, cosine, ids on and off, exact ties, repeat calls bit-identical;
+every shape under each of its two walks, forced, the split walk and
+the run walk bit for bit, each walk's report against its host mirror;
+the two walks also at Q = 1, 64 and 1024 over empty lists),
 and the RP-forest: its build on the card, its search with kernel B
 against the plain engine on both sides of the plan limit, the duplicate
 mask where a query probes one leaf twice, the descent against the CPU's,
@@ -44,7 +47,9 @@ card, each capturing call and replay equal to the eager search bit for
 bit; IVF (nprobe 1, 2 and 0) and forest searches with no host
 synchronisation (``set_sync_debug_mode("error")``); eight chained calls
 equal to eight drained ones; search, ``add``, search equal to a fresh
-index; replays counted as launches.
+index; replays counted as launches; a 64-query IVF search replayed on
+kernel B's split walk with no host synchronisation, and a 16384-query
+one on the run walk.
 
 Every test here needs a CUDA device: it carries the ``gpu`` marker and
 skips without one. This file imports neither jax nor vers_tpu, so it
@@ -714,6 +719,7 @@ def test_packed_scan_kernel_constants(cuda):
         PLAN_MAX=cuda_binned.PLAN_MAX)
 
 
+@pytest.mark.parametrize("split", [False, True])
 @pytest.mark.parametrize("kernel_ids", [False, True])
 @pytest.mark.parametrize("n,d,bins,q_n,nprobe,skew,top_k,metric,tiles", [
     (3000, 8, 16, 200, 1, True, 1, "sq_euclidean", dict(q_blk=64, r_blk=256, chunk=128)),
@@ -725,12 +731,16 @@ def test_packed_scan_kernel_constants(cuda):
      dict(q_blk=64, r_blk=192, chunk=64)),  # groups end inside a tile
     (140_000, 8, 2, 70, 1, False, 10, "sq_euclidean", dict()),  # > 512 tiles a run
 ])
-def test_packed_scan_kernel_matches_plain(cuda, kernel_ids, n, d, bins, q_n,
-                                          nprobe, skew, top_k, metric, tiles):
-    """Kernel B on the arguments the binned search hands it, against
-    ``packed_scan_plain``; a repeat call bit-identical; the blocks that
-    work and the live tiles each walks, as the kernel reports them, equal
-    to the host mirror's (``packed_scan_units``), block by block."""
+def test_packed_scan_kernel_matches_plain(cuda, split, kernel_ids, n, d, bins,
+                                          q_n, nprobe, skew, top_k, metric,
+                                          tiles):
+    """Kernel B, forced to one walk (``split``: the split walk, else the
+    run walk), on the arguments the binned search hands it, against
+    ``packed_scan_plain``; a repeat call bit-identical; equal bit for bit
+    to the other walk and to the walk ``split_walk`` picks; the blocks
+    that work and the live tiles each walks, as the kernel reports them,
+    equal to the host mirror of that walk (``packed_scan_units``), block
+    by block."""
     layout, rng = _layout(n, d, bins, skew, cuda)
     cents = torch.from_numpy(rng.normal(size=(bins, d)).astype(np.float32)).to(cuda)
     q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32)).to(cuda)
@@ -743,25 +753,69 @@ def test_packed_scan_kernel_matches_plain(cuda, kernel_ids, n, d, bins, q_n,
         kernel_ids=kernel_ids, **tiles))
     cuda_binned.check_work_items(args[2], args[3], args[0].shape[0], kw["q_blk"],
                                  args[4].shape[0], kw["chunk"] * kw["r_chunks"])
-    before = cuda_binned.LAUNCHES
+    before = (cuda_binned.LAUNCHES, cuda_binned.LAUNCHES_SPLIT)
+    walk = cuda_binned.cuda_packed_scan_walk(*args, **kw, split=split)
+    again = cuda_binned.cuda_packed_scan_walk(*args, **kw, split=split)
+    other = cuda_binned.cuda_packed_scan_walk(*args, **kw, split=not split)
     got = cuda_binned.cuda_packed_scan(*args, **kw)
-    again = cuda_binned.cuda_packed_scan(*args, **kw)
     torch.cuda.synchronize()
-    assert cuda_binned.LAUNCHES == before + 2
-    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    picked = cuda_binned.walk_splits(args[0], kw["q_blk"])
+    assert (cuda_binned.LAUNCHES - before[0],
+            cuda_binned.LAUNCHES_SPLIT - before[1]) == (4, 1 + split + picked)
+    _bitwise(again[:2], walk[:2])
+    assert torch.equal(again[2], walk[2])
+    _bitwise(other[:2], walk[:2])
+    _bitwise(got, walk[:2])
     atol = 1e-4 * max(1.0, float((args[6].max())))  # scales with |x|^2
     want = cuda_binned.packed_scan_plain(*args, **kw)
-    assert_topk_match(got[0], got[1], want[0], want[1], rtol=1e-4, atol=atol)
-    walk = cuda_binned.cuda_packed_scan_walk(*args, **kw)
-    assert cuda_binned.LAUNCHES == before + 3
-    assert torch.equal(got[0], walk[0]) and torch.equal(got[1], walk[1])
-    units = cuda_binned.packed_scan_units(args[1], args[2], args[3], args[5],
-                                          kw["q_blk"], kw["chunk"] * kw["r_chunks"])
+    assert_topk_match(walk[0], walk[1], want[0], want[1], rtol=1e-4, atol=atol)
+    units = cuda_binned.packed_scan_units(
+        args[1], args[2], args[3], args[5], kw["q_blk"],
+        kw["chunk"] * kw["r_chunks"], split)
     want_walk = cuda_binned.units_walked(units, args[2].shape[0], kw["q_blk"])
     assert np.array_equal(walk[2].cpu().numpy(), want_walk)
     assert (want_walk >= 0).any()
     if n == 140_000:
         assert want_walk.max() > 512
+
+
+@pytest.mark.parametrize("q_n", [1, 64, 1024])
+def test_packed_scan_split_walk_equals_run_walk(cuda, q_n):
+    """The split walk and the run walk, forced on the same captured scan
+    of an IVF search (nprobe 2, a layout with three empty lists, some
+    probed): bit for bit, each walk's report equal to its host mirror
+    block by block, ``split_walk`` picking the split walk at these
+    shapes and ``LAUNCHES_SPLIT`` counting the split launches."""
+    rng = np.random.default_rng(q_n)
+    n, d, bins = 20_000, 64, 64
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    assign = rng.integers(0, bins, n)
+    assign[np.isin(assign, [5, 6, 40])] = 7
+    layout = binned.make_layout(x, assign, bins, device=cuda)
+    q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32)).to(cuda)
+    probes = torch.from_numpy(rng.integers(0, bins, (q_n, 2))).to(cuda)
+    probes[::5, 1] = 6  # an empty list
+    args, kw = _captured_scan(lambda: binned.binned_topk_kernel(
+        q, None, 2, layout, top_k=10, probes=probes))
+    assert cuda_binned.walk_splits(args[0], kw["q_blk"])
+    before = (cuda_binned.LAUNCHES, cuda_binned.LAUNCHES_SPLIT)
+    split = cuda_binned.cuda_packed_scan_walk(*args, **kw, split=True)
+    run = cuda_binned.cuda_packed_scan_walk(*args, **kw, split=False)
+    auto = cuda_binned.cuda_packed_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert (cuda_binned.LAUNCHES - before[0],
+            cuda_binned.LAUNCHES_SPLIT - before[1]) == (3, 2)
+    _bitwise(split[:2], run[:2])
+    _bitwise(auto, split[:2])
+    r_blk = kw["chunk"] * kw["r_chunks"]
+    for walk, flag in ((split, True), (run, False)):
+        units = cuda_binned.packed_scan_units(args[1], args[2], args[3], args[5],
+                                              kw["q_blk"], r_blk, flag)
+        assert np.array_equal(walk[2].cpu().numpy(), cuda_binned.units_walked(
+            units, args[2].shape[0], kw["q_blk"]))
+    want = cuda_binned.packed_scan_plain(*args, **kw)
+    assert_topk_match(split[0], split[1], want[0], want[1], rtol=1e-4,
+                      atol=1e-4 * max(1.0, float(args[6].max())))
 
 
 def test_packed_scan_kernel_ties_lower_padded_row(cuda):
@@ -1716,7 +1770,38 @@ def test_graph_replays_count_their_launches(graph_indexes, hnsw_card):
             assert counter() == before + per
     site = ix["ivf"]._graphs.sites()[-1]
     (g,) = site.graphs.values()
-    assert [(key, n) for _, key, n in g.launches] == [("LAUNCHES", 1)]
+    # 64 queries: the split walk (``cuda_binned.split_walk``)
+    assert [(key, n) for _, key, n in g.launches] == [("LAUNCHES", 1),
+                                                      ("LAUNCHES_SPLIT", 1)]
+
+
+def test_small_graph_search_takes_the_split_walk(graph_indexes):
+    """A 64-query IVF search at nprobe 2 (an online-retrieval batch)
+    takes kernel B's split walk, counted on every replay, and replays
+    with no host synchronisation, equal to its eager run bit for bit; a
+    16384-query search keeps the run walk."""
+    ivf = graph_indexes["ivf"]
+    q = graph_indexes["qd"][:64].contiguous()
+    search = lambda: ivf.search_batch_device(q, 10, 2)  # noqa: E731
+    want = search()  # eager; the second call captures
+    search()
+    torch.cuda.synchronize()
+    before = cuda_binned.LAUNCHES_SPLIT
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [search() for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cuda_binned.LAUNCHES_SPLIT == before + 3
+    for g in got:
+        _bitwise(g, want)
+    big = torch.nn.functional.normalize(
+        torch.randn((16384, q.shape[1]), device=q.device), dim=1)
+    before = (cuda_binned.LAUNCHES, cuda_binned.LAUNCHES_SPLIT)
+    ivf.search_batch_device(big, 10, 2)
+    torch.cuda.synchronize()
+    assert (cuda_binned.LAUNCHES - before[0],
+            cuda_binned.LAUNCHES_SPLIT - before[1]) == (1, 0)
 
 
 @pytest.mark.parametrize("cfg", [{}, dict(nav_inline_dp=32),

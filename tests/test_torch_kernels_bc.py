@@ -7,12 +7,14 @@ boundaries, +-0, rows with fewer than k finite values, W < k, W = 1,
 k = 1 and 128), against each other and against the JAX Pallas kernel in
 interpret mode. Kernel C only selects: every comparison is exact.
 
-Kernel B (packed scan): the host mirror of its walk (units, live tiles,
-issued and useful products) and the plain walk over live tiles alone,
-against ``packed_scan_plain`` and the JAX Pallas kernel in interpret
-mode, on the inputs tests/test_torch_binned.py builds. Ids are compared
-tie-aware, distances to rtol 1e-4 / atol 1e-5 (f32 matmuls of other
-shapes sum in other orders).
+Kernel B (packed scan): the host mirror of its two walks (units, live
+tiles, issued and useful products) and the plain walk over live tiles
+alone, against ``packed_scan_plain`` and the JAX Pallas kernel in
+interpret mode, on the inputs tests/test_torch_binned.py builds and on a
+stacked two-table layout with empty lists. Ids are compared tie-aware,
+distances to rtol 1e-4 / atol 1e-5 (f32 matmuls of other shapes sum in
+other orders); the split walk equals the run walk bit for bit. The rule
+that picks the walk, ``split_walk``, at the benchmark's shapes.
 """
 
 import jax.numpy as jnp
@@ -23,6 +25,7 @@ import torch
 from test_torch_binned import _scan_inputs
 from vers_tpu.ops import pallas_binned as jpb
 from vers_tpu.ops.pallas_topk import pallas_topk_values
+from vers_tpu_torch.core import round_up
 from vers_tpu_torch.ops import binned as tb
 from vers_tpu_torch.ops import cuda_binned as tpb
 from vers_tpu_torch.ops import cuda_topk
@@ -114,31 +117,121 @@ def test_topk_values_plain_tie_rule_on_equal_rows():
 
 SCANS = [(3000, 32, 16, 200, 1, False), (3000, 32, 16, 500, 3, True),
          (997, 16, 7, 33, 2, True)]
+# small batches, where the split walk engages, and a stacked two-table
+# layout (the forest's form: group tables offset by g_base) with empty
+# lists, its ranks on alternate tables
+SMALL_SCANS = [(3000, 32, 16, q_n, p, True) for q_n in (1, 7, 64)
+               for p in (1, 2)] + [(3000, 32, 16, 200, 2, True),
+                                   (2500, 16, 14, 64, 2, "forest"),
+                                   (2500, 16, 14, 200, 3, "forest")]
+
+
+def _walks(shapes, split_only=()):
+    """(shape, split) cases: the run walk under the shape's own id, the
+    split walk's ending in ``-split``."""
+    def name(shape):
+        return "-".join(str(v) for v in shape)
+    return ([pytest.param(*s, False, id=name(s)) for s in shapes]
+            + [pytest.param(*s, True, id=name(s) + "-split")
+               for s in list(shapes) + list(split_only)])
 
 
 def _tensors(arrays):
     return {a: torch.from_numpy(v) for a, v in arrays.items()}
 
 
+def _forest_inputs(n, d, k, q_n, p, q_blk):
+    """Kernel-B inputs as the per-rank path builds them over a stacked
+    two-table layout (bins [0, k/2) and [k/2, k)), rank r probing table
+    r % 2; two bins are empty lists. Same form as ``_scan_inputs``."""
+    rng = np.random.default_rng(q_n)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    bins = (rng.random(n) ** 2 * k).astype(np.int64)
+    bins[np.isin(bins, [2, k - 3])] = 4
+    layout = tb.make_layout(x, bins, k)
+    r_blk = round_up(layout["max_bin"], 128)
+    bounds = [0, k // 2, k]
+    padded = tpb.padded_forest_layout(layout, r_blk, bounds)
+    q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32))
+    probes = torch.from_numpy(np.stack(
+        [rng.integers(bounds[r % 2], bounds[r % 2 + 1], q_n) for r in range(p)],
+        axis=1))
+    q_pad_rank = round_up(q_n, q_blk)
+    with tb.captured_scans() as calls:
+        tb._fused_core(
+            q, probes, padded["corpus"], padded["rbin"], padded["xx"],
+            padded["s2o"], padded["g_first"], num_bins=k, nprobe=p, top_k=10,
+            q_blk=q_blk, r_blk=r_blk, chunk=128,
+            w_rank=q_pad_rank // q_blk + padded["g_max"] + 1,
+            q_pad_rank=q_pad_rank, metric="sq_euclidean", probes_given=True,
+            rank_rows=tuple(r % 2 for r in range(p)), g_base=padded["g_base"],
+            kernel_ids=True)
+    (args, kw), = calls
+    names = ("q_stack", "qbin_stack", "qb", "gb", "corpus_padded",
+             "rbin_padded", "xx_padded")
+    arrays = {a: v.numpy().copy() for a, v in zip(names, args)}
+    arrays["ids_padded"] = kw.pop("ids_padded").numpy().copy()
+    kw.pop("metric")
+    assert (np.asarray(layout["sizes_host"]) == 0).sum() == 2
+    return arrays, kw, arrays["qbin_stack"].reshape(-1), k
+
+
+def _inputs(n, d, k, q_n, p, skew, q_blk=64):
+    if skew == "forest":
+        return _forest_inputs(n, d, k, q_n, p, q_blk)
+    return _scan_inputs(n, d, k, q_n, p, skew, q_blk=q_blk)
+
+
+def test_split_walk_rule():
+    """The split walk where the run walk's units, one for each 64-row
+    part of each query block, are fewer than the SMs; the run walk from
+    exactly as many on, as at the benchmark's bulk and adaptive shapes
+    (stacked rows: pairs padded to blocks, plus the scratch block)."""
+    assert tpb.split_walk(128, 128, 132)
+    assert tpb.split_walk(3 * 128, 128, 132)  # 64 queries at nprobe 2
+    assert tpb.split_walk(17 * 128, 128, 132)  # 1024 queries at nprobe 2
+    assert not tpb.split_walk(2 * 16384 + 128, 128, 132)  # wiki bulk
+    assert not tpb.split_walk(2 * 10112 + 128, 128, 132)  # SIFT bulk
+    assert not tpb.split_walk(263 * 16384 + 128, 128, 132)  # adaptive
+    assert not tpb.split_walk(16384 + 128, 128, 132)  # a forest's tree
+    assert tpb.split_walk(65 * 128, 128, 132)  # 130 units
+    assert not tpb.split_walk(66 * 128, 128, 132)  # 132 units: the edge
+    assert not tpb.split_walk(67 * 128, 128, 132)
+    assert tpb.split_walk(131 * 64, 64, 132)  # one part a block
+    assert not tpb.split_walk(132 * 64, 64, 132)
+
+
 @pytest.mark.parametrize("q_blk", [64, 128])
-@pytest.mark.parametrize("n,d,k,q_n,p,skew", SCANS)
-def test_packed_scan_units_cover_every_needed_row(n, d, k, q_n, p, skew, q_blk):
-    """Every corpus row that shares a bin with a live query row of a unit
+@pytest.mark.parametrize("n,d,k,q_n,p,skew,split",
+                         _walks(SCANS, SMALL_SCANS[-3:]))
+def test_packed_scan_units_cover_every_needed_row(n, d, k, q_n, p, skew, q_blk,
+                                                  split):
+    """Every corpus row that shares a bin with a query row a unit writes
     lies in one of the unit's live tiles, tiles come in item and row
-    order, and units cover each live stacked row once."""
-    arrays, statics, qbin, num_bins = _scan_inputs(n, d, k, q_n, p, skew,
-                                                   q_blk=q_blk)
+    order, and each stacked row is written by one unit at most: every
+    live row in the run walk, every row whose bin holds corpus rows in
+    the split walk, whose units walk one item and write the rows of
+    their part inside their group's bin range."""
+    arrays, statics, qbin, num_bins = _inputs(n, d, k, q_n, p, skew,
+                                              q_blk=q_blk)
     r_blk = statics["chunk"] * statics["r_chunks"]
     rbin = arrays["rbin_padded"].reshape(-1)
     units = tpb.packed_scan_units(arrays["qbin_stack"], arrays["qb"],
-                                  arrays["gb"], rbin, q_blk, r_blk)
+                                  arrays["gb"], rbin, q_blk, r_blk, split)
     seen = np.zeros(qbin.shape[0], bool)
     for row0, nq, tiles, (w, end) in units:
-        assert 1 <= nq <= tpb.QUERY_TILE and row0 % tpb.QUERY_TILE == 0
+        part0 = row0 - row0 % q_blk % tpb.QUERY_TILE
+        assert 1 <= nq and row0 + nq <= part0 + tpb.QUERY_TILE
+        assert end == w + 1 if split else row0 == part0
         assert not seen[row0 : row0 + nq].any()
         seen[row0 : row0 + nq] = True
         assert (arrays["qb"][w:end] == row0 // q_blk).all()
         groups = arrays["gb"][w:end]
+        if split:  # the rows lie in the group's bin range
+            own = rbin[groups[0] * r_blk : (groups[0] + 1) * r_blk]
+            own = own[own >= 0]
+            assert own.min() <= qbin[row0 : row0 + nq].min()
+            assert qbin[row0 : row0 + nq].max() <= own.max()
         # item order, then row order: group ordinals never fall back, and
         # rows ascend within a group (a group may recur in a long run)
         where = [list(groups).index(t // r_blk) for t in tiles]
@@ -154,6 +247,8 @@ def test_packed_scan_units_cover_every_needed_row(n, d, k, q_n, p, skew, q_blk):
             needed = np.isin(rbin[rows], bins[bins >= 0])
             assert covered[rows[needed]].all()
     live = (qbin >= 0) & (qbin < num_bins)
+    if split:
+        live &= np.isin(qbin, rbin[rbin >= 0])
     assert seen[live].all()
 
 
@@ -177,27 +272,36 @@ def test_packed_scan_work_counts(n, d, k, q_n, p, skew):
 
 
 @pytest.mark.parametrize("q_blk", [64, 128])
-@pytest.mark.parametrize("n,d,k,q_n,p,skew", SCANS)
-def test_units_walked_table(n, d, k, q_n, p, skew, q_blk):
+@pytest.mark.parametrize("n,d,k,q_n,p,skew,split", _walks(SCANS))
+def test_units_walked_table(n, d, k, q_n, p, skew, q_blk, split):
     """The mirror's units in the shape the kernel reports its walk: one
-    count per (work item, 64-row part), -1 where the block returns."""
+    count per (work item, 64-row part), -1 where the block returns. The
+    split walk does the same useful products in as many live tiles or
+    fewer, over more blocks."""
     arrays, statics, _, _ = _scan_inputs(n, d, k, q_n, p, skew, q_blk=q_blk)
     r_blk = statics["chunk"] * statics["r_chunks"]
     qb = arrays["qb"]
     units = tpb.packed_scan_units(arrays["qbin_stack"], qb, arrays["gb"],
-                                  arrays["rbin_padded"], q_blk, r_blk)
+                                  arrays["rbin_padded"], q_blk, r_blk, split)
     walked = tpb.units_walked(units, qb.shape[0], q_blk)
     assert walked.shape == (qb.shape[0], q_blk // 64)
     assert int((walked >= 0).sum()) == len(units)
     work = tpb.packed_scan_work(arrays["qbin_stack"], qb, arrays["gb"],
-                                arrays["rbin_padded"], q_blk, r_blk)
+                                arrays["rbin_padded"], q_blk, r_blk, split)
     assert int(walked[walked >= 0].sum()) == work["live_tiles"]
     assert walked.max() == work["max_tiles_per_block"]
+    run = tpb.packed_scan_work(arrays["qbin_stack"], qb, arrays["gb"],
+                               arrays["rbin_padded"], q_blk, r_blk)
     later = np.flatnonzero(qb[1:] == qb[:-1]) + 1  # not a run's first item
-    assert (walked[later] == -1).all()
+    if split:
+        assert work["useful_products"] == run["useful_products"]
+        assert work["live_tiles"] <= run["live_tiles"]
+        assert work["working_blocks"] >= run["working_blocks"]
+    else:
+        assert (walked[later] == -1).all()
     # the wrapper's CPU route: the plain result and this table
     t = _tensors(arrays)
-    got = tpb.cuda_packed_scan_walk(**t, **statics)
+    got = tpb.cuda_packed_scan_walk(**t, **statics, split=split)
     want = tpb.packed_scan_plain(**t, **statics)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert np.array_equal(got[2].numpy(), walked)
@@ -220,26 +324,38 @@ def test_captured_scans_records_and_restores():
     assert all(torch.equal(a, b) for a, b in zip(want, again))
 
 
+def _bitwise(got, want):
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
 @pytest.mark.parametrize("metric", ["sq_euclidean", "cosine"])
 @pytest.mark.parametrize("kernel_ids", [False, True])
 @pytest.mark.parametrize("q_blk", [64, 128])
-@pytest.mark.parametrize("n,d,k,q_n,p,skew", SCANS)
+@pytest.mark.parametrize("n,d,k,q_n,p,skew,split",
+                         _walks(SCANS + SMALL_SCANS))
 def test_packed_scan_tiled_walk_matches_plain(n, d, k, q_n, p, skew, q_blk,
-                                              kernel_ids, metric):
+                                              kernel_ids, metric, split):
     """Skipping dead tiles, 64-row parts and ids gathered at the flush
-    change nothing: the kernel's walk equals the plain version."""
-    arrays, statics, qbin, _ = _scan_inputs(n, d, k, q_n, p, skew, q_blk=q_blk)
+    change nothing: the kernel's walk equals the plain version. The
+    split walk (each work item's rows alone) equals the run walk bit for
+    bit."""
+    arrays, statics, qbin, _ = _inputs(n, d, k, q_n, p, skew, q_blk=q_blk)
     if not kernel_ids:
         arrays.pop("ids_padded")
     t = _tensors(arrays)
     want = tpb.packed_scan_plain(**t, **statics, metric=metric)
-    got = tpb.packed_scan_tiled_plain(**t, **statics, metric=metric)
+    got = tpb.packed_scan_tiled_plain(**t, **statics, metric=metric,
+                                      split=split)
     assert_topk_match(got[0], got[1], want[0], want[1])
     dead = torch.from_numpy(qbin < 0)
     assert torch.isinf(got[0][dead]).all() and (got[1][dead] == -1).all()
+    if split:
+        _bitwise(got, tpb.packed_scan_tiled_plain(**t, **statics,
+                                                  metric=metric))
 
 
-def test_packed_scan_tiled_walk_tie_rule():
+def test_packed_scan_tiled_walk_tie_rule(split=False):
     """Duplicated corpus rows tie exactly: the lower padded row wins, in
     the walk as in the plain version, with ids that do not follow the
     padded order."""
@@ -253,9 +369,14 @@ def test_packed_scan_tiled_walk_tie_rule():
     arrays["ids_padded"] = arrays["ids_padded"].max() - arrays["ids_padded"]
     t = _tensors(arrays)
     want = tpb.packed_scan_plain(**t, **statics)
-    got = tpb.packed_scan_tiled_plain(**t, **statics)
+    got = tpb.packed_scan_tiled_plain(**t, **statics, split=split)
     assert torch.equal(got[1], want[1])
     assert (want[0][:, 1:] == want[0][:, :-1]).any()
+
+
+def test_packed_scan_tiled_walk_tie_rule_split():
+    """The same ties in the split walk."""
+    test_packed_scan_tiled_walk_tie_rule(split=True)
 
 
 @pytest.mark.parametrize("n,d,k,q_n,p,skew", SCANS[:2])

@@ -3,8 +3,8 @@
 
 Builds the smoke run's IVF index (``synthetic_gaussian`` 1M x 300 from
 seed 0, k = 2048 clusters, 2 restarts, 10 Lloyd iterations), captures
-the packed-scan arguments of a 16384-query search at each ``--nprobe``
-(1 and 2), and for each times with CUDA events, in turns (plain, kernel,
+the packed-scan arguments of a 16384-query search (or of each batch size
+in ``--queries``) at each ``--nprobe`` (1 and 2), and for each times with CUDA events, in turns (plain, kernel,
 kernel, plain), ``cuda_packed_scan`` and its plain version
 ``packed_scan_plain``, after holding the kernel to the plain version
 (tie-aware, |d distance| <= 1e-4) and to itself on a repeat call. One
@@ -18,7 +18,10 @@ the kernel's report block by block, and ``schedule`` models what the
 uneven runs cost: the most tiles one of the card's SMs walks when each
 takes the next working block as it falls free (one block an SM), in the
 kernel's order (heaviest first, by the plan's cost) and in list order,
-beside the mean.
+beside the mean. A second line a scan times both of the kernel's walks,
+forced (``cuda_packed_scan_walk(split=...)``), with each walk's work from
+its host mirror; ``split`` in the first line says which one
+``split_walk`` picks there.
 First it prints kernel B's ``ptxas`` report and the SASS counts of its
 matrix, copy and barrier instructions. ``--ablate`` then times, at the
 last nprobe, variants built from edited copies of the source:
@@ -56,7 +59,7 @@ time of the ``no_plan`` variant: list order against plan order.
 
 Usage, from the repository root:
 
-    python3 tools/time_kernel_b.py [--n N] [--queries Q] [--nprobe 1,2]
+    python3 tools/time_kernel_b.py [--n N] [--queries 64,16384] [--nprobe 1,2]
         [--reps R] [--ablate] [--parent PATH] [--forest]
 
 Needs one CUDA card; exits 2 without one.
@@ -111,12 +114,13 @@ ABLATIONS = {
 }
 
 
-def schedule(cuda_binned, units, a, q_blk, r_blk, sms):
+def schedule(cuda_binned, units, a, q_blk, r_blk, sms, split):
     """A greedy model of the blocks' schedule on ``sms`` SMs, one block
     an SM, in tiles: the makespan in the kernel's order (by the corpus
-    rows a block's run holds inside its query rows' bin range, heaviest
-    first; list order past PLAN_MAX units) and in list order, and the
-    mean per SM."""
+    rows a block will test: those its run holds inside its query rows'
+    bin range, or, split, those of its group with its rows' bins;
+    heaviest first; list order past PLAN_MAX units) and in list order,
+    and the mean per SM."""
     qbin, gb, rbin = (t.cpu().numpy().reshape(-1) for t in (a[1], a[3], a[5]))
     n_tiles = [len(t) for _, _, t, _ in units]
     cost = []
@@ -125,7 +129,8 @@ def schedule(cuda_binned, units, a, q_blk, r_blk, sms):
                                for g in gb[w:end]])
         live = qbin[row0 : row0 + nq]
         live = live[live >= 0]
-        cost.append(int(((rows >= live.min()) & (rows <= live.max())).sum()))
+        cost.append(int(np.isin(rows, live).sum() if split else
+                        ((rows >= live.min()) & (rows <= live.max())).sum()))
 
     def makespan(key):
         free = [0] * max(1, min(sms, len(units)))
@@ -144,8 +149,8 @@ def schedule(cuda_binned, units, a, q_blk, r_blk, sms):
 
 def bare_library(_build, source):
     """An earlier csrc/packed_scan.cu, built into a library of its own;
-    its entry point is today's without the plan's scratch, the walk report
-    and the corpus row count."""
+    its entry point is today's without the plan's scratch, the walk report,
+    the corpus row count and the walk's choice."""
     import ctypes
     import subprocess
 
@@ -157,7 +162,7 @@ def bare_library(_build, source):
                     str(source)], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(path))
     sig = _build._SIGNATURES["vers_packed_scan"]
-    lib.vers_packed_scan.argtypes = sig[:10] + sig[12:13] + sig[14:]
+    lib.vers_packed_scan.argtypes = sig[:10] + sig[12:13] + sig[14:-2] + sig[-1:]
     lib.vers_packed_scan.restype = ctypes.c_int
     return lib
 
@@ -211,7 +216,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--dim", type=int, default=300)
-    ap.add_argument("--queries", type=int, default=16384)
+    ap.add_argument("--queries", default="16384",
+                    help="query batch sizes, comma-separated")
     ap.add_argument("--clusters", type=int, default=2048)
     ap.add_argument("--top-k", type=int, default=10)
     ap.add_argument("--nprobe", default="1,2")
@@ -247,8 +253,9 @@ def main():
         "sass": sass_counts(_build.library_path(), OPCODES, "packed_scan"),
     }), flush=True)
 
+    batches = [int(v) for v in args.queries.split(",")]
     x, q = synthetic_gaussian(args.n, args.dim, n_clusters=1024,
-                              n_queries=args.queries, seed=0, normalized=True,
+                              n_queries=max(batches), seed=0, normalized=True,
                               query_noise=0.5)
     qd = torch.from_numpy(q).to("cuda")
 
@@ -266,10 +273,11 @@ def main():
         ivf = vt.IVFFlatIndex.build_index(args.clusters, 2, 10, x)
         ivf._ensure_layout()
         scans = []
-        for nprobe in (int(v) for v in args.nprobe.split(",")):
-            with binned.captured_scans() as calls:
-                ivf.search_batch_device(qd, args.top_k, nprobe)
-            scans.append((dict(nprobe=nprobe), *calls[0]))
+        for q_n in batches:
+            for nprobe in (int(v) for v in args.nprobe.split(",")):
+                with binned.captured_scans() as calls:
+                    ivf.search_batch_device(qd[:q_n], args.top_k, nprobe)
+                scans.append((dict(queries=q_n, nprobe=nprobe), *calls[0]))
 
     for label, a, kw in scans:
         r_blk = kw["chunk"] * kw["r_chunks"]
@@ -277,8 +285,9 @@ def main():
         again = cuda_binned.cuda_packed_scan_walk(*a, **kw)
         assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
         walked = again[2].cpu().numpy()
+        split = cuda_binned.walk_splits(a[0], kw["q_blk"])
         units = cuda_binned.packed_scan_units(a[1], a[2], a[3], a[5],
-                                              kw["q_blk"], r_blk)
+                                              kw["q_blk"], r_blk, split)
         assert np.array_equal(walked, cuda_binned.units_walked(
             units, a[2].shape[0], kw["q_blk"]))
         want = cuda_binned.packed_scan_plain(*a, **kw)
@@ -298,7 +307,9 @@ def main():
             max_tiles_per_block=int(walked.max()), issued_products=issued,
             useful_products=b["pairs"],
             masked_share=1.0 - b["pairs"] / issued,
-            schedule=schedule(cuda_binned, units, a, kw["q_blk"], r_blk, sms))
+            split=split,
+            schedule=schedule(cuda_binned, units, a, kw["q_blk"], r_blk, sms,
+                              split))
         list_order = None
         if no_plan is not None and work["schedule"]["planned"]:
             real = cuda_binned._build
@@ -320,6 +331,18 @@ def main():
             "issued_tf32_flop_per_s":
                 3 * 2 * a[0].shape[1] * work["issued_products"] / (min(ms) * 1e-3),
         }), flush=True)
+        walks = {}
+        for name, flag in (("run", False), ("split", True)):
+            mirror = cuda_binned.packed_scan_work(a[1], a[2], a[3], a[5],
+                                                  kw["q_blk"], r_blk, flag)
+            walks[name] = dict(
+                kernel_ms=cuda_ms(torch, lambda flag=flag: (
+                    cuda_binned.cuda_packed_scan_walk(*a, **kw, split=flag)),
+                    args.reps),
+                **{key: mirror[key] for key in (
+                    "working_blocks", "live_tiles", "max_tiles_per_block",
+                    "masked_share")})
+        print(json.dumps({"card": card, **label, "walks": walks}), flush=True)
 
         if parent is not None:  # both launched bare, in turns
             od = torch.empty((a[0].shape[0], kw["top_k"]), device="cuda")
@@ -336,7 +359,7 @@ def main():
                                dtype=torch.int32, device="cuda")
             run_new = lambda: new.vers_packed_scan(  # noqa: E731
                 *ptrs, plan.data_ptr(), None, a[0].shape[0], a[4].shape[0],
-                *tail)
+                *tail[:-1], int(split), tail[-1])
             ms = [cuda_ms(torch, f, args.reps)
                   for f in (run_old, run_new, run_new, run_old)]
             print(json.dumps({"card": card, **label,

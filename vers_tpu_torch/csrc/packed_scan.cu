@@ -8,15 +8,38 @@
 // set in VMEM across the CONSECUTIVE items that share its qb: init on
 // the first visit, flush on the last.
 //
-// Hopper blocks run in no order, so the carry cannot cross blocks.
-// Block (w, y) returns at once unless item w is the first of its run of
-// equal qb; the first block owns the run for query rows
-// [qb * q_blk + 64 y, + 64): it walks the run's groups in item order, in
-// 128-row tiles in ascending row order, and writes the rows' best sets
-// once at the end. Output rows of blocks without a run keep the
-// (+inf, -1) the wrapper fills them with. Invalid work items all park on
-// one scratch query block whose rows are padding (qbin < 0); a block
-// whose query rows are all padding returns.
+// Hopper blocks run in no order, so the carry cannot cross blocks. A
+// unit is (work item w, 64-row part y of its query block); block i of
+// the grid takes one unit. Two walks share every step below the unit:
+//  * The run walk. Block (w, y) returns at once unless item w is the
+//    first of its run of equal qb; the first block owns the run for query
+//    rows [qb * q_blk + 64 y, + 64): it walks the run's groups in item
+//    order and writes the part's best sets once at the end.
+//  * The split walk. Block (w, y), whichever item of its run w is,
+//    walks group gb[w] alone and writes only the part's rows whose bins
+//    lie in the group's bin range (its rows' lowest and highest bin);
+//    without such a row it returns at once. The rows are
+//    bin-sorted, so these form one slice; bins lie whole in one group and
+//    the ranges of groups are disjoint, so no two blocks write one row. A
+//    row's best set only ever takes entries of its own bin, met in the
+//    same tiles in the same order either way, so the two walks agree bit
+//    for bit, with no carry across blocks and no merge pass.
+// The rule (ops/cuda_binned.split_walk, from shapes and the card's SM
+// count, so a CUDA graph captures one walk): the split walk when the run
+// walk's units, (stacked rows / q_blk) x parts, are fewer than the SMs.
+// There one query block spans nearly every list (64 queries at nprobe 2:
+// 128 pairs, one block), and two blocks would walk every group of its run
+// one after the other; the split walk gives each group of the run its own
+// block. Where runs are short and blocks many, the run walk keeps one
+// query tile across a run's groups. Timed on the H100 (1M x 300, 2048
+// lists, nprobe 1 and 2): the split walk wins up to 130 units (1.07x to
+// 37x), at 258 units either walk wins by ~10% as the probes fall (the
+// run walk's longest run, which shapes do not show), and at 514 the run
+// walk wins by 8%; the edge stays at the SM count.
+// Output rows no block writes keep the (+inf, -1) the wrapper fills them
+// with (padding, gated ranks, and in the split walk empty lists).
+// Invalid work items all park on one scratch query block whose rows are
+// padding (qbin < 0); a block whose query rows are all padding returns.
 //
 // Bound on the H100: bytes. Each probed bin's rows are needed once
 // (1.2 GB at nprobe 2 of the 1M x 300 layout: 0.37 ms at 3.35 TB/s),
@@ -35,10 +58,12 @@
 //  * The 64 query rows stay resident in shared memory for the whole run
 //    (as f32; split into A fragments in registers per slice), where they
 //    were re-read and re-transposed for every chunk.
-//  * Before any product the block lists the run's live tiles: a tile is
-//    live if one of its rows has a bin inside the block's [lowest,
-//    highest] query bin (skipping the others only drops +inf
-//    candidates). One warp tests a tile, twelve tiles a round.
+//  * Before any product the block lists the live tiles of its walk: in
+//    the run walk a tile is live if one of its rows has a bin inside the
+//    part's [lowest, highest] query bin, in the split walk if one of its
+//    rows has the bin of one of the rows the block writes (a binary
+//    search over their ascending bins); skipping the others only drops
+//    +inf candidates. One warp tests a tile, twelve tiles a round.
 //  * Half of the producer warpgroup (two warps) streams the live tiles'
 //    128 x 32 slices by TMA (cp.async when rows are not 16-byte aligned)
 //    through a ring of three slots on mbarriers, splits each landed slice
@@ -59,9 +84,10 @@
 //  * One block per SM (the ring and the resident tile fill its shared
 //    memory), so the hardware hands a free SM the next block, and two
 //    small kernels ahead of the scan order the blocks by the corpus
-//    rows they will walk, heaviest first: the SMs end closer together,
+//    rows they will test, heaviest first: the SMs end closer together,
 //    where 514 blocks all resident at once ended with the SM that drew
-//    the longest runs.
+//    the longest runs. In the split walk each unit is costed by its own
+//    group alone.
 // The kernel is deterministic: a repeat call is bit-identical. Measured
 // on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md) at nprobe 2: 1.49 ms,
 // of which the loads and handshakes alone take 0.77 ms, the hi/lo split
@@ -120,7 +146,7 @@ struct Layout {
 };
 
 // state words
-enum { BIN_LO, BIN_HI, N_LIST, NEXT, DONE, N_STATE };
+enum { BIN_LO, BIN_HI, ROW_LO, ROW_HI, N_LIST, NEXT, DONE, N_STATE };
 
 __host__ __device__ inline Layout make_layout(int d, int k, bool resident) {
   Layout L;
@@ -197,6 +223,27 @@ __device__ inline void merge_row_regs(int r, unsigned* mask, const float* dist,
   }
 }
 
+// Whether the ascending s[0, n) holds v.
+__device__ inline bool holds(const int* s, int n, int v) {
+  int lo = 0, hi = n;  // the first index with s[i] >= v
+  while (lo < hi) {
+    const int m = (lo + hi) / 2;
+    if (s[m] < v)
+      lo = m + 1;
+    else
+      hi = m;
+  }
+  return lo < n && s[lo] == v;
+}
+
+// The lowest and highest of a warp's lo and hi.
+__device__ inline void warp_range(int& lo, int& hi) {
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(FULL, lo, off));
+    hi = max(hi, __shfl_xor_sync(FULL, hi, off));
+  }
+}
+
 // Split 16-byte unit u of a landed slice in place to its tf32 hi part
 // and write its lo part to lo (same layout).
 __device__ inline void split_unit(float* xs, float* lo, int u) {
@@ -214,11 +261,13 @@ __device__ inline void split_unit(float* xs, float* lo, int u) {
 // free, so blocks taken in the order of the work list leave the SMs that
 // drew long runs late working alone at the end. A unit is (work item,
 // 64-row part of its query block), unit = item * parts + part.
-// plan_cost_kernel gives each unit of a run's first item the count of
-// corpus rows its run holds inside the part's bin range (0 for the
-// units that return at once), one warp a unit; plan_order_kernel sorts
-// the units by (cost descending, unit) in one block, and block i of the
-// scan takes unit order[i].
+// plan_cost_kernel gives each working unit the count of corpus rows it
+// will test, one warp a unit, and 0 to the units that return at once:
+// in the run walk, the rows its run holds inside the part's bin range
+// (units of a run's first item only); in the split walk, the rows of its
+// own group whose bins are those of the part's rows in the group.
+// plan_order_kernel sorts the units by (cost descending, unit) in one
+// block, and block i of the scan takes unit order[i].
 constexpr int PLAN_MAX = 4096;  // units one block sorts in shared memory
 constexpr int PLAN_WARPS = 8;
 
@@ -226,32 +275,46 @@ __global__ void __launch_bounds__(PLAN_WARPS * 32)
 plan_cost_kernel(const int* __restrict__ qbin, const int* __restrict__ qb,
                  const int* __restrict__ gb, const int* __restrict__ rbin,
                  unsigned long long* __restrict__ keys, int n_rows, int W,
-                 int parts, int q_blk, int r_blk) {
+                 int parts, int q_blk, int r_blk, int split) {
   const int u = blockIdx.x * PLAN_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (u >= W * parts) return;
   const int w = u / parts, y0 = (u % parts) * QT;
   const int block = qb[w];
+  const int row0 = block * q_blk + y0;
+  const int nq = min(min(QT, q_blk - y0), n_rows - row0);
   unsigned cost = 0;
-  if (w == 0 || qb[w - 1] != block) {
+  if (split) {
+    // the group's bin range, then the part's rows [s0, s1) inside it
+    const int* rb = rbin + (size_t)gb[w] * r_blk;
     int lo = INT_MAX, hi = -1;
-    const int row0 = block * q_blk + y0;
-    for (int r = lane; r < min(QT, q_blk - y0) && row0 + r < n_rows; r += 32) {
+    for (int c = lane; c < r_blk; c += 32)
+      if (rb[c] >= 0) lo = min(lo, rb[c]), hi = max(hi, rb[c]);
+    warp_range(lo, hi);
+    int s0 = INT_MAX, s1 = -1;
+    for (int r = lane; r < nq; r += 32) {
+      const int b = qbin[row0 + r];
+      if (b >= lo && b <= hi) s0 = min(s0, r), s1 = max(s1, r + 1);
+    }
+    warp_range(s0, s1);
+    if (s0 < s1)
+      for (int c = lane; c < r_blk; c += 32)
+        cost += holds(qbin + row0 + s0, s1 - s0, rb[c]);
+  } else if (w == 0 || qb[w - 1] != block) {
+    int lo = INT_MAX, hi = -1;
+    for (int r = lane; r < nq; r += 32) {
       const int b = qbin[row0 + r];
       if (b >= 0) lo = min(lo, b), hi = max(hi, b);
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = min(lo, __shfl_xor_sync(FULL, lo, off));
-      hi = max(hi, __shfl_xor_sync(FULL, hi, off));
-    }
+    warp_range(lo, hi);
     if (hi >= 0)
       for (int v = w; v < W && qb[v] == block; ++v) {
         const int* rb = rbin + (size_t)gb[v] * r_blk;
         for (int c = lane; c < r_blk; c += 32) cost += rb[c] >= lo && rb[c] <= hi;
       }
-    for (int off = 16; off > 0; off >>= 1)
-      cost += __shfl_xor_sync(FULL, cost, off);
   }
+  for (int off = 16; off > 0; off >>= 1)
+    cost += __shfl_xor_sync(FULL, cost, off);
   if (lane == 0)
     keys[u] = ((unsigned long long)(0xffffffffu - cost) << 32) | (unsigned)u;
 }
@@ -280,7 +343,9 @@ plan_order_kernel(const unsigned long long* __restrict__ keys,
     order[i] = (int)(sorted[i] & 0xffffffffu);
 }
 
-template <bool RESIDENT>
+// SPLIT: the split walk, else the run walk (a template parameter, so the
+// run walk carries none of the split walk's tests)
+template <bool RESIDENT, bool SPLIT>
 __global__ void __launch_bounds__(THREADS, 1)
 packed_scan_kernel(const __grid_constant__ CUtensorMap map,
                    const float* __restrict__ q_stack,
@@ -296,7 +361,7 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap map,
   const int unit = order ? order[blockIdx.x] : blockIdx.x;
   const int w = unit / parts;
   const int block = qb[w];
-  if (w > 0 && qb[w - 1] == block) return;  // not the first visit
+  if (!SPLIT && w > 0 && qb[w - 1] == block) return;  // not the first visit
   const int y0 = (unit % parts) * QT;
   const int row0 = block * q_blk + y0;
   const int nq = min(min(QT, q_blk - y0), n_rows - row0);
@@ -344,11 +409,32 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap map,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     state[BIN_LO] = INT_MAX;
     state[BIN_HI] = -1;
+    state[ROW_LO] = INT_MAX;
+    state[ROW_HI] = -1;
     state[NEXT] = 0;
     state[DONE] = 0;
   }
   __syncthreads();
-  if (my_bin >= 0) {
+  if (SPLIT) {
+    // the group's bin range (the lowest and highest bin of its rows),
+    // then the rows of the part inside it: none, nothing to do
+    const int* rg = rbin + (size_t)gb[w] * r_blk;
+    int g_lo = INT_MAX, g_hi = -1;
+    for (int c = tid; c < r_blk; c += THREADS)
+      if (rg[c] >= 0) g_lo = min(g_lo, rg[c]), g_hi = max(g_hi, rg[c]);
+    warp_range(g_lo, g_hi);
+    if (lane == 0) {
+      atomicMin(&state[BIN_LO], g_lo);
+      atomicMax(&state[BIN_HI], g_hi);
+    }
+    __syncthreads();
+    const bool mine = my_bin >= state[BIN_LO] && my_bin <= state[BIN_HI];
+    if (mine) {
+      atomicMin(&state[ROW_LO], tid);
+      atomicMax(&state[ROW_HI], tid);
+    }
+    if (!__syncthreads_or(mine)) return;
+  } else if (my_bin >= 0) {
     atomicMin(&state[BIN_LO], my_bin);
     atomicMax(&state[BIN_HI], my_bin);
   }
@@ -381,7 +467,15 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap map,
   }
   for (int e = tid; e < QT * MASKW; e += THREADS) mask[e] = 0u;
   __syncthreads();
-  const int bin_lo = state[BIN_LO], bin_hi = state[BIN_HI];
+  // the rows the block writes, [s0, s1), and the bins a live tile holds:
+  // every row of the part and its bin range (the run walk), or the
+  // part's rows in the group, whose ascending bins a tile is tested
+  // against exactly (the split walk)
+  const int s0 = SPLIT ? state[ROW_LO] : 0;
+  const int s1 = SPLIT ? state[ROW_HI] + 1 : nq;
+  const int bin_lo = SPLIT ? qbins[s0] : state[BIN_LO];
+  const int bin_hi = SPLIT ? qbins[s1 - 1] : state[BIN_HI];
+  const int v_end = SPLIT ? w + 1 : W;  // past the walk's last item
 
   const int ntile = (r_blk + CT - 1) / CT;  // tiles per group
   const int nk = (d + DK - 1) / DK;         // slices per tile
@@ -395,15 +489,16 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap map,
     for (;;) {
       const int e = state[NEXT] + warp;  // this warp's candidate tile
       const int v = w + e / ntile;
-      int base = -2;  // past the run's end
-      if (v < W && qb[v] == block) {
+      int base = -2;  // past the walk's end
+      if (v < v_end && qb[v] == block) {
         const int c0 = (e % ntile) * CT;
         const long long b0 = (long long)gb[v] * r_blk + c0;
         const int nx = min(CT, r_blk - c0);
         bool hit = false;
         for (int c = lane; c < nx; c += 32) {
           const int rb = rbin[b0 + c];
-          hit |= rb >= bin_lo && rb <= bin_hi;
+          hit |= rb >= bin_lo && rb <= bin_hi &&
+                 (!SPLIT || holds(qbins + s0, s1 - s0, rb));
         }
         base = __any_sync(FULL, hit) ? (int)b0 : -1;
       }
@@ -622,8 +717,8 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap map,
 
   // the rows' best sets, ascending: the id of each padded position, -1
   // wherever the distance is inf
-  for (int e = tid; e < nq * k; e += THREADS) {
-    const int r = e / k, t = e % k;
+  for (int e = tid; e < (s1 - s0) * k; e += THREADS) {
+    const int r = s0 + e / k, t = e % k;
     const float v = bd[t * QT + r];
     const int pos = bi[t * QT + r];
     const size_t o = (size_t)(row0 + r) * k + t;
@@ -640,10 +735,11 @@ int launch(const CUtensorMap& map, const float* q_stack, const int* qbin,
            const int* qb, const int* gb, const float* corpus, const int* rbin,
            const float* xx, const int* ids, float* out_d, int* out_i,
            const int* order, int* walked, int n_rows, int n_corpus, int d,
-           int W, int q_blk, int r_blk, int k, int cosine, int tma,
+           int W, int q_blk, int r_blk, int k, int cosine, int tma, int split,
            cudaStream_t stream) {
   const size_t smem = make_layout(d, k, RESIDENT).bytes;
-  auto kernel = packed_scan_kernel<RESIDENT>;
+  auto kernel = split ? packed_scan_kernel<RESIDENT, true>
+                      : packed_scan_kernel<RESIDENT, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -669,14 +765,16 @@ extern "C" int vers_packed_scan_constants(int* out) {
 
 // walked: null, or one int per (work item, 64-row part) that the caller
 // filled with -1; a block that does work writes the count of live tiles
-// it walked there.
+// it walked there. split: 1 for the split walk, 0 for the run walk (the
+// caller's rule, ops/cuda_binned.split_walk).
 extern "C" int vers_packed_scan(const float* q_stack, const int* qbin,
                                 const int* qb, const int* gb,
                                 const float* corpus, const int* rbin,
                                 const float* xx, const int* ids, float* out_d,
                                 int* out_i, int* plan, int* walked, int n_rows,
                                 int n_corpus, int d, int W, int q_blk,
-                                int r_blk, int k, int cosine, void* stream) {
+                                int r_blk, int k, int cosine, int split,
+                                void* stream) {
   namespace ps = vers::pscan;
   namespace dtk = vers::dtk;
   if (W <= 0 || n_rows <= 0) return 0;
@@ -707,7 +805,7 @@ extern "C" int vers_packed_scan(const float* q_stack, const int* qbin,
     unsigned long long* keys = reinterpret_cast<unsigned long long*>(plan);
     ps::plan_cost_kernel<<<((int)units + ps::PLAN_WARPS - 1) / ps::PLAN_WARPS,
                            ps::PLAN_WARPS * 32, 0, st>>>(
-        qbin, qb, gb, rbin, keys, n_rows, W, parts, q_blk, r_blk);
+        qbin, qb, gb, rbin, keys, n_rows, W, parts, q_blk, r_blk, split);
     int n = 2;
     while (n < units) n <<= 1;
     ps::plan_order_kernel<<<1, 1024, n * sizeof(unsigned long long), st>>>(
@@ -718,7 +816,7 @@ extern "C" int vers_packed_scan(const float* q_stack, const int* qbin,
   }
 #define VERS_B_ARGS                                                          \
   map, q_stack, qbin, qb, gb, corpus, rbin, xx, ids, out_d, out_i, order,   \
-      walked, n_rows, n_corpus, d, W, q_blk, r_blk, k, cosine, tma, st
+      walked, n_rows, n_corpus, d, W, q_blk, r_blk, k, cosine, tma, split, st
   // the resident query tile where it fits, else queries read through L1
   if (ps::make_layout(d, k, true).bytes <= (size_t)max_smem)
     return ps::launch<true>(VERS_B_ARGS);

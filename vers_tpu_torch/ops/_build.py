@@ -46,9 +46,10 @@ _SIGNATURES = {
     "vers_distance_topk_plan": [_I, _I, _I, _I, _I, _I, _I, _P],
     # q_stack, qbin, qb, gb, corpus, rbin, xx, ids (nullable), out_d,
     # out_i, plan (3 ints of scratch a block, nullable), walked (an int a
-    # block, nullable), n_rows, n_corpus, d, W, q_blk, r_blk, k, cosine, stream
+    # block, nullable), n_rows, n_corpus, d, W, q_blk, r_blk, k, cosine,
+    # split, stream
     "vers_packed_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # out (3 ints): the scan's query tile, corpus tile and plan limit
     "vers_packed_scan_constants": [_P],
     # vals, ids, out_d, out_i, Q, W, k, cap, stream

@@ -5,12 +5,22 @@ Replaces ``vers_tpu/ops/pallas_binned.py:pallas_packed_scan``. What
 bounds it on the H100 and how the design answers that is in the source
 note at the top of the ``.cu`` file. Its plain version is
 ``packed_scan_plain`` below, with the same signature.
-``packed_scan_units`` mirrors the kernel's walk on the host (its blocks
-and their live tiles); ``packed_scan_work`` counts from it what the
-kernel issues against what counts, and ``packed_scan_tiled_plain``
-follows it in plain torch (for the tests). ``cuda_packed_scan_walk``
-has the kernel report the tiles each block walked, which holds the
-mirror to the kernel.
+
+The kernel walks the work items one of two ways, with one result bit for
+bit: the run walk (a block owns a run of items with one query block and
+walks its groups in turn) or the split walk (a block takes one item's
+group alone and writes the rows whose bins lie there). ``split_walk``
+picks from shapes and the card's SM count: the split walk where the run
+walk's blocks are fewer than the SMs, as for a 64-query batch whose one
+query block probes nearly every group. Launches that split are counted
+in ``LAUNCHES_SPLIT``.
+
+``packed_scan_units`` mirrors either walk on the host (its blocks and
+their live tiles); ``packed_scan_work`` counts from it what the kernel
+issues against what counts, and ``packed_scan_tiled_plain`` follows it
+in plain torch (for the tests). ``cuda_packed_scan_walk`` has the
+kernel report the tiles each block walked, which holds the mirror to
+the kernel.
 
 Layout, as in the JAX package: the corpus is **group-major padded** —
 group g (a run of whole bins packed to <= r_blk rows) occupies rows
@@ -33,11 +43,13 @@ import torch
 from vers_tpu_torch import trace
 from vers_tpu_torch.core import count
 from vers_tpu_torch.ops import _build
-from vers_tpu_torch.ops.cuda_topk import MAX_K
+from vers_tpu_torch.ops.cuda_topk import MAX_K, _sm_count
 from vers_tpu_torch.ops.topk import topk_smallest
 
 # Launches of the CUDA kernel (one per successful launch).
 LAUNCHES = 0
+# ... of them, those that took the split walk (``split_walk``).
+LAUNCHES_SPLIT = 0
 # Scans routed to the plain version because top_k > MAX_K.
 LARGE_K_PLAIN = 0
 # (Both move by ``core.count``: shards launch from several threads at
@@ -251,66 +263,107 @@ def _host(t) -> np.ndarray:
             else np.asarray(t)).reshape(-1)
 
 
-def packed_scan_units(qbin_stack, qb, gb, rbin_padded, q_blk: int, r_blk: int):
+def split_walk(n_rows: int, q_blk: int, sm_count: int) -> bool:
+    """Whether kernel B takes the split walk for ``n_rows`` stacked query
+    rows in blocks of ``q_blk`` on a card of ``sm_count`` SMs: when the
+    run walk's units, one for each 64-row part of each query block, are
+    fewer than the SMs. The run walk then leaves SMs idle while a few
+    blocks walk long runs of groups; the split walk gives each (work
+    item, part) a block of its own. A function of shapes alone, so a
+    CUDA graph captures one walk."""
+    return n_rows // q_blk * -(-q_blk // QUERY_TILE) < sm_count
+
+
+def walk_splits(q_stack, q_blk: int) -> bool:
+    """``split_walk`` for these stacked rows on their card."""
+    return split_walk(q_stack.shape[0], q_blk, _sm_count(q_stack.device))
+
+
+def packed_scan_units(qbin_stack, qb, gb, rbin_padded, q_blk: int, r_blk: int,
+                      split: bool = False):
     """Kernel B's walk, mirrored on the host: one unit for every block of
-    the kernel that does work, i.e. every (run of consecutive work items
-    with one query block, 64-row part of that block) with a live query
-    row. Returns [(row0, nq, tiles, items)]: the unit's first stacked
-    row, its row count, the padded first rows of its live 128-row tiles
-    in the order the kernel takes them (item order, then row order), and
-    its run's item range (first, end). A tile is live if one of its rows
-    has a bin inside the unit's [lowest, highest] live query bin."""
+    the kernel that does work. Returns [(row0, nq, tiles, items)]: the
+    first stacked row the unit writes, its row count, the padded first
+    rows of its live 128-row tiles in the order the kernel takes them
+    (item order, then row order), and the item range it walks (first,
+    end).
+
+    The run walk (``split`` false): a unit is (run of consecutive work
+    items with one query block, 64-row part of that block) with a live
+    query row; it writes every row of the part, and a tile is live if
+    one of its rows has a bin inside the part's [lowest, highest] live
+    bin. The split walk: a unit is (work item, 64-row part) whose part
+    has rows with bins inside the bin range of the item's group (its
+    lowest and highest row bin); it writes those rows (contiguous, the
+    rows being bin-sorted), and a tile is live if one of its rows has
+    one of their bins."""
     qbin, qb_h, gb_h, rbin = (_host(t) for t in (qbin_stack, qb, gb,
                                                  rbin_padded))
     n_rows, n_w = qbin.shape[0], qb_h.shape[0]
     starts = np.arange(0, r_blk, TILE_ROWS)
-    units = []
-    w = 0
+    walks, w = [], 0
     while w < n_w:
-        block = int(qb_h[w])
         end = w + 1
-        while end < n_w and qb_h[end] == block:
+        while end < n_w and qb_h[end] == qb_h[w]:
             end += 1
+        walks += [(v, v + 1) for v in range(w, end)] if split else [(w, end)]
+        w = end
+    units = []
+    for w, end in walks:
+        block = int(qb_h[w])
+        if split:
+            rg = rbin[int(gb_h[w]) * r_blk : (int(gb_h[w]) + 1) * r_blk]
+            if not (rg >= 0).any():
+                continue
+            g_lo, g_hi = rg[rg >= 0].min(), rg.max()
         for y0 in range(0, q_blk, QUERY_TILE):
             row0 = block * q_blk + y0
             nq = min(QUERY_TILE, q_blk - y0, n_rows - row0)
             if nq <= 0:
                 continue
             bins = qbin[row0 : row0 + nq]
-            live = bins[bins >= 0]
-            if not live.size:
-                continue
-            lo, hi = live.min(), live.max()
+            if split:
+                inside = np.flatnonzero((bins >= g_lo) & (bins <= g_hi))
+                if not inside.size:
+                    continue
+                row0, nq = row0 + int(inside[0]), int(inside[-1] - inside[0]) + 1
+                wanted = np.unique(qbin[row0 : row0 + nq])
+                live = lambda rb: np.isin(rb, wanted)  # noqa: E731
+            else:
+                if not (bins >= 0).any():
+                    continue
+                lo, hi = bins[bins >= 0].min(), bins.max()
+                live = lambda rb: (rb >= lo) & (rb <= hi)  # noqa: E731
             tiles = []
             for v in range(w, end):
                 g0 = int(gb_h[v]) * r_blk
-                rb = rbin[g0 : g0 + r_blk]
-                hit = np.logical_or.reduceat((rb >= lo) & (rb <= hi), starts)
+                hit = np.logical_or.reduceat(live(rbin[g0 : g0 + r_blk]), starts)
                 tiles.extend((g0 + starts[hit]).tolist())
             units.append((row0, nq, tiles, (w, end)))
-        w = end
     return units
 
 
 def units_walked(units, n_items: int, q_blk: int) -> np.ndarray:
     """The units of ``packed_scan_units`` as ``cuda_packed_scan_walk``
     reports them: (n_items, parts) int32, the count of live tiles of the
-    block that works for (first item of a run, 64-row part), -1 for every
-    block that returns at once."""
+    block that works for (the first item of its walk, 64-row part), -1
+    for every block that returns at once."""
     walked = np.full((n_items, -(-q_blk // QUERY_TILE)), -1, np.int32)
     for row0, _, tiles, (w, _) in units:
         walked[w, row0 % q_blk // QUERY_TILE] = len(tiles)
     return walked
 
 
-def packed_scan_work(qbin_stack, qb, gb, rbin_padded, q_blk: int, r_blk: int):
+def packed_scan_work(qbin_stack, qb, gb, rbin_padded, q_blk: int, r_blk: int,
+                     split: bool = False):
     """What kernel B issues for these inputs against what counts, from
-    the host mirror of its walk: its grid, the blocks that work, their
-    live tiles, the 64 x 128 products issued (a tile is computed whole),
-    the products of (query row, corpus row) pairs with equal bins, and
-    the masked share 1 - useful / issued."""
+    the host mirror of its walk (the split walk if ``split``): its grid,
+    the blocks that work, their live tiles, the 64 x 128 products issued
+    (a tile is computed whole), the products of (query row, corpus row)
+    pairs with equal bins, and the masked share 1 - useful / issued."""
     qbin, gb_h, rbin = (_host(t) for t in (qbin_stack, gb, rbin_padded))
-    units = packed_scan_units(qbin_stack, qb, gb, rbin_padded, q_blk, r_blk)
+    units = packed_scan_units(qbin_stack, qb, gb, rbin_padded, q_blk, r_blk,
+                              split)
     n_bins = int(rbin.max()) + 1 if rbin.size else 0
     useful = 0
     for row0, nq, _, (w, end) in units:
@@ -333,13 +386,14 @@ def packed_scan_work(qbin_stack, qb, gb, rbin_padded, q_blk: int, r_blk: int):
 def packed_scan_tiled_plain(
     q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded, xx_padded,
     top_k: int, q_blk: int, chunk: int, r_chunks: int, q_pad_rank: int,
-    metric: str = "sq_euclidean", ids_padded=None,
+    metric: str = "sq_euclidean", ids_padded=None, split: bool = False,
 ):
     """Kernel B's walk in plain torch, for the tests: each unit of
-    ``packed_scan_units`` takes its live tiles alone, in order, carries
-    (distance, padded position) best sets with the carried entries
-    winning ties, then the lower position, and gathers the ids once at
-    the end. Same result as ``packed_scan_plain``."""
+    ``packed_scan_units`` (the split walk's if ``split``) takes its live
+    tiles alone, in order, carries (distance, padded position) best sets
+    with the carried entries winning ties, then the lower position, and
+    gathers the ids once at the end. Same result as
+    ``packed_scan_plain``."""
     n_rows = q_stack.shape[0]
     dev = q_stack.device
     r_blk = chunk * r_chunks
@@ -350,8 +404,15 @@ def packed_scan_tiled_plain(
     rbin = rbin_padded.reshape(-1)
     xx = xx_padded.reshape(-1)
     for row0, nq, tiles, _ in packed_scan_units(qbin_stack, qb, gb,
-                                                rbin_padded, q_blk, r_blk):
-        q = q_stack[row0 : row0 + nq].float()
+                                                rbin_padded, q_blk, r_blk,
+                                                split):
+        # products of the unit's whole 64-row part, as the kernel's tile:
+        # a matmul of fewer rows may round otherwise
+        p0 = row0 - row0 % q_blk % QUERY_TILE
+        part = q_stack[p0 : p0 + min(QUERY_TILE, q_blk - p0 % q_blk,
+                                     n_rows - p0)].float()
+        mine = slice(row0 - p0, row0 - p0 + nq)
+        q = part[mine]
         qbins = qbin[row0 : row0 + nq]
         qq = torch.sum(q * q, dim=1, keepdim=True)
         best_d = torch.full((nq, top_k), float("inf"), dtype=torch.float32,
@@ -359,7 +420,7 @@ def packed_scan_tiled_plain(
         best_p = torch.full((nq, top_k), -1, dtype=torch.int32, device=dev)
         for g0 in tiles:
             nx = min(TILE_ROWS, r_blk - g0 % r_blk)
-            dot = q @ corpus_padded[g0 : g0 + nx].float().T
+            dot = (part @ corpus_padded[g0 : g0 + nx].float().T)[mine]
             if metric == "cosine":
                 dist = 1.0 - dot
             else:
@@ -459,20 +520,23 @@ def cuda_packed_scan(
         )
     return _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
                    xx_padded, top_k, q_blk, chunk * r_chunks, metric,
-                   ids_padded, None)
+                   ids_padded, None, None)
 
 
 def cuda_packed_scan_walk(
     q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded, xx_padded,
     top_k: int, q_blk: int, chunk: int, r_chunks: int, q_pad_rank: int,
-    metric: str = "sq_euclidean", ids_padded=None,
+    metric: str = "sq_euclidean", ids_padded=None, split=None,
 ):
     """Kernel B reporting its walk: (res_d, res_i, walked), walked
     (W, parts) int32 with the count of live tiles each block walked and
-    -1 for the blocks that returned at once (not the first item of a
-    run, or no live query row). The tests and the timing tools hold
-    ``packed_scan_units`` to it. CPU tensors take the plain version and
-    the host mirror's count."""
+    -1 for the blocks that returned at once (no row to write, or, in the
+    run walk, not the first item of a run). ``split``: None takes the
+    walk ``split_walk`` picks; True or False forces the split or the
+    run walk, for the tests and the timing tools, which hold
+    ``packed_scan_units`` to the report. CPU tensors take the plain
+    version and the host mirror's count (the run walk's unless
+    ``split``)."""
     if metric not in ("sq_euclidean", "cosine"):
         raise ValueError(f"unknown metric {metric!r}")
     if not q_stack.is_cuda:
@@ -481,13 +545,13 @@ def cuda_packed_scan_walk(
             xx_padded, top_k, q_blk, chunk, r_chunks, q_pad_rank,
             metric=metric, ids_padded=ids_padded)
         units = packed_scan_units(qbin_stack, qb, gb, rbin_padded, q_blk,
-                                  chunk * r_chunks)
+                                  chunk * r_chunks, bool(split))
         return (*out, torch.from_numpy(units_walked(units, qb.shape[0], q_blk)))
     walked = torch.full((qb.shape[0], -(-q_blk // QUERY_TILE)), -1,
                         dtype=torch.int32, device=q_stack.device)
     out = _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
                   xx_padded, top_k, q_blk, chunk * r_chunks, metric,
-                  ids_padded, walked)
+                  ids_padded, walked, split)
     return (*out, walked)
 
 
@@ -503,11 +567,13 @@ def kernel_constants() -> Dict[str, int]:
 
 
 def _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
-            xx_padded, top_k, q_blk, r_blk, metric, ids_padded, walked):
+            xx_padded, top_k, q_blk, r_blk, metric, ids_padded, walked, split):
     _check_inputs(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
                   xx_padded, ids_padded, top_k, q_blk, r_blk)
     n_rows, d = q_stack.shape
     dev = q_stack.device
+    if split is None:
+        split = walk_splits(q_stack, q_blk)
     out_d = torch.full((n_rows, top_k), float("inf"), dtype=torch.float32,
                        device=dev)
     out_i = torch.full((n_rows, top_k), -1, dtype=torch.int32, device=dev)
@@ -528,11 +594,13 @@ def _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
             None if plan is None else plan.data_ptr(),
             None if walked is None else walked.data_ptr(),
             n_rows, corpus_padded.shape[0], d, n_w, q_blk, r_blk, top_k,
-            int(metric == "cosine"),
+            int(metric == "cosine"), int(split),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(lib, rc, "vers_packed_scan")
     count(globals(), "LAUNCHES")
+    if split:
+        count(globals(), "LAUNCHES_SPLIT")
     return out_d, out_i
 
 

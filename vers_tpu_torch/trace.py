@@ -170,6 +170,7 @@ def snapshot() -> dict:
         recent = list(_RECENT)
     with COUNT_LOCK:
         launches = dict(packed_scan=cuda_binned.LAUNCHES,
+                        packed_scan_split=cuda_binned.LAUNCHES_SPLIT,
                         distance_topk=dict(cuda_topk.LAUNCHES_BY_ROUTE),
                         topk_values=cuda_topk.LAUNCHES_VALUES,
                         bucket_scan=cuda_bucket.LAUNCHES)
