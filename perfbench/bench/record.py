@@ -16,11 +16,13 @@ class Run:
     setup_s: float                 # process start to the window's start
     build_s: Optional[float] = None        # build, then the first call drained
     build_index_s: Optional[float] = None  # the build alone, synchronised
+    # (each a mean where the driver times more than one build)
     enqueue_s: List[float] = field(default_factory=list)  # each call into the system
     judged: Dict[str, float] = field(default_factory=dict)  # the check's numbers
     trace: Optional[Trace] = None
-    # kernel B's work a call, by pool batch (fixed nprobe only):
-    # packed_scan_bound's arguments
+    # the work of a call that a roofline reader counts, by pool batch, in
+    # the form that reader defines (kernel_b_roofline: packed_scan_bound's
+    # arguments); None where the driver counts none
     work: Optional[List[dict]] = None
     pool_batches: int = 1
     memory_peak_bytes: int = 0

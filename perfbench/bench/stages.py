@@ -4,21 +4,27 @@ With ``vers_tpu_torch.trace`` switched on, the program leaves two things
 in the profile of the traced slice:
 
 - device records of its stage markers, one-thread kernels named
-  ``vers::trace::mark<i>``, ``i`` the stage's index in ``STAGES``,
-  launched before each stage of the binned search and once after the
-  last (``end``), and captured into the CUDA graphs it replays;
+  ``vers::trace::mark<i>``, ``i`` the stage's index in a stage table:
+  in ``STAGES`` for the binned search, launched before each of its
+  stages and once after the last (``end``), and captured into the CUDA
+  graphs it replays;
 - host spans named ``vers/<span>`` (``record_function`` ranges).
 
 A stage's device time in one call is the union of the device records
 (markers left out) that lie between the stage's marker and the next
 marker. Without markers or ``vers/`` spans (a program that has no trace,
 or one with tracing off) every function here finds nothing.
+
+Another path's markers take indexes of their own, after those of
+``STAGES``; its readers pass their own table to ``stage_ms``, whose
+positions are the markers' indexes, e.g. ``STAGES + ("route", "beam",
+"rescore", "beam.end")``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from perfbench.bench.trace import Trace
 from perfbench.reference.intervals import busy_us, gaps
@@ -39,13 +45,15 @@ def markers(t: Trace) -> List[Tuple[int, float, float]]:
     return sorted(out, key=lambda r: r[1])
 
 
-def stage_ms(t: Optional[Trace], stage: str) -> Optional[float]:
+def stage_ms(t: Optional[Trace], stage: str,
+             stages: Sequence[str] = STAGES) -> Optional[float]:
     """Device ms a call of ``stage``: for each of its markers inside the
     slice, the union of the other records between that marker's end and
-    the next marker's start, summed, over the slice's calls."""
+    the next marker's start, summed, over the slice's calls. ``stage``'s
+    marker index is its position in ``stages``."""
     if t is None or not t.calls or not t.device:
         return None
-    want = STAGES.index(stage)
+    want = stages.index(stage)
     marks = markers(t)
     lo, hi = t.window
     spans = [(marks[j][2], marks[j + 1][1]) for j in range(len(marks) - 1)

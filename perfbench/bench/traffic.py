@@ -9,9 +9,14 @@ A traffic mix (the parameters in ``workloads/<cell>.json``) gives:
   ``docs/SERVING.md``) or ``"host"`` (numpy arrays in, numpy arrays out);
 - ``depth``: calls in flight: one caller issues until ``depth`` are
   out, then waits for the oldest call's results on the host;
-- ``top_k``, ``nprobe``: each call's arguments;
+- ``top_k``: each call's k;
+- ``warmup_calls``: calls made in set-up, before the window;
 - ``trace_calls``: the calls the traced run profiles, from the first
   call after ``trace_start`` (a share of the window) on.
+
+These keys (``COMMON``) are every cell's. A driver reads its index's own
+keys beside them (``TRAFFIC`` in ``drivers/<index>.py``: IVF's
+``nprobe``, each call's lists to probe).
 
 A call's latency runs from its issue until its results are on the host.
 The window runs ``seconds`` from the first issue; calls issued in it are
@@ -28,6 +33,9 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+
+COMMON = ("queries", "batch", "pool_batches", "depth", "top_k", "warmup_calls",
+          "trace_start", "trace_calls")
 
 
 @dataclass

@@ -2,8 +2,8 @@
 """Readings for the limits of the check, many seeds in one process.
 
     python3 perfbench/calibrate.py --workload <cell> --seeds 1,2,3 \
-        [--system program|control] [--fault NAME] [--seconds 2] [--nprobe N] \
-        [--out FILE]
+        [--system program|control] [--fault NAME] [--seconds 2] \
+        [--set KEY=VALUE ...] [--nprobe N] [--out FILE]
 
 Runs the cell's whole run (set-up, a window of ``--seconds``, the check)
 once a seed, in this process, with the system under test
@@ -11,11 +11,14 @@ once a seed, in this process, with the system under test
 the lower precision that the check must fail), with ``--fault`` one of
 the driver's ``FAULTS`` planted, and prints each seed's
 checked numbers and end-to-end metrics, then the largest and smallest of
-each number. ``--nprobe`` runs the cell's traffic at another nprobe (the
-sweep that picks a cell's nprobe). Not part of a benchmark run; needs a
-CUDA device.
+each number. ``--set KEY=VALUE`` (repeated; the value read as JSON)
+runs the cell with that traffic parameter changed: the sweep that picks
+a cell's operating point (IVF's ``nprobe``, or another driver's own
+key). ``--nprobe N`` is short for ``--set nprobe=N``. Not part of a
+benchmark run; needs a CUDA device.
 """
 
+import argparse
 import io
 import json
 import sys
@@ -29,30 +32,55 @@ from perfbench.bench.registry import Registry  # noqa: E402
 
 
 class _Override(Registry):
-    def __init__(self, nprobe):
+    """The registry with some of each cell's traffic parameters changed."""
+
+    def __init__(self, traffic: dict):
         super().__init__()
-        self.nprobe = nprobe
+        self.traffic = traffic
 
     def cell(self, name):
         c = super().cell(name)
-        if self.nprobe is not None:
-            c.traffic = dict(c.traffic, nprobe=self.nprobe)
+        unknown = sorted(set(self.traffic) - set(c.traffic))
+        if unknown:
+            raise KeyError(f"{name} has no traffic parameter {', '.join(unknown)}")
+        c.traffic = dict(c.traffic, **self.traffic)
         return c
 
 
-def main(argv=None):
-    import argparse
+def setting(text: str):
+    """``KEY=VALUE`` as (key, the value read as JSON)."""
+    key, sep, value = text.partition("=")
+    if not sep or not key:
+        raise argparse.ArgumentTypeError(f"not KEY=VALUE: {text!r}")
+    try:
+        return key, json.loads(value)
+    except json.JSONDecodeError as e:
+        raise argparse.ArgumentTypeError(f"{key}: {value!r} is not JSON ({e})")
 
+
+def parse(argv=None):
+    """The arguments, with ``traffic``: the parameters changed, ``--set``
+    and ``--nprobe`` together."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--system", default="program", choices=("program", "control"))
     ap.add_argument("--fault")
     ap.add_argument("--seconds", type=int, default=2)
+    ap.add_argument("--set", type=setting, action="append", default=[],
+                    metavar="KEY=VALUE")
     ap.add_argument("--nprobe", type=int)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
-    reg = _Override(args.nprobe)
+    args.traffic = dict(args.set)
+    if args.nprobe is not None:
+        args.traffic["nprobe"] = args.nprobe
+    return args
+
+
+def main(argv=None):
+    args = parse(argv)
+    reg = _Override(args.traffic)
     rows = []
     for seed in [int(s) for s in args.seeds.split(",")]:
         buf = io.StringIO()
@@ -64,7 +92,7 @@ def main(argv=None):
             print(f"seed {seed}: exit {rc}", flush=True)
             continue
         res = json.loads(buf.getvalue().strip().splitlines()[-1])
-        row = dict(seed=seed, system=args.system, fault=args.fault, nprobe=args.nprobe,
+        row = dict(seed=seed, system=args.system, fault=args.fault, traffic=args.traffic,
                    seconds=time.perf_counter() - t, correct=res["correct"],
                    checks={k: v["value"] for k, v in res["checks"].items()},
                    metrics={k: v["value"] for k, v in res["metrics"].items()},

@@ -5,7 +5,8 @@ pool of query batches (from the run's seed) made on the device
 (``reference/data.py``); the program's one-time costs of a process paid
 on a tiny index (``warm_program``); ``IVFFlatIndex.build_index(nlist,
 attempts, iterations, x)`` on the device-resident corpus (timed alone,
-then with the first call of the cell drained: ``build_s``); warm-up
+then with the first call of the cell drained: ``build_s``; the traffic's
+``builds`` times in all, the others once the check is done); warm-up
 calls over the whole pool, so every shape has run, captured and replayed
 its CUDA graph; the window (``bench/traffic.py``); then, with the window
 closed and the memory peak read, the system freed and its outputs judged
@@ -41,8 +42,23 @@ from perfbench.bench.traffic import closed_loop
 from perfbench.reference import data as refdata
 from perfbench.reference import ivf as refivf
 
+# What this driver declares to the shared code and the tests: the
+# limits of its check (each a number of ``run``'s ``judged``), its
+# traffic keys beyond ``bench/traffic.COMMON`` (``nprobe``, each call's
+# lists to probe; ``builds``, the builds that ``build_s`` is the mean of),
+# the faults ``run`` plants, and the systems it can put under test.
+CHECKS = ("assign_gap", "dist_err", "rank_gap", "stray_ids", "cost_gap")
+TRAFFIC = ("nprobe", "builds")
 FAULTS = ("stale", "half", "altered", "no_lloyd")
+SYSTEMS = ("program", "control")
 clock = time.perf_counter
+
+
+def tiny(config: dict) -> dict:
+    """``config`` at the sizes of the CPU tests: 3000 rows of 24, 32
+    lists, 16 clusters."""
+    return dict(config, rows=3000, dim=24, ivf=dict(config["ivf"], nlist=32),
+                generator=dict(config["generator"], clusters=16))
 
 
 def _sync(device):
@@ -274,6 +290,30 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device,
                                          ivf["attempts"], ivf["iterations"], seed)
     mark("check: the build's cost")
     _log("check", clock() - t)
+
+    # build_s and build_index_s are means over the cell's ``builds``: the
+    # one that served the window and, with the check done, the rest, each
+    # a new index from the same corpus with its first call drained, freed
+    # before the next
+    timed = [(build_index_s, build_s)]
+    for j in range(1, tr["builds"]):
+        t = clock()
+        sut = (Program if system == "program" else Control)(
+            cfg, x, 0 if fault == "no_lloyd" else ivf["iterations"])
+        _sync(device)
+        index_s = clock() - t
+        if on_host:
+            sut.search_host(pool[0], k, nprobe)
+        else:
+            [a.cpu() for a in sut.search_device(pool[0], k, nprobe)]
+        timed.append((index_s, clock() - t))
+        _log(f"build {j + 1} of {tr['builds']}", index_s)
+        _log(f"build {j + 1} and first call", timed[-1][1])
+        del sut
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    build_index_s, build_s = (sum(b) / len(timed) for b in zip(*timed))
     work = None
     if trace and nprobe > 0:
         sizes = torch.bincount(lists, minlength=centroids.shape[0])

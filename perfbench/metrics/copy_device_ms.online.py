@@ -1,0 +1,11 @@
+"""copy_device_ms.online: ``copy_device_ms``
+(``metrics/copy_device_ms.py``, read the same way) in the online cells,
+where it moves ``qps.online``."""
+
+from perfbench.bench.registry import metric_reader
+
+_BASE = metric_reader("copy_device_ms")
+SOURCE, UNIT, BETTER = _BASE.SOURCE, _BASE.UNIT, _BASE.BETTER
+LAYER = _BASE.LAYER
+MOVES = "qps.online"
+read = _BASE.read

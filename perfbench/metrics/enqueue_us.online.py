@@ -1,0 +1,10 @@
+"""enqueue_us.online: ``enqueue_us`` (``metrics/enqueue_us.py``, read
+the same way) in the online cells, where it moves ``qps.online``."""
+
+from perfbench.bench.registry import metric_reader
+
+_BASE = metric_reader("enqueue_us")
+SOURCE, UNIT, BETTER = _BASE.SOURCE, _BASE.UNIT, _BASE.BETTER
+LAYER = _BASE.LAYER
+MOVES = "qps.online"
+read = _BASE.read

@@ -1,6 +1,7 @@
 """Tiny copies of the benchmark's cells for the CPU tests: the real
-configuration and cell files with the data cut to a few thousand rows,
-in a temporary directory laid out as ``perfbench/``."""
+configuration and cell files, each configuration cut by its driver's
+``tiny`` and each cell's common traffic keys cut to a few calls, in a
+temporary directory laid out as ``perfbench/``."""
 
 import json
 import shutil
@@ -9,21 +10,22 @@ from pathlib import Path
 
 import pytest
 
-from perfbench.bench.registry import HERE, Registry
+from perfbench.bench.registry import HERE, Registry, driver
 
 ROOT = HERE.parent
 
 
-def make_tiny(dest: Path) -> Registry:
+def make_tiny(dest: Path, src: Path = HERE, bench: dict = None) -> Registry:
+    """Tiny copies of ``src``'s configurations and cells (``perfbench/``
+    and ``BENCHMARK.json`` unless given) in ``dest``."""
     for sub in ("configs", "workloads"):
-        shutil.copytree(HERE / sub, dest / sub)
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+        shutil.copytree(src / sub, dest / sub)
+    if bench is None:
+        bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     for cfg in bench["configs"]:
         path = dest / "configs" / f"{cfg['name']}.json"
         c = json.loads(path.read_text())
-        c.update(rows=3000, dim=24, ivf=dict(c["ivf"], nlist=32),
-                 generator=dict(c["generator"], clusters=16))
-        path.write_text(json.dumps(c))
+        path.write_text(json.dumps(driver(c["index"]).tiny(c)))
     for path in (dest / "workloads").glob("*.json"):
         t = json.loads(path.read_text())
         t.update(batch=64, pool_batches=min(t["pool_batches"], 8),

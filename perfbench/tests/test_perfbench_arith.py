@@ -84,13 +84,19 @@ def test_readers_hand_worked():
     assert read["copy_device_ms"] == pytest.approx(0.2 / 2 * 1e3)
     least = 2 * packed_scan_bound(**run.work[0])["bound_ms"] * 1e-3
     assert read["kernel_b_roofline"] == pytest.approx(100 * least / 0.6)
+    # the online cells' names read as the metrics they are named from
+    for n in ("qps", "latency_p95_ms", "enqueue_us", "binned_device_ms",
+              "copy_device_ms", "device_idle_share"):
+        assert metric_reader(n + ".online").read(run) == read[n]
 
 
 def test_readers_find_nothing():
     run = _run()
     run.trace, run.work, run.enqueue_s, run.judged = None, None, [], {}
     for n in ("enqueue_us", "binned_device_ms", "copy_device_ms", "kernel_b_roofline",
-              "device_idle_share", "recall_at_10"):
+              "device_idle_share", "recall_at_10", "enqueue_us.online",
+              "binned_device_ms.online", "copy_device_ms.online",
+              "device_idle_share.online"):
         assert metric_reader(n).read(run) is None
     run = _run()
     run.trace.device = [("radixSort", 0.0, 0.5)]   # no kernel B, no copy: silent, not 0

@@ -5,7 +5,7 @@ import json
 
 import pytest
 
-from perfbench.bench.registry import HERE
+from perfbench.bench.registry import HERE, driver
 from perfbench.tests.conftest import run_tiny
 
 BENCH = json.loads((HERE.parent / "BENCHMARK.json").read_text())
@@ -25,6 +25,8 @@ def test_last_line(tiny, cell):
     assert set(res["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
     checks = res["checks"]
     assert all(set(c) == {"value", "limit"} for c in checks.values())
+    # the driver's declaration holds: its run judges exactly these
+    assert set(checks) == set(driver(tiny.cell(cell).config["index"]).CHECKS)
     tail = err.strip().splitlines()[-len(checks):]
     assert [line.split()[1] for line in tail] == list(checks)
     assert all(line.startswith("check ") and line.endswith(" ok") for line in tail)
