@@ -1,7 +1,8 @@
 """The port stands alone: no module of vers_tpu_torch (the README API,
 the demo and the native IO included), no tool and not the smoke script
 imports jax or the JAX package, the native IO builds from the port's own
-copy of its C++ source, and importing the package pulls in neither."""
+copy of its C++ source, and importing the package pulls in neither; nor
+do the benchmark's plain references and drivers (``perfbench/``)."""
 
 import ast
 import pathlib
@@ -73,3 +74,14 @@ def test_import_loads_neither_jax_nor_vers_tpu():
         cwd=PKG.parent, check=True,
     )
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_benchmark_references_and_drivers_import_no_jax():
+    root = PKG.parent / "perfbench"
+    files = sorted((root / "reference").glob("*.py")) + sorted(
+        (root / "drivers").glob("*.py"))
+    assert {"ivf.py", "hnsw.py", "data.py", "ivfflat.py"} <= {f.name for f in files}
+    bad = [(str(f.relative_to(PKG.parent)), name) for f in files
+           for name in _imports(f)
+           if name.split(".")[0] in ("jax", "jaxlib", "flax", "vers_tpu")]
+    assert not bad, bad

@@ -17,7 +17,8 @@ graphs of ``tests/test_torch_graphs.py``.
 On the card (``gpu`` marker): a replayed and an eager IVF search with
 tracing on leave five markers a call in the profiler's device records,
 in stage order, none with tracing off, and the same answers bit for
-bit. This file imports neither jax nor vers_tpu:
+bit; an HNSW search on the inline route leaves its four (``route``,
+``beam``, ``rescore``, ``beam.end``) the same way. This file imports neither jax nor vers_tpu:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_trace.py
 """
@@ -284,6 +285,11 @@ def _profiled_marks(search, calls):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # a kernel ahead of the calls: the profiler can miss the record
+        # of the first launch after it starts (an eager HNSW search's
+        # first launch is its route marker)
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         outs = [search() for _ in range(calls)]
         torch.cuda.synchronize()
     marks = sorted((e.time_range.start, int(m.group(1)))
@@ -315,8 +321,8 @@ def test_markers_on_the_card(cuda, mode):
             outs, marks = _profiled_marks(search, calls)
         finally:
             trace.disable()
-        if on:
-            assert marks == list(range(len(trace.STAGES))) * calls
+        if on:  # the binned search's five stages
+            assert marks == list(range(trace.STAGES.index("end") + 1)) * calls
         else:
             assert marks == []
         got.setdefault(on, outs)
@@ -326,3 +332,44 @@ def test_markers_on_the_card(cuda, mode):
         assert torch.equal(d_on, d_off) and torch.equal(i_on, i_off)
     if mode == "replay":
         assert len(idx._graphs.sites()) == 2  # one with markers, one without
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["replay", "eager"])
+def test_hnsw_markers_on_the_card(cuda, mode):
+    import dataclasses
+
+    from vers_tpu_torch import HNSWIndex
+
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(20480, 64)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = torch.from_numpy(x[:512] + 0.1 * rng.normal(size=(512, 64)).astype(
+        np.float32)).to(cuda)
+    idx = HNSWIndex.build_index_device(4, 40, 32, 8, torch.from_numpy(x).to(cuda))
+    # the inline route at this size: the scan router, the inline beam
+    # and the f32 rescore, as at 1M rows
+    idx.config = dataclasses.replace(idx.config, nav_inline_dp=16, max_degree=12)
+    eager = graphs.disabled if mode == "eager" else contextlib.nullcontext
+
+    def search():
+        with eager():
+            return idx.search_batch_device(q, 10)
+
+    calls = 3
+    hnsw = [trace.STAGES.index(s) for s in ("route", "beam", "rescore", "beam.end")]
+    got = {}
+    for on in (False, True, False):
+        (trace.enable if on else trace.disable)()
+        try:
+            search(), search()  # the first call, the capture
+            outs, marks = _profiled_marks(search, calls)
+        finally:
+            trace.disable()
+        assert marks == (hnsw * calls if on else [])
+        got.setdefault(on, outs)
+        for d, i in outs:
+            assert torch.equal(d, got[on][0][0]) and torch.equal(i, got[on][0][1])
+    assert idx._ensure_device_cache()["inline"] is not None
+    for (d_on, i_on), (d_off, i_off) in zip(got[True], got[False]):
+        assert torch.equal(d_on, d_off) and torch.equal(i_on, i_off)

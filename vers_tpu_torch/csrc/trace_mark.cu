@@ -20,7 +20,8 @@ __global__ void mark() {}
 }  // namespace trace
 }  // namespace vers
 
-// One marker of stage `stage` (0 <= stage < 5) on `stream`.
+// One marker of stage `stage` (0 <= stage < 9: the binned search's five,
+// then the HNSW search's four) on `stream`.
 extern "C" int vers_trace_mark(int stage, void* stream) {
   namespace tr = vers::trace;
   cudaStream_t st = (cudaStream_t)stream;
@@ -30,6 +31,10 @@ extern "C" int vers_trace_mark(int stage, void* stream) {
     case 2: tr::mark<2><<<1, 1, 0, st>>>(); break;
     case 3: tr::mark<3><<<1, 1, 0, st>>>(); break;
     case 4: tr::mark<4><<<1, 1, 0, st>>>(); break;
+    case 5: tr::mark<5><<<1, 1, 0, st>>>(); break;
+    case 6: tr::mark<6><<<1, 1, 0, st>>>(); break;
+    case 7: tr::mark<7><<<1, 1, 0, st>>>(); break;
+    case 8: tr::mark<8><<<1, 1, 0, st>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -28,6 +28,11 @@ With no ``device`` an index lives on the first CUDA card
 f32 scales, except where the inline table is on (``nav_inline_dp``,
 "auto" at >= 200k rows under the scan router): there the nav table is
 bf16, as in the JAX package.
+
+Trace (``vers_tpu_torch.trace``): spans ``hnsw.search`` (a batched
+search), ``hnsw.cache`` (the serving cache built), ``hnsw.build`` (a
+wave build) and, after the search's id map, the marker ``beam.end``
+that closes the stages ``ops/beam`` marks.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from vers_tpu_torch import graphs
+from vers_tpu_torch import graphs, trace
 from vers_tpu_torch.config import HNSWConfig
 from vers_tpu_torch.core import (
     as_query_matrix,
@@ -465,11 +470,12 @@ class HNSWIndex(Index):
             index.dim = vectors.shape[1]
         t0 = time.perf_counter()
         timings: dict = {}
-        _, index._pending_graph = build_graph(
-            vectors, num_layers, ef_construction, num_neighbours,
-            seed=seed, wave_cap=wave_cap, as_arrays=True,
-            device=index.device, timings=timings, **build_kwargs,
-        )
+        with trace.span("hnsw.build"):
+            _, index._pending_graph = build_graph(
+                vectors, num_layers, ef_construction, num_neighbours,
+                seed=seed, wave_cap=wave_cap, as_arrays=True,
+                device=index.device, timings=timings, **build_kwargs,
+            )
         index._record_build(time.perf_counter() - t0, timings)
         return index
 
@@ -511,11 +517,12 @@ class HNSWIndex(Index):
         index._corpus_dev = corpus.float()
         t0 = time.perf_counter()
         timings: dict = {}
-        _, index._pending_graph = build_graph(
-            index._corpus_dev, num_layers, ef_construction, num_neighbours,
-            seed=seed, wave_cap=wave_cap, n_valid=n, as_arrays=True,
-            timings=timings, **build_kwargs,
-        )
+        with trace.span("hnsw.build"):
+            _, index._pending_graph = build_graph(
+                index._corpus_dev, num_layers, ef_construction,
+                num_neighbours, seed=seed, wave_cap=wave_cap, n_valid=n,
+                as_arrays=True, timings=timings, **build_kwargs,
+            )
         index._record_build(time.perf_counter() - t0, timings)
         return index
 
@@ -1050,8 +1057,15 @@ class HNSWIndex(Index):
         )
 
     def _ensure_device_cache(self):
-        if self._device_cache is not None:
-            return self._device_cache
+        if self._device_cache is None:
+            with trace.span("hnsw.cache"):
+                self._device_cache = self._build_device_cache()
+        return self._device_cache
+
+    def _build_device_cache(self) -> dict:
+        """The serving cache: the padded adjacency of every layer, the
+        f32 and navigation tables, the layer-1 routing table and, where
+        the nav policy turns it on, the inline table."""
         # resolve the joint nav policy (gather-degree cap, inline dp)
         # BEFORE packing the graph arrays: the cap changes the padded
         # adjacency width the pack produces
@@ -1128,7 +1142,7 @@ class HNSWIndex(Index):
                 proj=proj,
                 tab=build_inline_table(proj, adjs[0], dp),
             )
-        self._device_cache = dict(
+        return dict(
             vecs=vecs_dev,
             vecs_nav=vecs_nav,
             nav_scales=nav_scales,
@@ -1142,9 +1156,13 @@ class HNSWIndex(Index):
             inline=inline,
             policy=(cap, inline_dp),
         )
-        return self._device_cache
 
     def _search_batch_rows(self, queries, top_k: int, ids: bool = False):
+        """``_search_rows`` in the span ``hnsw.search``."""
+        with trace.span("hnsw.search"):
+            return self._search_rows(queries, top_k, ids)
+
+    def _search_rows(self, queries, top_k: int, ids: bool = False):
         """Batched beam search returning (dists (Q,k) f32, COMPACT row
         indices (Q,k) int64, -1 = empty slot) on the index's device —
         id mapping is left to the callers so the host path can use
@@ -1168,6 +1186,7 @@ class HNSWIndex(Index):
 
         def map_ids(bd, bi):
             out = torch.where(bi >= 0, idmap[bi.clamp(0, last)], -1)
+            trace.mark("beam.end", bd.device)
             return bd, out.to(torch.int32)
 
         if cache["entry"] is None or len(self.layers) < 2:
@@ -1264,6 +1283,7 @@ class HNSWIndex(Index):
                 site=site,
             )
         if not ids:
+            trace.mark("beam.end", self.device)
             return out
         # the id map, a graph of the same site
         return graphs.run(site, "ids", map_ids, *out)

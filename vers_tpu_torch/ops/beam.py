@@ -45,13 +45,21 @@ construction beam (``ops/hnsw_build``) runs eagerly.
 The layer-1 routing scan of ``full_descent_scan`` runs on kernel A
 (``ops/cuda_topk.cuda_distance_topk``) on a CUDA tensor and on its
 plain version on a CPU tensor; see ``route_scan``.
+
+Trace (``vers_tpu_torch.trace``, off by default). A query descent's
+device work is split by stage markers inside its graphs: ``route``
+before the routing (the scan, or the descent through layers L-2..1),
+``beam`` before the layer-0 beam, ``rescore`` before the tail; the
+caller's ``beam.end`` closes the last. Each host read of the stop flag
+is a span ``hnsw.flag``, and every beam loop counts its steps, its
+flag reads and whether it stopped before its cap (``trace.COUNTERS``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from vers_tpu_torch import graphs
+from vers_tpu_torch import graphs, trace
 from vers_tpu_torch.core import host_wait
 from vers_tpu_torch.ops import cuda_topk
 from vers_tpu_torch.ops.distance import _check_f32_matmul
@@ -179,15 +187,27 @@ def merge_beam(beam_d, beam_i, expanded, nd, nbrs, ef: int):
     return new_d, new_i, new_e, active
 
 
+def read_flag(active) -> bool:
+    """The host's read of the beam's stop flag (a span ``hnsw.flag``),
+    counted; a False read counts as a loop stopped early."""
+    with trace.span("hnsw.flag"):
+        host_wait(active)
+        go = bool(active)
+    trace.count("beam_flag_reads")
+    if not go:
+        trace.count("beam_stopped_early")
+    return go
+
+
 def run_beam(state, step_fn, max_steps: int, sync_every: int):
     """Run ``step_fn(state) -> (state, active)`` up to ``max_steps``
     times; every ``sync_every`` steps the host reads ``active`` and
     stops once it is False (0: run to the cap)."""
     for step in range(1, max_steps + 1):
         state, active = step_fn(state)
+        trace.count("beam_steps")
         if sync_every and step % sync_every == 0 and step < max_steps:
-            host_wait(active)
-            if not bool(active):
+            if not read_flag(active):
                 break
     return state
 
@@ -228,10 +248,9 @@ def replay_beam(site, name, state, make_step, aux, max_steps: int,
                 g = nxt
             g.replay()
             done += n
+            trace.count("beam_steps", n)
             if sync_every and done < max_steps:
-                active = g.outputs[0]
-                host_wait(active)
-                if not bool(active):
+                if not read_flag(g.outputs[0]):
                     break
         return g.take(g.inputs[n_aux:])
 
@@ -380,13 +399,18 @@ def full_descent(
 
     ``site``: a ``graphs.Site`` to replay from (the queries' rounding,
     each layer's start and chunks of steps, the tail); None: eager."""
-    (qn,) = graphs.run(site, "nav", lambda q: (nav_queries(q, vecs_nav),),
-                       queries)
+    def nav(q):
+        trace.mark("route", q.device)
+        return (nav_queries(q, vecs_nav),)
+
+    (qn,) = graphs.run(site, "nav", nav, queries)
     beam_d = beam_i = None
     for layer_idx in range(len(adjs) - 1, -1, -1):
         ef_l = ef if layer_idx == 0 else ef_r
 
-        def start(qn, entry, ef_l=ef_l):
+        def start(qn, entry, ef_l=ef_l, layer_idx=layer_idx):
+            if layer_idx == 0:
+                trace.mark("beam", qn.device)
             return init_beam(entry, ef_l,
                              lambda ids: cosine_to(vecs_nav, ids, qn, scales))
 
@@ -408,9 +432,11 @@ def _tail(vecs_f32, top_k: int, rescore: bool):
     """A descent's last part: the f32 rescore of the beam (``rescore``),
     then its top_k."""
     def tail(queries, beam_d, beam_i):
-        if rescore:
-            beam_d, beam_i = rescore_cosine(queries, vecs_f32, beam_i, top_k)
-        return beam_d[:, :top_k], beam_i[:, :top_k]
+        with trace.stage("rescore", queries.device):
+            if rescore:
+                beam_d, beam_i = rescore_cosine(queries, vecs_f32, beam_i,
+                                                top_k)
+            return beam_d[:, :top_k], beam_i[:, :top_k]
     return tail
 
 
@@ -443,18 +469,22 @@ def full_descent_scan(
     to replay from (the prelude: the scan and the beam's start; chunks of
     steps; the tail); None: eager."""
     def prelude(q):
-        seed_d, seed_ids = scan_seeds(q, l1_tab, l1_members, n1,
-                                      min(seeds, ef))
-        return (nav_queries(q, vecs_nav),
-                *init_beam(seed_ids, ef, None, seed_d))
+        with trace.stage("route", q.device):
+            seed_d, seed_ids = scan_seeds(q, l1_tab, l1_members, n1,
+                                          min(seeds, ef))
+            out = (nav_queries(q, vecs_nav),
+                   *init_beam(seed_ids, ef, None, seed_d))
+        trace.mark("beam", q.device)
+        return out
 
     def make_step(qn):
         return gather_step(qn, vecs_nav, adj0, ef, min(max(1, expand), ef),
                            scales=scales)
 
     qn, *state = graphs.run(site, "prelude", prelude, queries)
-    beam_d, beam_i = loop_beam(site, "beam", state, make_step, (qn,),
-                               steps_cap or max(4 * ef, 64))
+    with trace.span("beam"):
+        beam_d, beam_i = loop_beam(site, "beam", state, make_step, (qn,),
+                                   steps_cap or max(4 * ef, 64))
     return graphs.run(site, "tail", _tail(vecs_f32, top_k, rescore),
                       queries, beam_d, beam_i)
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vers_tpu_torch import graphs
+from vers_tpu_torch import graphs, trace
 from vers_tpu_torch.ops.beam import (
     cosine_to,
     in_beam,
@@ -214,17 +214,22 @@ def full_descent_scan_inline(
     n_pad = proj.shape[0]
 
     def prelude(q):
-        scan_d, seed_ids = scan_seeds(q, l1_tab, l1_members, n1,
-                                      min(seeds, ef))
-        qp = project_rows(q, basis, dp)
-        if refine_r:
-            # the refined beam ranks in exact bf16 space — so do the seeds
-            sd = scan_d
-        else:
-            # the pure-projected beam ranks in projected space — ditto
-            sv = proj[seed_ids.clamp(0, n_pad - 1)].float()
-            sd = 1.0 - torch.bmm(sv, qp.float()[:, :, None])[:, :, 0]
-        return (qp, q.to(torch.bfloat16), *init_beam(seed_ids, ef, None, sd))
+        with trace.stage("route", q.device):
+            scan_d, seed_ids = scan_seeds(q, l1_tab, l1_members, n1,
+                                          min(seeds, ef))
+            qp = project_rows(q, basis, dp)
+            if refine_r:
+                # the refined beam ranks in exact bf16 space — so do the
+                # seeds
+                sd = scan_d
+            else:
+                # the pure-projected beam ranks in projected space — ditto
+                sv = proj[seed_ids.clamp(0, n_pad - 1)].float()
+                sd = 1.0 - torch.bmm(sv, qp.float()[:, :, None])[:, :, 0]
+            out = (qp, q.to(torch.bfloat16),
+                   *init_beam(seed_ids, ef, None, sd))
+        trace.mark("beam", q.device)
+        return out
 
     def make_step(qp, qn):
         return inline_step(qp, inline_tab, adj0, ef, min(max(1, expand), ef),
@@ -233,10 +238,12 @@ def full_descent_scan_inline(
     def tail(q, beam_d, beam_i):
         # the projected ranking is noisier than bf16 full-dim navigation:
         # exact-rescore the WHOLE ef-wide beam, then take top_k
-        rd, ri = rescore_cosine(q, vecs_f32, beam_i, ef)
-        return rd[:, :top_k], ri[:, :top_k]
+        with trace.stage("rescore", q.device):
+            rd, ri = rescore_cosine(q, vecs_f32, beam_i, ef)
+            return rd[:, :top_k], ri[:, :top_k]
 
     qp, qn, *state = graphs.run(site, "prelude", prelude, queries)
-    beam_d, beam_i = loop_beam(site, "beam", state, make_step, (qp, qn),
-                               steps_cap or max(4 * ef, 64))
+    with trace.span("beam"):
+        beam_d, beam_i = loop_beam(site, "beam", state, make_step, (qp, qn),
+                                   steps_cap or max(4 * ef, 64))
     return graphs.run(site, "tail", tail, queries, beam_d, beam_i)

@@ -47,6 +47,9 @@ Two options change how a wave searches, as in the JAX package:
   construction-time table of the neighbours' PCA-projected blocks,
   kept slot for slot with the adjacency (``_beam_inline``,
   ``_commit_edges(inline=...)``).
+
+Each wave is a span ``hnsw.wave`` of the port's trace
+(``vers_tpu_torch.trace``).
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from typing import List
 import numpy as np
 import torch
 
+from vers_tpu_torch import trace
 from vers_tpu_torch.core import resolve_device, round_up
 from vers_tpu_torch.ops import cuda_topk
 from vers_tpu_torch.ops.beam import (
@@ -736,7 +740,9 @@ def build_graph(
             n_built = [int(np.searchsorted(mem, int(wave.min())))
                        for mem in members]
             extra = (*scan_tables, n_built)
-        step_fns[caps](vecs, rank_maps, adjs, dists, ids, ins_w, entry, *extra)
+        with trace.span("hnsw.wave"):
+            step_fns[caps](vecs, rank_maps, adjs, dists, ids, ins_w, entry,
+                           *extra)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     if timings is not None:

@@ -13,15 +13,20 @@ nothing. ``enable()`` / ``disable()`` / ``enabled()`` are its one switch.
   the clock of its device records.
 - ``mark(stage, device)``: on, and on a card, one marker kernel on the
   current stream, ``vers::trace::mark<i>`` with ``i`` the stage's index
-  in ``STAGES`` (``csrc/trace_mark.cu``). A marker launched while a CUDA
+  in ``STAGES`` (``csrc/trace_mark.cu``): 0-4 the binned search's,
+  5-8 the HNSW search's. A marker launched while a CUDA
   graph captures is a node of the graph, so replays, which run no
   Python and so record no span, still divide their device work into
   stages: a profiler's device records between a marker and the next
   are the marker's stage. ``stage(name, device)`` is a marker and a
   span of the same name.
+- ``count(key, n)``: on, adds ``n`` to the trace's counter ``key``
+  (``COUNTERS``, through ``core.count``): the HNSW beam's steps, its
+  stop-flag reads and the beam loops that stopped before their step cap.
 - ``snapshot()``: per span name its count, total and longest time
-  (never evicted), the last ``RING`` spans, and the kernels' launch
-  counters (which ``core.count`` moves). ``reset()`` clears the spans.
+  (never evicted), the last ``RING`` spans, the trace's counters, and
+  the kernels' launch counters (which ``core.count`` moves with tracing
+  on or off). ``reset()`` clears the spans and the trace's counters.
 
 A CUDA graph captured with tracing on holds markers and one captured
 with it off holds none, so tracing is part of a graph's key
@@ -33,8 +38,13 @@ Spans: ``ivf.search``, ``ivf.upload``, ``ivf.plan``, ``ivf.layout``,
 (``ops/kmeans.py``), ``graph.replay``, ``graph.capture``,
 ``graph.eager``, ``graph.load``, ``graph.take`` (``graphs.py``) and the
 binned search's stages ``probe``, ``sort``, ``scan``, ``merge``
-(``ops/binned.py``, each also a marker; ``end`` closes the last).
-``TRACING.md`` beside this file says what each covers.
+(``ops/binned.py``, each also a marker; ``end`` closes the last);
+``hnsw.search``, ``hnsw.cache``, ``hnsw.build`` (``index/hnsw.py``),
+``hnsw.wave`` (``ops/hnsw_build.py``), ``hnsw.flag`` (``ops/beam.py``)
+and the HNSW search's stages ``route``, ``beam``, ``rescore``
+(``ops/beam.py``, ``ops/beam_inline.py``, each also a marker;
+``beam.end`` closes the last). ``TRACING.md`` beside this file says what
+each covers.
 """
 
 from __future__ import annotations
@@ -48,11 +58,18 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from vers_tpu_torch.core import COUNT_LOCK
+from vers_tpu_torch.core import count as _add
+
 # spans kept in the ring of recent ones
 RING = 65_536
-# the device stages of the binned search, in order; a marker of "end"
-# closes the last
-STAGES = ("probe", "sort", "scan", "merge", "end")
+# the device stages of the binned search, in order, a marker of "end"
+# closing the last; then the HNSW search's, "beam.end" closing its last
+STAGES = ("probe", "sort", "scan", "merge", "end",
+          "route", "beam", "rescore", "beam.end")
+# the trace's counters: the HNSW beam loops' steps run, their host reads
+# of the stop flag, and the loops that stopped before their step cap
+COUNTERS = {"beam_steps": 0, "beam_flag_reads": 0, "beam_stopped_early": 0}
 
 _on = False
 _NULL = contextlib.nullcontext()
@@ -157,11 +174,18 @@ def stage(name: str, device: torch.device):
     return _Open(name)
 
 
+def count(key: str, n: int = 1) -> None:
+    """With tracing on: ``n`` more on the counter ``key`` of
+    ``COUNTERS``. Otherwise nothing."""
+    if _on:
+        _add(COUNTERS, key, n)
+
+
 def snapshot() -> dict:
     """``enabled``; ``spans``: name -> {count, total_ns, max_ns};
     ``recent``: the last ``RING`` spans (``Span``), oldest first;
-    ``launches``: the kernels' launch counters."""
-    from vers_tpu_torch.core import COUNT_LOCK
+    ``counters``: the trace's counters (``COUNTERS``); ``launches``: the
+    kernels' launch counters."""
     from vers_tpu_torch.ops import cuda_binned, cuda_bucket, cuda_topk
 
     with _LOCK:
@@ -169,16 +193,22 @@ def snapshot() -> dict:
                  for n, (c, t, m) in _TOTALS.items()}
         recent = list(_RECENT)
     with COUNT_LOCK:
+        counters = dict(COUNTERS)
         launches = dict(packed_scan=cuda_binned.LAUNCHES,
                         packed_scan_split=cuda_binned.LAUNCHES_SPLIT,
                         distance_topk=dict(cuda_topk.LAUNCHES_BY_ROUTE),
                         topk_values=cuda_topk.LAUNCHES_VALUES,
                         bucket_scan=cuda_bucket.LAUNCHES)
-    return dict(enabled=_on, spans=spans, recent=recent, launches=launches)
+    return dict(enabled=_on, spans=spans, recent=recent, counters=counters,
+                launches=launches)
 
 
 def reset() -> None:
-    """Clear the span aggregates and the ring (not the launch counters)."""
+    """Clear the span aggregates, the ring and the trace's counters (not
+    the launch counters)."""
     with _LOCK:
         _TOTALS.clear()
         _RECENT.clear()
+    with COUNT_LOCK:
+        for key in COUNTERS:
+            COUNTERS[key] = 0
