@@ -62,7 +62,15 @@ port's default device:
      end: it runs the layer-1 routing scan of every scan-routed search
      and every scan of the scan-routed build; the inputs of one routing
      scan and of the build's last k = 100 and k = 1 scans are captured
-     and held to the plain version below.
+     and held to the plain version below. Kernel E's counters
+     (``beam_inline.LAUNCHES``, ``LAUNCHES_PLAIN``) are zeroed with it:
+     the main reading's search moves the first, and by the phase's end
+     every inline beam step of the phase (the default policy) ran on
+     kernel E, none on the plain step. The steps of one search at
+     ef = 48 (the benchmark's HNSW cell's widths: 4 entries expanded,
+     degree 32, dp 64, 96 refined, d 300) are captured, held to the
+     plain step one by one and timed (below), outside the phase's
+     counts.
   7. the multi-device layer (``vers_tpu_torch.parallel``) on a mesh of
      four shards on the one card (``make_mesh(4, device="cuda:0")``),
      over the corpora, truths and indexes of the earlier phases:
@@ -173,7 +181,12 @@ bf16 table): tie-aware, distances within 1e-5, a repeat call
 bit-identical; and on the scan-routed build's last upper-layer scan
 (k = 100 over layer 1's built members) and last seed scan (k = 1), the
 same route: tie-aware, distances within 1e-4, a repeat call
-bit-identical, each timed beside its plain version and its bound. The
+bit-identical, each timed beside its plain version and its bound.
+Kernel E (``beam_step``, the inline beam's step) is held on the captured
+steps as ``hold_beam_step`` says, and its ``ms`` and ``plain_ms`` are a
+step's, with two bounds: from the rows the steps load (the picked
+adjacency rows, the live candidates' inline blocks, the refined
+full-dim rows) and at full width; its launches are phases 6 and 7's. The
 ``kernels`` line lists kernel A's f32 "highest" route as
 ``distance_topk`` and each other route as
 ``distance_topk[<corpus>/<precision>]``: each entry's launches, error
@@ -246,6 +259,11 @@ HNSW_CLUSTERS = 4096
 HNSW_RECALL_PHASE1 = 0.915
 HNSW_EFS = (48, 64, 96, 128, 192)
 HNSW_IO_ROWS = 20_000  # the save/load round trip's separate index
+# kernel E (the inline beam's step) is held and timed on the steps of a
+# search at the benchmark's HNSW cell's ef (perfbench/configs/
+# wiki300-hnsw-m24.json): with the served degree 32 and dp 64, 4 entries
+# expanded and 96 candidates refined a step, as there
+HNSW_E_EF = 48
 # recall@10 floors of phase 6's HNSW options on the 4096-cluster corpus at
 # ef = 32, each the first reading on an H100 less 0.02: the scan-routed
 # build (0.9952) and the inline-insertion build (0.9801), searched by
@@ -612,6 +630,185 @@ def hold_route_scan(torch, args, label):
     return row
 
 
+@contextlib.contextmanager
+def captured_beam_steps():
+    """Record every step of the HNSW inline beam's kernel
+    (``beam_inline.cuda_beam_step``, kernel E) that searches inside the
+    block make, as (the state copied before the step, the step's other
+    arguments); every call goes through unchanged, eagerly
+    (``graphs.disabled``)."""
+    from vers_tpu_torch import graphs
+    from vers_tpu_torch.ops import beam_inline
+
+    captured = []
+    real = beam_inline.cuda_beam_step
+
+    def capturing(state, *args):
+        captured.append((tuple(t.clone() for t in state), args))
+        return real(state, *args)
+
+    beam_inline.cuda_beam_step = capturing
+    try:
+        with graphs.disabled():
+            yield captured
+    finally:
+        beam_inline.cuda_beam_step = real
+
+
+def step_candidates(torch, state, args):
+    """From a step's state and arguments: the candidates the step reads
+    (Q, e * deg) ids, -1 past the picks), which of them are live (not -1,
+    not in the beam, at no lower column of the step: the kernel loads
+    an inline block for these alone) and the picked rows' count (an
+    adjacency row each)."""
+    from vers_tpu_torch.ops.beam import (in_beam, pick_unexpanded,
+                                         repeats_earlier, take_rows)
+
+    beam_d, beam_i, expanded = state
+    qp, adj, tab, ef, e, r, qn, vecs = args
+    n_pad, deg = adj.shape
+    picked, has, _ = pick_unexpanded(beam_d, beam_i, expanded.clone(), e)
+    nbrs = take_rows(adj, picked.clamp(0, n_pad - 1)).long()
+    nbrs = torch.where(has[:, :, None], nbrs, -1).reshape(picked.shape[0], -1)
+    live = (nbrs >= 0) & ~(in_beam(nbrs, beam_i) | repeats_earlier(nbrs))
+    return picked, nbrs, live, int(has.sum())
+
+
+def refine_cut_gaps(torch, state, args, rows):
+    """For the given query rows of a step: the gap, in f64, between the
+    r-th and the (r+1)-th smallest projected distance of the live
+    candidates (+inf where fewer than r + 1 are live), the cut where a
+    different order of f32 sums can keep another candidate."""
+    qp, adj, tab, ef, e, r, qn, vecs = args
+    n_pad, deg = adj.shape
+    dp = qp.shape[1]
+    sub = tuple(t[rows] for t in state)
+    picked, nbrs, live, _ = step_candidates(torch, sub, args)
+    blocks = tab[picked.clamp(0, n_pad - 1)].view(len(rows), -1, dp).double()
+    dots = torch.bmm(blocks, qp[rows].double()[:, :, None])[:, :, 0]
+    nd = torch.where(live, 1.0 - dots, float("inf")).sort(dim=1).values
+    if not 0 < r < nd.shape[1]:  # no refine cut
+        return np.full(len(rows), np.inf)
+    return (nd[:, r] - nd[:, r - 1]).cpu().numpy()
+
+
+def hold_beam_step(torch, steps, label, reps=5):
+    """Kernel E (the inline beam's step, ``csrc/beam_step.cu``) against
+    its plain version (``beam_inline.plain_step``) on the steps of one
+    captured search. Each step runs from its captured state by both: the
+    active flags equal; where the ids agree, the expanded flags equal
+    and the distances within 1e-6; a row whose ids differ passes where
+    the kernel's ids at the differing positions carry their own exact
+    full-dim distances (within 1e-5 of f64: the seeds' come from the
+    routing scan) and either the distances
+    at every differing position lie within 1e-6 (equal distances
+    swapped, or at the beam's cut) or its projected
+    distances tie within 1e-6 at the refine cut (another candidate
+    kept); such rows are counted. Then the search's steps in a row from
+    its first state, timed by both with CUDA events, and the bound of
+    each step from the rows it loads (``roofline.beam_step_bound`` with
+    the step's picked rows, live candidates and refined rows) beside
+    the full-width bound. Returns the row for the ``kernels`` line."""
+    from vers_tpu_torch.ops import beam_inline
+    from vers_tpu_torch.utils import roofline
+
+    tol = 1e-6
+    qp, adj, tab, ef, e, r, qn, vecs = steps[0][1]
+    q_n, dp = qp.shape
+    n_pad, deg = adj.shape
+    d = vecs.shape[1] if r else 0
+    assert all(args[3:6] == (ef, e, r) for _, args in steps)
+
+    def kernel(st):
+        return beam_inline.cuda_beam_step(st, *steps[0][1])
+
+    err, swapped, cut, bounds = 0.0, 0, 0, []
+    loads = dict(picked=0, live=0, refined=0)
+    for state, args in steps:
+        got, got_active = beam_inline.cuda_beam_step(
+            tuple(t.clone() for t in state), *args)
+        want, want_active = beam_inline.plain_step(
+            args[0], args[2], args[1], ef, e, r, args[6], args[7])(
+            tuple(t.clone() for t in state))
+        assert bool(got_active) == bool(want_active)
+        same = got[1] == want[1]
+        assert torch.equal(got[2][same], want[2][same])
+        both = same & torch.isfinite(want[0])
+        if both.any():
+            err = max(err, float((got[0] - want[0])[both].abs().max()))
+        rows = torch.nonzero(~same.all(dim=1))[:, 0]
+        if len(rows):
+            moved = ~same[rows]
+            if r:  # the kernel's ids at moved positions carry their own
+                #    exact full-dim distances
+                i, j = torch.nonzero(moved, as_tuple=True)
+                ids, dist = got[1][rows[i], j], got[0][rows[i], j]
+                live = ids >= 0
+                exact = 1.0 - (args[7][ids[live]].double()
+                               * args[6][rows[i][live]].double()).sum(dim=1)
+                assert ((exact - dist[live].double()).abs() <= 1e-5).all()
+                assert not torch.isfinite(dist[~live]).any()
+            dd = (got[0][rows] - want[0][rows]).abs().masked_fill(~moved, 0.0)
+            tied = (dd <= tol).all(dim=1)
+            swapped += int(tied.sum())
+            other = rows[~tied]
+            if len(other):
+                gaps = refine_cut_gaps(torch, state, args, other)
+                assert (gaps < tol).all(), (gaps, other.tolist())
+                cut += len(other)
+        picked, nbrs, live, n_picked = step_candidates(torch, state, args)
+        n_live = live.sum(dim=1)
+        n_refined = int(n_live.clamp(max=r).sum()) if r else 0
+        counts = dict(picked=n_picked, live=int(n_live.sum()),
+                      refined=n_refined)
+        for k in loads:
+            loads[k] += counts[k]
+        bounds.append(roofline.beam_step_bound(q_n, ef, e, deg, dp, r, d,
+                                               **counts))
+    assert err <= tol, err
+
+    def run(step, reps):
+        times = []
+        for _ in range(reps + 1):  # the first warms up
+            st = tuple(t.clone() for t in steps[0][0])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in steps:
+                st, _ = step(st)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / len(steps))
+        return sorted(times[1:])[len(times[1:]) // 2]
+
+    ms = run(kernel, reps)
+    plain_ms = run(beam_inline.plain_step(qp, tab, adj, ef, e, r, qn, vecs), 1)
+    n = len(steps)
+    bound_ms = sum(b["bound_ms"] for b in bounds) / n
+    full = roofline.beam_step_bound(q_n, ef, e, deg, dp, r, d)
+    share = dict(picked=loads["picked"] / (n * q_n * e),
+                 live=loads["live"] / (n * q_n * e * deg),
+                 refined=loads["refined"] / (n * q_n * r) if r else 0.0)
+    log(f"kernel E vs plain, {label} (Q={q_n}, ef={ef}, e={e}, deg={deg}, "
+        f"dp={dp}, r={r}, d={d}; {n} steps): max |d| {err:g} where the ids "
+        f"agree, {swapped} row-steps with equal distances swapped, {cut} "
+        f"with another candidate kept at a refine-cut tie; {ms:.3f} ms a "
+        f"step vs {plain_ms:.2f} ms; bound {bound_ms:.3f} ms a step from the "
+        f"rows loaded ({share['picked']:.1%} of the full width's picks, "
+        f"{share['live']:.1%} of its candidates, {share['refined']:.1%} of "
+        f"its refined rows; {bounds[0]['bound_by']}), {full['bound_ms']:.3f} "
+        f"ms at full width: {bound_ms / ms:.0%} / {full['bound_ms'] / ms:.0%} "
+        f"of them")
+    return dict(steps=n, max_abs_err=err, swapped_row_steps=swapped,
+                refine_cut_row_steps=cut, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bounds[0]["bound_by"],
+                full_width_bound_ms=full["bound_ms"],
+                loaded_share_of_full_width=share,
+                bound_ms_by_step=[b["bound_ms"] for b in bounds],
+                shape=f"Q={q_n} ef={ef} e={e} deg={deg} dp={dp} r={r} d={d}")
+
+
 def forest_phase(torch, vt, x, q, qd, truth_ids, dev):
     """Phase 5: the RP-forest end to end (see the module docstring).
     Returns (per-setting rows of the searches, rows of kernel B on the
@@ -818,10 +1015,11 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     """Phase 6: HNSW end to end (see the module docstring). Returns
     (rows of the readings, kernel A's row on the captured routing scan,
     kernel A's launches in the HNSW searches, the main reading's index
-    with one row added, and that corpus's queries on the card)."""
+    with one row added, that corpus's queries on the card, and kernel
+    E's row)."""
     import dataclasses
 
-    from vers_tpu_torch.ops import cuda_topk
+    from vers_tpu_torch.ops import beam_inline, cuda_topk
     from vers_tpu_torch.utils.data import synthetic_gaussian
     from vers_tpu_torch.utils.parity import assert_topk_match
 
@@ -882,6 +1080,7 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
         f"({time.perf_counter() - t0:.1f} s)")
 
     cuda_topk.LAUNCHES_BY_ROUTE.clear()
+    beam_inline.LAUNCHES = beam_inline.LAUNCHES_PLAIN = 0
 
     # -- phase 1's corpus -------------------------------------------------
     h, rows["phase1_build"] = build(x, "phase 1's corpus")
@@ -908,8 +1107,11 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     h, rows["build"] = build(x2, f"the {HNSW_CLUSTERS}-cluster corpus")
     with captured_route_scan() as captured:
         before = cuda_topk.launches()
+        steps_before = beam_inline.LAUNCHES
         res = h.search_batch(qd2, TOP_K)
         assert cuda_topk.launches() == before + 1  # the routing scan
+        assert beam_inline.LAUNCHES > steps_before  # kernel E, every step
+        assert beam_inline.LAUNCHES_PLAIN == 0
     rec = vt.recall_at_k(res.ids, truth2)
     assert (np.diff(res.distances, axis=1) >= 0).all()
     direct = 1.0 - np.einsum("qkd,qd->qk", x2[res.ids[:4]], q2[:4])
@@ -930,6 +1132,21 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     rows["inline"]["graphs"] = graph_reading(
         torch, "hnsw inline beam", lambda: h.search_batch_device(qd2, TOP_K),
         [h._graphs])
+
+    # kernel E on the steps of one search at the benchmark cell's widths,
+    # held outside the phase's counts (its plain version is called)
+    h.ef_search = HNSW_E_EF
+    with captured_beam_steps() as beam_steps:
+        h.search_batch_device(qd2, TOP_K)
+    h.ef_search = HNSW_EF
+    qp, adj, _, ef, e, r, _, vecs = beam_steps[0][1]
+    assert (ef, e, r, adj.shape[1], qp.shape[1], vecs.shape[1]) == (
+        HNSW_E_EF, 4, 2 * HNSW_E_EF, 32, 64, DIM)
+    counted = beam_inline.LAUNCHES, beam_inline.LAUNCHES_PLAIN
+    e_row = hold_beam_step(torch, beam_steps,
+                           f"the steps of a search at ef={HNSW_E_EF}")
+    beam_inline.LAUNCHES, beam_inline.LAUNCHES_PLAIN = counted
+    del beam_steps, qp, adj, vecs
 
     qs, ts = qd2[:HNSW_SLICE], truth2[:HNSW_SLICE]
     base = h.config
@@ -1036,6 +1253,11 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
     rows["launches_by_route"] = dict(cuda_topk.LAUNCHES_BY_ROUTE)
     assert rows["launches_by_route"] == {"bf16/default": launches}, \
         rows["launches_by_route"]
+    # every inline beam step of the phase (the default policy) on kernel E
+    e_row["launches_hnsw"] = beam_inline.LAUNCHES
+    log(f"kernel E launches in the HNSW phase: {beam_inline.LAUNCHES}, "
+        f"plain steps {beam_inline.LAUNCHES_PLAIN}")
+    assert beam_inline.LAUNCHES > 0 and beam_inline.LAUNCHES_PLAIN == 0
 
     # kernel A on the captured routing scan against its plain version
     a_row = hold_route_scan(torch, captured[0], "the HNSW routing scan")
@@ -1049,7 +1271,7 @@ def hnsw_phase(torch, vt, x, q, qd, truth_ids, dev):
             torch, q_in, tab, n_built, k,
             f"the scan-routed build's last {'seed' if k == 1 else 'layer'} "
             f"scan", metric="cosine", precision="default")
-    return rows, a_row, launches, h, qd2
+    return rows, a_row, launches, h, qd2, e_row
 
 
 @contextlib.contextmanager
@@ -1891,7 +2113,8 @@ def main():
               file=sys.stderr)
         return 2
     import vers_tpu_torch as vt
-    from vers_tpu_torch.ops import _build, binned, cuda_binned, cuda_bucket, cuda_topk
+    from vers_tpu_torch.ops import (_build, beam_inline, binned, cuda_binned,
+                                    cuda_bucket, cuda_topk)
     from vers_tpu_torch.ops.topk import fused_scan_topk
     from vers_tpu_torch.utils.data import synthetic_gaussian
     from vers_tpu_torch.utils.harness import search_exhaustive
@@ -2097,7 +2320,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- HNSW, kernel A's second caller, counted on its own -----------
-    hnsw_rows, hnsw_scan, hnsw_launches, hnsw_index, qd2 = hnsw_phase(
+    hnsw_rows, hnsw_scan, hnsw_launches, hnsw_index, qd2, e_row = hnsw_phase(
         torch, vt, x, q, qd, truth.ids, dev)
     log(f"kernel A launches in the HNSW phase: {hnsw_launches}")
     assert hnsw_launches > 0
@@ -2109,6 +2332,7 @@ def main():
     cuda_topk.LAUNCHES_BY_ROUTE.clear()
     cuda_binned.LAUNCHES = cuda_binned.LAUNCHES_SPLIT = 0
     cuda_bucket.LAUNCHES = 0
+    beam_inline.LAUNCHES = beam_inline.LAUNCHES_PLAIN = 0
     parallel_rows, held = parallel_phase(
         torch, vt, x, qd, truth, dev, flat, ivf, forest, hnsw_index, qd2,
         cards_mesh(torch, vt))
@@ -2116,7 +2340,9 @@ def main():
                          "packed_scan": cuda_binned.LAUNCHES,
                          "packed_scan_split": cuda_binned.LAUNCHES_SPLIT,
                          "topk_values": cuda_topk.LAUNCHES_VALUES,
-                         "bucket_scan": cuda_bucket.LAUNCHES}
+                         "bucket_scan": cuda_bucket.LAUNCHES,
+                         "beam_step": beam_inline.LAUNCHES,
+                         "beam_step_plain": beam_inline.LAUNCHES_PLAIN}
     parallel_routes = dict(cuda_topk.LAUNCHES_BY_ROUTE)
     log(f"kernel launches in the multi-device phase: {parallel_launches}, "
         f"kernel A by route {parallel_routes}")
@@ -2413,6 +2639,16 @@ def main():
          "shape": f"Q={N_QUERIES} N={xd.shape[0]} d={DIM} span={span} "
                   f"W={width}",
          "by_q": d_rows},
+        {"name": "beam_step", "route": "cuda",
+         "source": "vers_tpu_torch/csrc/beam_step.cu",
+         "replaces": None,  # the JAX package's step is plain jnp
+         "launches": e_row["launches_hnsw"] + parallel_launches["beam_step"],
+         "launches_by_phase": {"hnsw": e_row["launches_hnsw"],
+                               "parallel": parallel_launches["beam_step"]},
+         "launches_plain_by_phase": {
+             "hnsw": 0, "parallel": parallel_launches["beam_step_plain"]},
+         "library_ms": None, "ms_per": "step",
+         **{k: v for k, v in e_row.items() if k != "launches_hnsw"}},
     ]
     log(f"flat engines: {json.dumps(engines)}")
     log(f"smoke wall time {time.perf_counter() - T0:.1f} s")

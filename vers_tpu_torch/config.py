@@ -92,6 +92,9 @@ class HNSWConfig:
 
     num_layers: int = 8
     ef_construction: int = 100
+    # Beam width of the query search. On a CUDA index the inline beam's
+    # step is one kernel up to 256 (ops/beam_inline.beam_step_takes);
+    # wider, it runs as the plain PyTorch step, ~12x slower a step.
     ef_search: int = 32
     num_neighbours: int = 16  # M; layer 0 uses 2*M (`hnsw.rs:400-404`)
     seed: int = 0
@@ -116,7 +119,9 @@ class HNSWConfig:
     # (index/hnsw.py INLINE_DEG_CAP) and dp the larger of 64, 32 whose
     # table fits ``inline_hbm_budget_gb``; else the classic gathers.
     # None/0: classic gathers; an int forces that dp (and leaves
-    # max_degree alone).
+    # max_degree alone). On a CUDA index the step kernel takes dp 32
+    # and 64; another dp runs the plain PyTorch step, ~12x slower a step
+    # (ops/beam_inline.beam_step_takes).
     nav_inline_dp: Optional[object] = "auto"
     # Device-memory budget of the (n_pad, cap*dp) bf16 inline table
     # when nav_inline_dp="auto" picks dp (4 GiB at 1M x 32 x 64).
@@ -134,7 +139,10 @@ class HNSWConfig:
     # Best unexpanded beam entries expanded a step. None -> 8 on the
     # classic gather beam and ``add``'s insertion beams, 4 on the inline
     # beam; an int forces that value everywhere. (The wave build takes
-    # its own ``expand``, 8.)
+    # its own ``expand``, 8.) On a CUDA index the inline beam's step
+    # kernel takes up to 512 candidates a step (beam_expand times the
+    # served layer-0 degree: 8 x 49 at M = 24 with max_degree None fits);
+    # more run the plain PyTorch step, ~12x slower a step.
     beam_expand: Optional[int] = None
     # Cap on the query beam's steps. None -> max(4*ef, 64) on the
     # classic beam, ceil(ef/expand) on the inline beam.

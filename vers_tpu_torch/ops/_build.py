@@ -60,6 +60,10 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _P],
     # stage (an index of trace.STAGES), stream
     "vers_trace_mark": [_I, _P],
+    # beam_d, beam_i, expanded, qp, qn (nullable), adj, inline table,
+    # vecs (nullable), active, Q, ef, e, deg, n_pad, dp, r, d, vw, stream
+    "vers_beam_step": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -17,6 +17,14 @@ only filters: the top ``refine_r`` candidates are gathered full-dim
 (bf16) and merged on their exact distances, so the beam ranks in exact
 space end to end. The caller rescores the final beam in f32.
 
+The step has two versions with one result up to the order of f32 sums:
+the plain step below (PyTorch ops), and one hand-written CUDA kernel
+(``csrc/beam_step.cu``, launched by ``cuda_beam_step``) that does the
+whole step for every query in one launch and updates the state in
+place. ``inline_step`` takes the kernel for CUDA tensors whose widths
+``beam_step_takes`` accepts and the plain step otherwise; both are
+counted (``LAUNCHES``, ``LAUNCHES_PLAIN``).
+
 Reference being re-expressed: the layer search `vers/src/indexes/
 hnsw.rs:242-307` (same beam/visited semantics as ``beam_search_layer``).
 """
@@ -27,6 +35,8 @@ import numpy as np
 import torch
 
 from vers_tpu_torch import graphs, trace
+from vers_tpu_torch.core import count
+from vers_tpu_torch.ops import _build
 from vers_tpu_torch.ops.beam import (
     cosine_to,
     in_beam,
@@ -44,6 +54,19 @@ from vers_tpu_torch.ops.distance import _check_f32_matmul
 from vers_tpu_torch.ops.topk import topk_smallest
 
 _INF = float("inf")
+
+# Steps of the inline beam, counted by ``core.count`` (shards step from
+# several threads at once): the kernel's launches, and the plain step's
+# (CPU tensors, and widths or dtypes outside ``beam_step_takes``).
+LAUNCHES = 0
+LAUNCHES_PLAIN = 0
+
+# The step kernel's range (csrc/beam_step.cu): the inline table's widths,
+# the beam's, the candidates of a step (e * deg) and the full-dim rows'.
+STEP_DPS = (32, 64)
+STEP_MAX_EF = 256
+STEP_MAX_CANDIDATES = 512
+STEP_MAX_D = 1024
 
 
 def pca_projection(corpus: torch.Tensor, dp: int, sample: int = 131072):
@@ -152,16 +175,123 @@ def beam_search_layer_inline(
     return beam_d, beam_i
 
 
+def beam_step_takes(ef: int, e: int, deg: int, dp: int, r: int, d: int,
+                    bf16: bool = True) -> bool:
+    """Whether the step kernel takes a step of these widths: ``e``
+    entries expanded a step of an ``ef``-wide beam, ``deg`` neighbours
+    each, the inline table ``dp`` wide, ``r`` candidates refined on
+    ``d``-wide full-dim rows (``d`` unused when ``r`` is 0); ``bf16``:
+    the queries and tables the step reads are bf16."""
+    m = e * deg
+    return (bf16 and dp in STEP_DPS and 1 <= e <= ef <= STEP_MAX_EF
+            and 1 <= m <= STEP_MAX_CANDIDATES and 0 <= r <= m
+            and (r == 0 or 1 <= d <= STEP_MAX_D))
+
+
+def _load_width(vecs_nav: torch.Tensor) -> int:
+    """bf16 values a full-dim load of the kernel takes: the widest of 8,
+    4 and 2 that divides the row width and the table's address (in
+    values), else 1."""
+    d = vecs_nav.shape[1]
+    for vw in (8, 4, 2):
+        if d % vw == 0 and vecs_nav.data_ptr() % (2 * vw) == 0:
+            return vw
+    return 1
+
+
+def _check_step_inputs(state, queries_p, adj, inline_tab, ef, r, queries_nav,
+                       vecs_nav):
+    beam_d, beam_i, expanded = state
+    q_n, dp = queries_p.shape
+    n_pad, deg = adj.shape
+    want = [(beam_d, torch.float32, (q_n, ef)), (beam_i, torch.int64, (q_n, ef)),
+            (expanded, torch.bool, (q_n, ef)),
+            (queries_p, torch.bfloat16, (q_n, dp)),
+            (adj, torch.int32, (n_pad, deg)),
+            (inline_tab, torch.bfloat16, (n_pad, deg * dp))]
+    if r:
+        d = vecs_nav.shape[1]
+        want += [(queries_nav, torch.bfloat16, (q_n, d)),
+                 (vecs_nav, torch.bfloat16, (n_pad, d))]
+    for t, dtype, shape in want:
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or t.device != queries_p.device or not t.is_contiguous()):
+            raise ValueError(f"the beam step kernel takes a contiguous {dtype} "
+                             f"{shape} on {queries_p.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    for t in (queries_p, inline_tab):
+        if t.data_ptr() % 16:
+            raise ValueError("the beam step kernel takes 16-byte aligned "
+                             "projected queries and inline table")
+
+
+def cuda_beam_step(state, queries_p, adj, inline_tab, ef: int, e: int, r: int,
+                   queries_nav=None, vecs_nav=None):
+    """One step of the inline beam by the kernel (``csrc/beam_step.cu``)
+    for CUDA tensors of widths ``beam_step_takes`` accepts: ``e``
+    entries expanded, ``r`` candidates refined (the plain step's ``e``
+    and ``r``). The new state is written into ``state``'s own tensors.
+    Returns (state, active), ``active`` a 0-d bool tensor as the plain
+    step's. Raises on inputs the kernel does not take."""
+    _check_step_inputs(state, queries_p, adj, inline_tab, ef, r, queries_nav,
+                       vecs_nav)
+    beam_d, beam_i, expanded = state
+    q_n, dp = queries_p.shape
+    n_pad, deg = adj.shape
+    dev = queries_p.device
+    active = torch.zeros((), dtype=torch.bool, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.vers_beam_step(
+            beam_d.data_ptr(), beam_i.data_ptr(), expanded.data_ptr(),
+            queries_p.data_ptr(), queries_nav.data_ptr() if r else None,
+            adj.data_ptr(), inline_tab.data_ptr(),
+            vecs_nav.data_ptr() if r else None, active.data_ptr(),
+            q_n, ef, e, deg, n_pad, dp, r, vecs_nav.shape[1] if r else 0,
+            _load_width(vecs_nav) if r else 1,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "vers_beam_step")
+    count(globals(), "LAUNCHES")
+    return (beam_d, beam_i, expanded), active
+
+
 def inline_step(queries_p, inline_tab, adj, ef: int, expand_per_step: int,
                 refine_r: int = 0, queries_nav=None, vecs_nav=None):
     """The inline beam's step (see ``beam_search_layer_inline``):
-    ``step(state) -> (state, active)``."""
-    q_n, dp = queries_p.shape
-    n_pad, deg = adj.shape
+    ``step(state) -> (state, active)``. On CUDA tensors whose widths and
+    dtypes ``beam_step_takes`` accepts, the step kernel
+    (``cuda_beam_step``, which writes the new state into the old one's
+    tensors); otherwise ``plain_step``."""
+    dp = queries_p.shape[1]
+    deg = adj.shape[1]
     e = max(1, min(expand_per_step, ef))
     r = min(refine_r, e * deg) if refine_r else 0
+    bf16 = (queries_p.dtype == inline_tab.dtype == torch.bfloat16
+            and (not r or queries_nav.dtype == vecs_nav.dtype == torch.bfloat16))
+    if queries_p.is_cuda and beam_step_takes(
+            ef, e, deg, dp, r, vecs_nav.shape[1] if r else 0, bf16):
+        adj32 = adj.to(torch.int32).contiguous()
+
+        def kernel_step(state):
+            return cuda_beam_step(state, queries_p, adj32, inline_tab, ef, e,
+                                  r, queries_nav, vecs_nav)
+
+        return kernel_step
+    return plain_step(queries_p, inline_tab, adj, ef, e, r, queries_nav,
+                      vecs_nav)
+
+
+def plain_step(queries_p, inline_tab, adj, ef: int, e: int, r: int,
+               queries_nav=None, vecs_nav=None):
+    """The inline beam's step in PyTorch ops, ``e`` entries expanded and
+    ``r`` candidates refined a step (``inline_step`` resolves both):
+    ``step(state) -> (state, active)``, counted in ``LAUNCHES_PLAIN``."""
+    q_n, dp = queries_p.shape
+    n_pad, deg = adj.shape
 
     def step(state):
+        count(globals(), "LAUNCHES_PLAIN")
         beam_d, beam_i, expanded = state
         picked, has, expanded = pick_unexpanded(beam_d, beam_i, expanded, e)
         safe = picked.clamp(0, n_pad - 1)

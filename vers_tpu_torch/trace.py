@@ -186,7 +186,8 @@ def snapshot() -> dict:
     ``recent``: the last ``RING`` spans (``Span``), oldest first;
     ``counters``: the trace's counters (``COUNTERS``); ``launches``: the
     kernels' launch counters."""
-    from vers_tpu_torch.ops import cuda_binned, cuda_bucket, cuda_topk
+    from vers_tpu_torch.ops import (beam_inline, cuda_binned, cuda_bucket,
+                                    cuda_topk)
 
     with _LOCK:
         spans = {n: dict(count=c, total_ns=t, max_ns=m)
@@ -198,7 +199,9 @@ def snapshot() -> dict:
                         packed_scan_split=cuda_binned.LAUNCHES_SPLIT,
                         distance_topk=dict(cuda_topk.LAUNCHES_BY_ROUTE),
                         topk_values=cuda_topk.LAUNCHES_VALUES,
-                        bucket_scan=cuda_bucket.LAUNCHES)
+                        bucket_scan=cuda_bucket.LAUNCHES,
+                        beam_step=beam_inline.LAUNCHES,
+                        beam_step_plain=beam_inline.LAUNCHES_PLAIN)
     return dict(enabled=_on, spans=spans, recent=recent, counters=counters,
                 launches=launches)
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 BF16 = 989e12           # flop/s, tensor cores, dense
 TF32 = 495e12           # flop/s, tensor cores, dense
+F32 = 67e12             # flop/s, CUDA cores (no tensor cores)
 HBM = 3.35e12           # bytes/s
 
 
@@ -80,3 +81,22 @@ def bucket_scan_bound(q_n: int, n_valid: int, d: int, width: int) -> dict:
     return bound(2.0 * q_n * n_valid * d, BF16,
                  (2.0 * d + 4.0) * n_valid + 4.0 * q_n * d
                  + 8.0 * q_n * width)
+
+
+def beam_step_bound(q_n: int, ef: int, e: int, deg: int, dp: int, r: int,
+                    d: int, picked=None, live=None, refined=None) -> dict:
+    """One step of the HNSW inline beam over ``q_n`` queries: the bf16
+    queries read, the (ef) state (f32, int64, bool) read and written,
+    and, over all queries, ``picked`` adjacency rows (deg int32),
+    ``live`` candidates' inline blocks (dp bf16) and ``refined``
+    full-dim rows (d bf16); every projected and full-dim product an f32
+    FMA on the CUDA cores. The three counts default to the full width
+    (q_n * e, q_n * e * deg and q_n * r); the step kernel loads rows for
+    picked entries, live candidates and refined ids alone, so a step's
+    own counts give the bound of what it read."""
+    picked = q_n * e if picked is None else picked
+    live = q_n * e * deg if live is None else live
+    refined = q_n * r if refined is None else refined
+    nbytes = (4.0 * deg * picked + 2.0 * dp * live + 2.0 * d * refined
+              + q_n * (2.0 * (dp + (d if r else 0)) + 2.0 * 13.0 * ef))
+    return bound(2.0 * (live * dp + refined * d), F32, nbytes)
