@@ -29,6 +29,7 @@ from vers_tpu.ops.topk import fused_scan_topk as jax_scan
 from vers_tpu_torch.config import HNSWConfig
 from vers_tpu_torch.index.hnsw import HNSWIndex
 from vers_tpu_torch.ops import beam
+from vers_tpu_torch.ops.topk import repeats_earlier
 from vers_tpu_torch.utils.parity import assert_topk_match
 
 torch.set_num_threads(2)
@@ -160,7 +161,7 @@ def test_repeats_earlier_matches_pairwise():
     ids = torch.from_numpy(rng.integers(-1, 12, size=(30, 40)))
     want = ((ids[:, :, None] == ids[:, None, :])
             & (torch.arange(40)[None, :] < torch.arange(40)[:, None])[None]).any(2)
-    assert torch.equal(beam.repeats_earlier(ids), want)
+    assert torch.equal(repeats_earlier(ids), want)
 
 
 @pytest.mark.parametrize("k", [1, 8, 13])

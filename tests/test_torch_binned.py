@@ -84,10 +84,12 @@ def test_padded_group_layout_matches_jax(r_blk):
     assert tp["corpus"].shape == (jc.shape[0], d)
     np.testing.assert_array_equal(tp["corpus"].numpy(), jc[:, :d])
     assert not jc[:, d:].any()
-    for key in ("rbin", "s2o", "g_first"):
+    for key in ("rbin", "s2o"):
         np.testing.assert_array_equal(_np(tp[key]), _np(jp[key]), err_msg=key)
+    # the port's one group table is the JAX package's single stacked row
+    np.testing.assert_array_equal(_np(tp["g_first"]), _np(jp["g_first"])[0])
     np.testing.assert_allclose(tp["xx"].numpy(), np.asarray(jp["xx"]), rtol=1e-6)
-    for key in ("g_base", "n_groups", "g_max", "r_blk"):
+    for key in ("n_groups", "g_max", "r_blk"):
         assert tp[key] == jp[key], key
 
 
@@ -106,10 +108,10 @@ def test_workitems_blocks_match_jax(q_n, p, q_blk, sentinels):
     scratch = p * q_pad_rank // q_blk
     for rank_off in (0, q_pad_rank):
         jq, jg = jpb._workitems_blocks(jnp.asarray(counts), rank_off, g_first,
-                                       q_blk, w_rank, scratch, g_base=3)
+                                       q_blk, w_rank, scratch)
         tq, tg = tpb._workitems_blocks(torch.from_numpy(counts), rank_off,
                                        torch.from_numpy(np.array(g_first)),
-                                       q_blk, w_rank, scratch, g_base=3)
+                                       q_blk, w_rank, scratch)
         np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
         np.testing.assert_array_equal(tg.numpy(), np.asarray(jg))
 
@@ -150,8 +152,9 @@ def test_merge_probe_results_matches_jax_exactly(p, k, dedup):
 
 
 def _scan_inputs(n, d, k, q_n, p, skew, q_blk=64, r_blk=256):
-    """Identical kernel-B inputs for both packages, built the way the
-    combined (query, rank) pair path builds them, with some gated ranks."""
+    """Identical kernel-B inputs for both packages, built the way
+    ``_fused_core``'s (query, rank) pair sort builds them, with some
+    gated ranks."""
     x, bins, rng = _data(n, d, k, skew)
     layout = jb.make_layout(x, bins, k)
     padded = jpb.padded_group_layout(layout, r_blk)
@@ -178,9 +181,15 @@ def _scan_inputs(n, d, k, q_n, p, skew, q_blk=64, r_blk=256):
                   rbin_padded=np.array(padded["rbin"]),
                   xx_padded=np.array(padded["xx"]),
                   ids_padded=np.array(padded["s2o"])[None, :])
-    statics = dict(top_k=10, q_blk=q_blk, chunk=128, r_chunks=r_blk // 128,
-                   q_pad_rank=q_pad_rank)
+    statics = dict(top_k=10, q_blk=q_blk, chunk=128, r_chunks=r_blk // 128)
     return arrays, statics, qbin[0], k
+
+
+def _jax_statics(statics, q_n):
+    """The port's scan statics plus the ``q_pad_rank`` that the JAX
+    kernel takes: the query rows a probe rank is padded to."""
+    q_blk = statics["q_blk"]
+    return dict(statics, q_pad_rank=-(-q_n // q_blk) * q_blk)
 
 
 @pytest.mark.parametrize("kernel_ids", [False, True])
@@ -195,8 +204,8 @@ def test_packed_scan_plain_matches_pallas_interpret(n, d, k, q_n, p, skew,
     if not kernel_ids:
         arrays.pop("ids_padded")
     jd, ji = jpb.pallas_packed_scan(
-        **{a: jnp.asarray(v) for a, v in arrays.items()}, **statics,
-        interpret=True,
+        **{a: jnp.asarray(v) for a, v in arrays.items()},
+        **_jax_statics(statics, q_n), interpret=True,
     )
     td, ti = tpb.packed_scan_plain(
         **{a: torch.from_numpy(v) for a, v in arrays.items()}, **statics,
@@ -267,3 +276,43 @@ def test_check_work_items_bounds():
     with pytest.raises(ValueError, match="gb outside"):
         tpb.check_work_items(qb, gb - 1, *args)  # item 0 names group 0
 
+
+
+@pytest.mark.parametrize("index,p", [("ivf", 1), ("ivf", 2), ("ivf", 263),
+                                     ("forest", 1), ("forest", 3)])
+def test_fused_core_plans_the_callers_tiles(index, p):
+    """The stacked query rows and work items each scan gets, which
+    ``_fused_core`` derives from its inputs, are what IVF's
+    ``kernel_plan`` (128-row query blocks) and the forest's
+    ``_shared_plan`` (64) planned when they passed them in: the rule,
+    written out here, pads the queries to whole blocks, stacks one such
+    run of rows per probe rank and a scratch block, and gives one work
+    item per stacked block plus g_max + 1."""
+    from vers_tpu_torch.core import round_up
+    from vers_tpu_torch.index.lsh import ANNIndex
+
+    rng = np.random.default_rng(p)
+    q_n = 40
+    q = torch.from_numpy(rng.normal(size=(q_n, 8)).astype(np.float32))
+    if index == "ivf":
+        x, bins, _ = _data(3000, 8, 300, True)
+        layout = tb.make_layout(x, bins, 300)
+        cents = torch.from_numpy(rng.normal(size=(300, 8)).astype(np.float32))
+        with tb.captured_scans() as calls:
+            tb.binned_topk_kernel(q, cents, p, layout, top_k=10)
+        q_blk = 128
+        r_blk = calls[0][1]["chunk"] * calls[0][1]["r_chunks"]
+        g_max = tpb.padded_group_layout(layout, r_blk)["g_max"]
+    else:
+        x = rng.normal(size=(3000, 8)).astype(np.float32)
+        idx = ANNIndex.build_index(2, 40, x, np.arange(3000), device="cpu")
+        with tb.captured_scans() as calls:
+            idx._search_batch_internal(q, 10, probes_per_tree=p)
+        q_blk, g_max = 64, idx._shared["g_max"]
+        assert len(calls) == 2  # one scan a tree
+    q_pad_rank = round_up(q_n, q_blk)
+    w_rank = (p * q_pad_rank if p > 1 else q_pad_rank) // q_blk + g_max + 1
+    for args, kw in calls:
+        assert kw["q_blk"] == q_blk
+        assert args[0].shape[0] == p * q_pad_rank + q_blk
+        assert args[2].shape == args[3].shape == (w_rank,)

@@ -905,22 +905,22 @@ def _forest_on(cuda, n, d, max_size, trees=2, seed=3):
 
 
 def _forest_search(idx, q, top_k, n_probes, q_blk, r_blk, plain):
-    """``forest_search_shared`` on the index's tables at a chosen tile
-    plan; returns the result and the plan units of one launch."""
-    from vers_tpu_torch.core import round_up
+    """``forest_search_shared`` on the index's tables at chosen tile
+    sizes; returns the result and the plan units of one launch (its work
+    items times its 64-row parts)."""
+    from vers_tpu_torch.ops import binned
     from vers_tpu_torch.ops.forest_shared import forest_search_shared
 
     sh = idx._ensure_shared(r_blk)
-    q_pad_rank = round_up(q.shape[0], q_blk)
-    blocks = (n_probes * q_pad_rank if n_probes > 1 else q_pad_rank) // q_blk
-    w_rank = blocks + sh["g_max"] + 1
-    out = forest_search_shared(
-        q, sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],
-        sh["buckets"], sh["offsets"], sh["sizes_dev"], sh["corpus_pad"],
-        sh["xx"], sh["src"], sh["rbin"], sh["g_first"], n_probes=n_probes,
-        num_bins=sh["num_bins"], top_k=top_k, q_blk=q_blk, r_blk=r_blk,
-        chunk=r_blk, w_rank=w_rank, q_pad_rank=q_pad_rank, plain=plain)
-    return out, w_rank * -(-q_blk // cuda_binned.QUERY_TILE)
+    with binned.captured_scans() as calls:
+        out = forest_search_shared(
+            q, sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],
+            sh["buckets"], sh["offsets"], sh["sizes_dev"], sh["corpus_pad"],
+            sh["xx"], sh["src"], sh["rbin"], sh["g_first"], n_probes=n_probes,
+            num_bins=sh["num_bins"], top_k=top_k, q_blk=q_blk, r_blk=r_blk,
+            chunk=r_blk, plain=plain)
+    n_items = calls[0][0][2].shape[0]
+    return out, n_items * -(-q_blk // cuda_binned.QUERY_TILE)
 
 
 @pytest.mark.parametrize("n,n_probes,q_blk,over", [

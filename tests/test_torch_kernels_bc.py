@@ -11,7 +11,7 @@ Kernel B (packed scan): the host mirror of its two walks (units, live
 tiles, issued and useful products) and the plain walk over live tiles
 alone, against ``packed_scan_plain`` and the JAX Pallas kernel in
 interpret mode, on the inputs tests/test_torch_binned.py builds and on a
-stacked two-table layout with empty lists. Ids are compared tie-aware,
+search layout with empty lists. Ids are compared tie-aware,
 distances to rtol 1e-4 / atol 1e-5 (f32 matmuls of other shapes sum in
 other orders); the split walk equals the run walk bit for bit. The rule
 that picks the walk, ``split_walk``, at the benchmark's shapes.
@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_binned import _scan_inputs
+from test_torch_binned import _jax_statics, _scan_inputs
 from vers_tpu.ops import pallas_binned as jpb
 from vers_tpu.ops.pallas_topk import pallas_topk_values
 from vers_tpu_torch.core import round_up
@@ -117,9 +117,8 @@ def test_topk_values_plain_tie_rule_on_equal_rows():
 
 SCANS = [(3000, 32, 16, 200, 1, False), (3000, 32, 16, 500, 3, True),
          (997, 16, 7, 33, 2, True)]
-# small batches, where the split walk engages, and a stacked two-table
-# layout (the forest's form: group tables offset by g_base) with empty
-# lists, its ranks on alternate tables
+# small batches, where the split walk engages, and a layout with two
+# empty lists, its ranks spread over all bins
 SMALL_SCANS = [(3000, 32, 16, q_n, p, True) for q_n in (1, 7, 64)
                for p in (1, 2)] + [(3000, 32, 16, 200, 2, True),
                                    (2500, 16, 14, 64, 2, "forest"),
@@ -141,31 +140,24 @@ def _tensors(arrays):
 
 
 def _forest_inputs(n, d, k, q_n, p, q_blk):
-    """Kernel-B inputs as the per-rank path builds them over a stacked
-    two-table layout (bins [0, k/2) and [k/2, k)), rank r probing table
-    r % 2; two bins are empty lists. Same form as ``_scan_inputs``."""
+    """Kernel-B inputs as ``_fused_core`` builds them over a layout in
+    which two bins are empty lists, every rank probing any bin. Same
+    form as ``_scan_inputs``."""
     rng = np.random.default_rng(q_n)
     x = rng.normal(size=(n, d)).astype(np.float32)
     bins = (rng.random(n) ** 2 * k).astype(np.int64)
     bins[np.isin(bins, [2, k - 3])] = 4
     layout = tb.make_layout(x, bins, k)
     r_blk = round_up(layout["max_bin"], 128)
-    bounds = [0, k // 2, k]
-    padded = tpb.padded_forest_layout(layout, r_blk, bounds)
+    padded = tpb.padded_group_layout(layout, r_blk)
     q = torch.from_numpy(rng.normal(size=(q_n, d)).astype(np.float32))
-    probes = torch.from_numpy(np.stack(
-        [rng.integers(bounds[r % 2], bounds[r % 2 + 1], q_n) for r in range(p)],
-        axis=1))
-    q_pad_rank = round_up(q_n, q_blk)
+    probes = torch.from_numpy(rng.integers(0, k, (q_n, p)))
     with tb.captured_scans() as calls:
         tb._fused_core(
             q, probes, padded["corpus"], padded["rbin"], padded["xx"],
             padded["s2o"], padded["g_first"], num_bins=k, nprobe=p, top_k=10,
-            q_blk=q_blk, r_blk=r_blk, chunk=128,
-            w_rank=q_pad_rank // q_blk + padded["g_max"] + 1,
-            q_pad_rank=q_pad_rank, metric="sq_euclidean", probes_given=True,
-            rank_rows=tuple(r % 2 for r in range(p)), g_base=padded["g_base"],
-            kernel_ids=True)
+            q_blk=q_blk, r_blk=r_blk, chunk=128, metric="sq_euclidean",
+            probes_given=True, kernel_ids=True)
     (args, kw), = calls
     names = ("q_stack", "qbin_stack", "qb", "gb", "corpus_padded",
              "rbin_padded", "xx_padded")
@@ -383,8 +375,8 @@ def test_packed_scan_tiled_walk_tie_rule_split():
 def test_packed_scan_tiled_walk_matches_pallas_interpret(n, d, k, q_n, p, skew):
     arrays, statics, qbin, num_bins = _scan_inputs(n, d, k, q_n, p, skew)
     jd, ji = jpb.pallas_packed_scan(
-        **{a: jnp.asarray(v) for a, v in arrays.items()}, **statics,
-        interpret=True)
+        **{a: jnp.asarray(v) for a, v in arrays.items()},
+        **_jax_statics(statics, q_n), interpret=True)
     td, ti = tpb.packed_scan_tiled_plain(**_tensors(arrays), **statics)
     live = (qbin >= 0) & (qbin < num_bins)
     assert_topk_match(td.numpy()[live], ti.numpy()[live],

@@ -171,7 +171,6 @@ def forest_scans(torch, vt, binned, x, qd, args):
     """The first tree's packed scan of a forest search at 1, 4 and the
     auto probe depth, at 64- and 128-row query blocks: [(label, scan
     args, scan kwargs)]."""
-    from vers_tpu_torch.core import round_up
     from vers_tpu_torch.ops.forest_shared import forest_search_shared
 
     forest = vt.ANNIndex.build_index(args.trees, args.max_node_size, x,
@@ -181,11 +180,8 @@ def forest_scans(torch, vt, binned, x, qd, args):
         depth = forest._auto_probes(args.top_k) if probes is None else probes
         deficit_k = args.top_k if probes is None and depth > 1 else 0
         for q_blk in (64, 128):
-            sh, plan = forest._shared_plan(qd.shape[0], args.top_k, depth)
-            q_pad = round_up(qd.shape[0], q_blk)
-            blocks = (depth * q_pad if depth > 1 else q_pad) // q_blk
-            plan.update(q_blk=q_blk, q_pad_rank=q_pad,
-                        w_rank=blocks + sh["g_max"] + 1)
+            sh, plan = forest._shared_plan(args.top_k)
+            plan.update(q_blk=q_blk)
             with binned.captured_scans(only=(0,)) as calls:
                 forest_search_shared(
                     qd, sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],

@@ -46,7 +46,7 @@
 //   consumer turns its accumulators into distances in place and writes
 //   those that beat its row's kth best into the block's distance tile and
 //   its warpgroup's copy of the row's candidate bits (the row's four
-//   lanes combined by shuffles, no atomics). The producers merge, a row a
+//   lanes joined by shuffles, no atomics). The producers merge, a row a
 //   lane: a lone candidate (most rows that have any, once the best sets
 //   have filled) is put in place by its row's lane (binary search, then
 //   a shift with no data-dependent exit); a row with more goes through
@@ -480,7 +480,7 @@ __device__ inline void merge_tile(int pw, int lane, const unsigned* mask,
 // columns ccol0 + 8 jj + 2 t4 + e): the distances from the accumulators,
 // and those below the row's kth best into the distance tile and the
 // warpgroup's copy of the row's mask words (the row's four lanes t4
-// combined by shuffles). PAIR: the slot holds the tile's even rows in
+// joined by shuffles). PAIR: the slot holds the tile's even rows in
 // columns 0-63 and its odd rows in 64-127 (the TMA pairs of a bf16
 // corpus whose rows are 8-byte aligned), so column c is the tile's row
 // 2c or 2c - 127.

@@ -338,7 +338,7 @@ class IVFFlatIndex(Index):
             # the padded corpus (cached on the layout), made here on the
             # caller's stream rather than in a graph's warm-up
             with trace.span("ivf.plan"):
-                kernel_plan(layout, qdev.shape[0], nprobe, top_k)
+                kernel_plan(layout, top_k)
 
             def search(q):
                 probes = None

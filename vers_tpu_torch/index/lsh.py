@@ -56,7 +56,7 @@ from vers_tpu_torch.index.base import Index
 from vers_tpu_torch.io.bincode import Reader, Writer
 from vers_tpu_torch.models.candidates import SearchResult
 from vers_tpu_torch.ops import rpforest
-from vers_tpu_torch.ops.binned import adaptive_probe_depth
+from vers_tpu_torch.ops.binned import adaptive_probe_depth, group_rows
 from vers_tpu_torch.ops.cuda_binned import scans_on_host
 from vers_tpu_torch.ops.forest_shared import (
     forest_search_shared,
@@ -527,22 +527,13 @@ class ANNIndex(Index):
             depth = max(depth, adaptive_probe_depth(sizes, top_k))
         return min(depth, 8)
 
-    def _shared_plan(self, q_n: int, top_k: int, n_probes: int):
-        """Shared-corpus device state + static tile plan for ``q_n``
-        queries. Returns (shared state dict, statics dict) for
-        `ops.forest_shared.forest_search_shared`."""
+    def _shared_plan(self, top_k: int):
+        """Shared-corpus device state + tile sizes. Returns (shared state
+        dict, statics dict) for `ops.forest_shared.forest_search_shared`."""
         chunk = 1024
-        r_blk = round_up(max(1024, self._max_bin(), top_k), chunk)
-        sh = self._ensure_shared(r_blk)
-        q_pad_rank = round_up(q_n, Q_BLK)
-        # p > 1 uses the combined (query, rank) pair sort per tree
-        # (ops/binned._fused_core): blocks scale with p
-        blocks = (
-            n_probes * q_pad_rank if n_probes > 1 else q_pad_rank
-        ) // Q_BLK
-        w_rank = blocks + sh["g_max"] + 1
-        return sh, dict(q_blk=Q_BLK, r_blk=r_blk, chunk=chunk, w_rank=w_rank,
-                        q_pad_rank=q_pad_rank)
+        r_blk = group_rows(self._max_bin(), top_k, chunk)
+        return self._ensure_shared(r_blk), dict(q_blk=Q_BLK, r_blk=r_blk,
+                                                chunk=chunk)
 
     def _search_batch_internal(
         self, queries, top_k: int, probes_per_tree: Optional[int] = None,
@@ -571,7 +562,7 @@ class ANNIndex(Index):
         engine = self.config.engine
         if engine not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown engine {engine!r}")
-        sh, plan = self._shared_plan(qdev.shape[0], top_k, n_probes)
+        sh, plan = self._shared_plan(top_k)
         idmap = self._ids_device() if ids else None
         if ids and idmap is None:
             raise ValueError(

@@ -63,7 +63,7 @@ from vers_tpu_torch import graphs, trace
 from vers_tpu_torch.core import host_wait
 from vers_tpu_torch.ops import cuda_topk
 from vers_tpu_torch.ops.distance import _check_f32_matmul
-from vers_tpu_torch.ops.topk import topk_smallest
+from vers_tpu_torch.ops.topk import repeats_earlier, topk_smallest
 
 _INF = float("inf")
 
@@ -129,16 +129,6 @@ def cosine_to(vecs, ids, queries, scales=None) -> torch.Tensor:
     where an id is -1. ``scales``: an int8 table's per-row factors."""
     return torch.where(ids >= 0, 1.0 - row_dots(vecs, ids, queries, scales),
                        _INF)
-
-
-def repeats_earlier(ids: torch.Tensor) -> torch.Tensor:
-    """(Q, m) bool: True where the same id stands at a lower column of
-    its row (the JAX package's ``ncol < nrow`` mask), by a stable sort
-    instead of the (Q, m, m) comparison."""
-    s, order = torch.sort(ids, dim=1, stable=True)
-    rep = torch.zeros_like(s, dtype=torch.bool)
-    rep[:, 1:] = s[:, 1:] == s[:, :-1]
-    return torch.zeros_like(rep).scatter_(1, order, rep)
 
 
 def init_beam(entry: torch.Tensor, ef: int, seed_d_fn, entry_d=None):

@@ -44,14 +44,13 @@ from vers_tpu_torch.ops.beam import (
     loop_beam,
     merge_beam,
     pick_unexpanded,
-    repeats_earlier,
     rescore_cosine,
     run_beam,
     scan_seeds,
     take_rows,
 )
 from vers_tpu_torch.ops.distance import _check_f32_matmul
-from vers_tpu_torch.ops.topk import topk_smallest
+from vers_tpu_torch.ops.topk import repeats_earlier, topk_smallest
 
 _INF = float("inf")
 

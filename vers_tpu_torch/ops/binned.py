@@ -22,14 +22,14 @@ import numpy as np
 import torch
 
 from vers_tpu_torch import graphs, trace
-from vers_tpu_torch.core import round_up
+from vers_tpu_torch.core import SHARD_STATE, round_up
 from vers_tpu_torch.ops.cuda_binned import (
     _workitems_blocks,
     packed_scan,
     padded_group_layout,
 )
 from vers_tpu_torch.ops.distance import pairwise_distance
-from vers_tpu_torch.ops.topk import topk_smallest
+from vers_tpu_torch.ops.topk import repeats_earlier, topk_smallest
 
 
 @contextlib.contextmanager
@@ -49,8 +49,6 @@ def captured_scans(only=None, shard=None):
     ``shard``: record only the calls made by shard ``shard``'s body under
     ``parallel.mesh.map_shards`` (``only`` then counts that shard's
     calls): the shards scan at once, from threads of their own."""
-    from vers_tpu_torch.parallel.mesh import current_shard
-
     global packed_scan
     calls = []
     scan = packed_scan
@@ -62,7 +60,7 @@ def captured_scans(only=None, shard=None):
 
     def record(*args, **kw):
         nonlocal seen
-        if shard is None or current_shard() == shard:
+        if shard is None or getattr(SHARD_STATE, "shard", None) == shard:
             with lock:
                 n, seen = seen, seen + 1
             if only is None or n in only:
@@ -224,53 +222,31 @@ def layout_insert(layout: Dict, row_vec, bin_c: int, orig_row: int) -> bool:
     layout["sorted_to_orig"][pos] = int(orig_row)
     layout["size"][c] += 1
     true_sizes[c] += 1
-    layout.pop("_padded_forest", None)
+    layout.pop("_padded", None)
     return True
 
 
-def static_groups(layout: Dict, r_blk: int, b_lo: int = 0,
-                  b_hi: int | None = None):
-    """Pack consecutive whole bins of [b_lo, b_hi) into groups of
-    <= r_blk corpus rows, from the layout's bin sizes alone. Cached per
-    (r_blk, range). Returns numpy arrays (group_first_bin (G+1,),
-    group_rstart (G,))."""
-    k_all = len(layout["sizes_host"])
-    if b_hi is None:
-        b_hi = k_all
-    cache = layout.setdefault("_static_groups", {})
-    key = (r_blk, b_lo, b_hi)
-    if key in cache:
-        return cache[key]
-    sizes = layout["sizes_host"]
-    starts = layout["starts_host"]
-    first, rstart = [b_lo], []
+def pack_bins(sizes: np.ndarray, r_blk: int) -> np.ndarray:
+    """Greedy pack consecutive whole bins into groups of <= r_blk rows.
+    Returns (G+1,) int64 bin boundaries; bins larger than r_blk get a
+    group of their own (callers size r_blk >= max_bin)."""
+    first = [0]
     used = 0
-    rstart.append(int(starts[b_lo]) if b_lo < k_all else 0)
-    for c in range(b_lo, b_hi):
-        if used and used + int(sizes[c]) > r_blk:
+    for c, s in enumerate(sizes):
+        if used and used + int(s) > r_blk:
             first.append(c)
-            rstart.append(int(starts[c]))
             used = 0
-        used += int(sizes[c])
-    first.append(b_hi)
-    out = (np.asarray(first, np.int32), np.asarray(rstart, np.int32))
-    cache[key] = out
-    return out
+        used += int(s)
+    first.append(len(sizes))
+    return np.asarray(first, np.int64)
 
 
-def stack_group_tables(tables):
-    """Stack per-rank (group_first_bin, group_rstart) tables of varying
-    group counts into (R, Gmax+1) / (R, Gmax) arrays. Padding groups
-    repeat the last bin boundary -> zero queries -> zero tiles."""
-    gmax = max(len(r) for _, r in tables)
-    f = np.zeros((len(tables), gmax + 1), np.int32)
-    rs = np.zeros((len(tables), gmax), np.int32)
-    for i, (fi, ri) in enumerate(tables):
-        g = len(ri)
-        f[i, : g + 1] = fi
-        f[i, g + 1 :] = fi[-1]
-        rs[i, :g] = ri
-    return f, rs
+def static_groups(layout: Dict, r_blk: int):
+    """Pack the layout's bins into groups of <= r_blk corpus rows
+    (``pack_bins``), from its bin sizes alone. Returns numpy arrays
+    (group_first_bin (G+1,), group_rstart (G,))."""
+    first = pack_bins(layout["sizes_host"], r_blk).astype(np.int32)
+    return first, np.asarray(layout["starts_host"], np.int32)[first[:-1]]
 
 
 def _rank_select_topk(all_d: torch.Tensor, all_i: torch.Tensor, top_k: int):
@@ -309,26 +285,7 @@ def merge_probe_results(all_d: torch.Tensor, all_i: torch.Tensor, top_k: int,
     probes are distinct clusters)."""
     q_n, w = all_d.shape
     if dedup:
-        if w <= 64:
-            col = torch.arange(w, device=all_d.device)
-            earlier = col[None, :] < col[:, None]
-            dup = (
-                (all_i[:, :, None] == all_i[:, None, :])
-                & earlier[None]
-                & (all_i[:, :, None] >= 0)
-            ).any(dim=2)
-        else:
-            pos_sorted, _ = torch.sort(all_i, dim=1)
-            dup_sorted = torch.cat(
-                [torch.zeros((q_n, 1), dtype=torch.bool, device=all_i.device),
-                 (pos_sorted[:, 1:] == pos_sorted[:, :-1])
-                 & (pos_sorted[:, 1:] >= 0)],
-                dim=1,
-            )
-            rank = torch.argsort(
-                torch.argsort(all_i, dim=1, stable=True), dim=1, stable=True
-            )
-            dup = torch.gather(dup_sorted, 1, rank)
+        dup = repeats_earlier(all_i) & (all_i >= 0)
         all_d = torch.where(dup, float("inf"), all_d)
     if w <= 64:
         return _rank_select_topk(all_d, all_i, top_k)
@@ -404,26 +361,26 @@ def _fused_core(
     queries, centroids_or_probes, corpus_padded, rbin_padded, xx_padded,
     s2o_padded, g_first,
     num_bins: int, nprobe: int, top_k: int, q_blk: int, r_blk: int,
-    chunk: int, w_rank: int, q_pad_rank: int, metric: str,
-    probes_given: bool, rank_rows: tuple = None, g_base: tuple = (0,),
-    dedup: bool = True, combined: bool = False, kernel_ids: bool = False,
-    plain: bool = False,
+    chunk: int, metric: str, probes_given: bool, dedup: bool = True,
+    kernel_ids: bool = False, plain: bool = False,
 ):
     """Binned search on the packed scan (counterpart of
-    ``vers_tpu.ops.binned._pallas_fused_core``): probe, pair each query
-    with its probed bins, bin-sort, build work items, scan, unsort,
-    mask gated ranks and merge. ``plain`` runs the scan's plain version.
+    ``vers_tpu.ops.binned._pallas_fused_core``): probe, sort every
+    (query, rank) pair into one bin ordering, build work items over the
+    one group table ``g_first`` (G+1,), scan, unsort, mask gated ranks
+    and merge. Each corpus group is visited once across all ranks.
+    ``plain`` runs the scan's plain version.
 
-    ``combined=True`` (every probe rank on ONE group table, w_rank sized
-    p*q_pad_rank//q_blk + g_max + 1): all (query, rank) PAIRS sort into
-    one bin ordering, so each corpus group is visited once instead of
-    once per rank.
+    The tile plan follows from the shapes: the p*Q pairs are padded to
+    p runs of Q rows rounded up to ``q_blk``, plus one scratch block
+    where invalid work items park, and the work items are one per
+    stacked block plus one per group and one more.
 
     With ``trace`` on, the stages probe (unless the probes are given),
     sort (pairs, work items), scan (kernel B) and merge (unsort, masks,
     merge) are spans and, on a card, each opens with its marker; the
     marker ``end`` closes the last."""
-    q_n, d = queries.shape
+    q_n = queries.shape[0]
     dev = queries.device
     if probes_given:
         probes = centroids_or_probes.to(torch.int64)
@@ -432,119 +389,51 @@ def _fused_core(
             cdist = pairwise_distance(queries, centroids_or_probes, metric)
             probes = topk_smallest(cdist, nprobe)[1].to(torch.int64)
     p = probes.shape[1]
-    scan_kw = dict(top_k=top_k, q_blk=q_blk, chunk=chunk,
-                   r_chunks=r_blk // chunk, q_pad_rank=q_pad_rank,
-                   metric=metric,
-                   ids_padded=s2o_padded[None, :] if kernel_ids else None)
-
-    if combined and p > 1:
-        row0 = 0 if rank_rows is None else rank_rows[0]
-        pq = p * q_n
-        rows_pad = p * q_pad_rank
-        qb_scratch = rows_pad // q_blk
-        with trace.stage("sort", dev):
-            # rank-major pair index i = r*q_n + q; a stable sort keeps
-            # pairs of one bin in pair order
-            bins_flat = probes.T.reshape(-1)
-            order = torch.argsort(bins_flat, stable=True)
-            qidx = torch.remainder(order, q_n)
-            tail = rows_pad - pq + q_blk  # pad + scratch block
-            q_stack = torch.nn.functional.pad(queries[qidx], (0, 0, 0, tail))
-            qbin_stack = torch.nn.functional.pad(
-                bins_flat[order].to(torch.int32), (0, tail), value=-1
-            )[None, :]
-            counts = bin_counts(bins_flat, num_bins)
-            qb, gb = _workitems_blocks(
-                counts, 0, g_first[row0], q_blk, w_rank, qb_scratch,
-                g_base=g_base[row0],
-            )
-        with trace.stage("scan", dev):
-            res_d, res_i = packed_scan(
-                q_stack.contiguous(), qbin_stack.contiguous(), qb, gb,
-                corpus_padded, rbin_padded, xx_padded, plain=plain, **scan_kw,
-            )
-        with trace.stage("merge", dev):
-            inv = torch.empty_like(order)
-            inv[order] = torch.arange(pq, device=dev)
-            # q-major inverse gather: output row q*p + r is pair (r, q), so
-            # the (p, q, k) -> (q, p*k) transpose is a reshape
-            idx_qm = inv.reshape(p, q_n).T.reshape(-1)
-            dd = res_d[idx_qm]
-            pos = res_i[idx_qm]
-            live = (probes < num_bins).reshape(-1)[:, None]
-            dd = torch.where(live, dd, float("inf"))
-            if kernel_ids:
-                ii = torch.where(live & (pos >= 0), pos, -1)
-            else:
-                ii = torch.where(
-                    live & (pos >= 0),
-                    s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
-                )
-            out = merge_probe_results(dd.reshape(q_n, p * top_k),
-                                      ii.reshape(q_n, p * top_k), top_k,
-                                      dedup=dedup)
-        trace.mark("end", dev)
-        return out
-
-    q_parts, qbin_parts, orders, lives = [], [], [], []
-    qb_parts, gb_parts = [], []
-    qb_scratch = p * q_pad_rank // q_blk
+    pq = p * q_n
+    rows_pad = p * round_up(q_n, q_blk)
     with trace.stage("sort", dev):
-        for r in range(p):
-            bins = probes[:, r]
-            # gated ranks (sentinel bin == num_bins) sort to the tail;
-            # query blocks that are all sentinel get NO work item, so
-            # their output rows are never written: mask every rank by
-            # its gate status
-            lives.append((bins < num_bins)[:, None])
-            order = torch.argsort(bins, stable=True)
-            q_parts.append(torch.nn.functional.pad(
-                queries[order], (0, 0, 0, q_pad_rank - q_n)))
-            qbin_parts.append(torch.nn.functional.pad(
-                bins[order].to(torch.int32), (0, q_pad_rank - q_n), value=-1))
-            orders.append(order)
-            counts = bin_counts(bins, num_bins)
-            row = 0 if rank_rows is None else rank_rows[r]
-            qb_r, gb_r = _workitems_blocks(
-                counts, r * q_pad_rank, g_first[row], q_blk, w_rank,
-                qb_scratch, g_base=g_base[row],
-            )
-            qb_parts.append(qb_r)
-            gb_parts.append(gb_r)
-        # scratch block rows at the tail (invalid work items park there)
-        q_parts.append(torch.zeros((q_blk, d), dtype=queries.dtype,
-                                   device=dev))
-        qbin_parts.append(torch.full((q_blk,), -1, dtype=torch.int32,
-                                     device=dev))
-        q_stack = torch.cat(q_parts).contiguous()
-        qbin_stack = torch.cat(qbin_parts)[None, :]
-        qb, gb = torch.cat(qb_parts), torch.cat(gb_parts)
+        # rank-major pair index i = r*q_n + q; a stable sort keeps
+        # pairs of one bin in pair order
+        bins_flat = probes.T.reshape(-1)
+        order = torch.argsort(bins_flat, stable=True)
+        qidx = torch.remainder(order, q_n)
+        tail = rows_pad - pq + q_blk  # pad + scratch block
+        q_stack = torch.nn.functional.pad(queries[qidx], (0, 0, 0, tail))
+        qbin_stack = torch.nn.functional.pad(
+            bins_flat[order].to(torch.int32), (0, tail), value=-1
+        )[None, :]
+        counts = bin_counts(bins_flat, num_bins)
+        qb, gb = _workitems_blocks(
+            counts, 0, g_first, q_blk, rows_pad // q_blk + g_first.shape[-1],
+            rows_pad // q_blk,
+        )
     with trace.stage("scan", dev):
         res_d, res_i = packed_scan(
-            q_stack, qbin_stack, qb, gb,
-            corpus_padded, rbin_padded, xx_padded, plain=plain, **scan_kw,
+            q_stack.contiguous(), qbin_stack.contiguous(), qb, gb,
+            corpus_padded, rbin_padded, xx_padded, top_k=top_k, q_blk=q_blk,
+            chunk=chunk, r_chunks=r_blk // chunk, metric=metric,
+            ids_padded=s2o_padded[None, :] if kernel_ids else None,
+            plain=plain,
         )
-
-    # per-rank unsort (stride q_pad_rank) + map to original rows + merge
     with trace.stage("merge", dev):
-        out_d, out_i = [], []
-        for r in range(p):
-            seg_d = res_d[r * q_pad_rank : r * q_pad_rank + q_n]
-            seg_i = res_i[r * q_pad_rank : r * q_pad_rank + q_n]
-            inv = torch.empty_like(orders[r])
-            inv[orders[r]] = torch.arange(q_n, device=dev)
-            pos = seg_i[inv]
-            live = lives[r]
-            out_d.append(torch.where(live, seg_d[inv], float("inf")))
-            if kernel_ids:
-                out_i.append(torch.where(live & (pos >= 0), pos, -1))
-            else:
-                out_i.append(torch.where(
-                    live & (pos >= 0),
-                    s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
-                ))
-        out = torch.cat(out_d, dim=1), torch.cat(out_i, dim=1)
-        if p != 1 or out[0].shape[1] != top_k:
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(pq, device=dev)
+        # q-major inverse gather: output row q*p + r is pair (r, q), so
+        # the (p, q, k) -> (q, p*k) transpose is a reshape
+        idx_qm = inv.reshape(p, q_n).T.reshape(-1)
+        dd = res_d[idx_qm]
+        pos = res_i[idx_qm]
+        live = (probes < num_bins).reshape(-1)[:, None]
+        dd = torch.where(live, dd, float("inf"))
+        if kernel_ids:
+            ii = torch.where(live & (pos >= 0), pos, -1)
+        else:
+            ii = torch.where(
+                live & (pos >= 0),
+                s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
+            )
+        out = dd.reshape(q_n, p * top_k), ii.reshape(q_n, p * top_k)
+        if p > 1:
             # a single probe needs no merge: the scan already emits each
             # query's top_k in ascending order with distinct ids
             out = merge_probe_results(*out, top_k, dedup=dedup)
@@ -573,40 +462,35 @@ def binned_topk_kernel(
     engines. ``kernel_ids``: the scan writes original ids instead of
     padded positions. ``plain``: run the scan's plain version."""
     p = nprobe if probes is None else int(probes.shape[1])
-    padded, plan = kernel_plan(layout, queries.shape[0], p, top_k,
-                               q_blk=q_blk, r_blk=r_blk, chunk=chunk)
+    padded, plan = kernel_plan(layout, top_k, q_blk=q_blk, r_blk=r_blk,
+                               chunk=chunk)
     return _fused_core(
         queries,
         centroids if probes is None else probes,
         padded["corpus"], padded["rbin"], padded["xx"], padded["s2o"],
         padded["g_first"],
         num_bins=layout["num_bins"], nprobe=p, top_k=top_k, metric=metric,
-        probes_given=probes is not None,
-        rank_rows=(0,) * p, g_base=padded["g_base"], dedup=dedup,
-        kernel_ids=kernel_ids, plain=plain, **plan,
+        probes_given=probes is not None, dedup=dedup, kernel_ids=kernel_ids,
+        plain=plain, **plan,
     )
 
 
-def kernel_plan(layout: Dict, q_n: int, p: int, top_k: int,
-                q_blk: int | None = None, r_blk: int | None = None,
-                chunk: int | None = None):
-    """The tiles of ``binned_topk_kernel`` for ``q_n`` queries at ``p``
-    probe ranks: (the layout's group-major padded corpus, built on the
-    first call and cached on the layout; the static arguments of
-    ``_fused_core``). Host work only once the padded corpus exists."""
-    if chunk is None:
-        chunk = 1024
-    if r_blk is None:
-        r_blk = max(1024, round_up(layout["max_bin"], chunk))
-    r_blk = round_up(max(r_blk, layout["max_bin"], top_k), chunk)
-    padded = padded_group_layout(layout, r_blk)
-    if q_blk is None:
-        q_blk = 128
-    q_pad_rank = round_up(q_n, q_blk)
-    # one group table for every rank -> the combined (query, rank) pair
-    # sort applies at p > 1: each group visited once across all ranks
-    combined = p > 1
-    blocks = (p * q_pad_rank if combined else q_pad_rank) // q_blk
-    return padded, dict(q_blk=q_blk, r_blk=r_blk, chunk=chunk,
-                        w_rank=blocks + padded["g_max"] + 1,
-                        q_pad_rank=q_pad_rank, combined=combined)
+def group_rows(max_bin: int, top_k: int, chunk: int,
+               r_blk: int | None = None) -> int:
+    """Rows of one corpus group of the packed scan: at least ``r_blk``
+    (1024 when None), the largest bin and top_k, rounded up to whole
+    chunks."""
+    return round_up(max(1024 if r_blk is None else r_blk, max_bin, top_k),
+                    chunk)
+
+
+def kernel_plan(layout: Dict, top_k: int, q_blk: int | None = None,
+                r_blk: int | None = None, chunk: int | None = None):
+    """The tiles of ``binned_topk_kernel``: (the layout's group-major
+    padded corpus, built on the first call and cached on the layout; the
+    tile sizes ``_fused_core`` takes). Host work only once the padded
+    corpus exists."""
+    chunk = 1024 if chunk is None else chunk
+    r_blk = group_rows(layout["max_bin"], top_k, chunk, r_blk)
+    return padded_group_layout(layout, r_blk), dict(
+        q_blk=128 if q_blk is None else q_blk, r_blk=r_blk, chunk=chunk)

@@ -57,41 +57,24 @@ LARGE_K_PLAIN = 0
 
 
 def padded_group_layout(layout: Dict, r_blk: int) -> Dict:
-    """Single-table special case of `padded_forest_layout` (IVF: every
-    probe rank shares one group table over all bins)."""
-    return padded_forest_layout(layout, r_blk, [0, layout["num_bins"]])
-
-
-def padded_forest_layout(layout: Dict, r_blk: int, bounds) -> Dict:
-    """Group-major padded layout for a stacked multi-table layout:
-    per-table group tables over each table's bin range
-    [bounds[t], bounds[t+1]), concatenated into one global group list.
-    Returns the padded arrays plus stacked per-table tables
-    (g_first (T, Gmax+1)) and each table's global group base. Cached on
-    the layout per (r_blk, bounds); a build is the span
+    """Group-major padded layout: the layout's bins packed into groups
+    of <= r_blk rows (``binned.static_groups``), one group table that
+    every probe rank shares. Returns the padded arrays and the table
+    g_first (G+1,). Cached on the layout per r_blk; a build is the span
     ``layout.padded``."""
-    cache = layout.setdefault("_padded_forest", {})
-    key = (r_blk, tuple(int(b) for b in bounds))
-    if key not in cache:
+    cache = layout.setdefault("_padded", {})
+    if r_blk not in cache:
         with trace.span("layout.padded"):
-            cache[key] = _padded_forest(layout, r_blk, key[1])
-    return cache[key]
+            cache[r_blk] = _padded_groups(layout, r_blk)
+    return cache[r_blk]
 
 
-def _padded_forest(layout: Dict, r_blk: int, bounds) -> Dict:
-    """`padded_forest_layout`'s build."""
-    from vers_tpu_torch.ops.binned import stack_group_tables, static_groups
+def _padded_groups(layout: Dict, r_blk: int) -> Dict:
+    """`padded_group_layout`'s build."""
+    from vers_tpu_torch.ops.binned import static_groups
 
-    tables = [
-        static_groups(layout, r_blk, int(bounds[t]), int(bounds[t + 1]))
-        for t in range(len(bounds) - 1)
-    ]
-    g_first_stacked, _ = stack_group_tables(tables)
-    g_base = np.concatenate(
-        [[0], np.cumsum([len(r) for _, r in tables])]
-    ).astype(np.int64)
-    n_groups = int(g_base[-1])
-
+    first, rstart = static_groups(layout, r_blk)
+    n_groups = len(rstart)
     sizes = layout["sizes_host"]
     starts = layout["starts_host"]
     k = len(sizes)
@@ -102,17 +85,14 @@ def _padded_forest(layout: Dict, r_blk: int, bounds) -> Dict:
     # the (n_groups * r_blk,) source-row map is built on the host (group
     # tables are k-sized); the corpus is regrouped with one device gather
     src = np.full((n_groups * r_blk,), -1, np.int64)
-    g = 0
-    for fi, ri in tables:
-        for j in range(len(ri)):
-            lo = int(ri[j])
-            hi_bin = int(fi[j + 1])
-            hi = int(starts[hi_bin]) if hi_bin < k else (
-                int(starts[-1] + sizes[-1]) if k else 0
-            )
-            span = min(hi - lo, r_blk)
-            src[g * r_blk : g * r_blk + span] = np.arange(lo, lo + span)
-            g += 1
+    for g in range(n_groups):
+        lo = int(rstart[g])
+        hi_bin = int(first[g + 1])
+        hi = int(starts[hi_bin]) if hi_bin < k else (
+            int(starts[-1] + sizes[-1]) if k else 0
+        )
+        span = min(hi - lo, r_blk)
+        src[g * r_blk : g * r_blk + span] = np.arange(lo, lo + span)
     srcd = torch.as_tensor(src, device=dev)
     live = srcd >= 0
     safe = torch.clamp(srcd, 0, max(n_src - 1, 0))
@@ -120,27 +100,24 @@ def _padded_forest(layout: Dict, r_blk: int, bounds) -> Dict:
     rb = torch.where(live, layout["rbin"][safe], -1).to(torch.int32)
     so = torch.where(live, layout["sorted_to_orig"][safe], -1).to(torch.int32)
     xx = torch.sum(xp * xp, dim=1)
-    out = dict(
+    return dict(
         corpus=xp,
         rbin=rb[None, :],
         s2o=so,
         xx=xx[None, :],
-        g_first=torch.as_tensor(g_first_stacked, device=dev),
-        g_base=tuple(int(b) for b in g_base[:-1]),
+        g_first=torch.as_tensor(first, device=dev),
         n_groups=n_groups,
-        g_max=max(len(r) for _, r in tables),
+        g_max=n_groups,
         r_blk=r_blk,
     )
-    return out
 
 
 def _workitems_blocks(qcounts, rank_off, g_first, q_blk: int,
-                      w_rank: int, qb_scratch: int, g_base: int = 0):
-    """Block-aligned work items for one probe rank: (qb, gb) int32
-    (w_rank,) tensors. Group g's tiles are the query BLOCKS overlapping
-    its sorted-query span [qlo, qhi); invalid items park on the scratch
-    block. ``g_base`` offsets local group ids into the global padded
-    layout (multi-table case)."""
+                      w_rank: int, qb_scratch: int):
+    """Block-aligned work items over the sorted query rows: (qb, gb)
+    int32 (w_rank,) tensors. Group g's tiles are the query BLOCKS
+    overlapping its sorted-query span [qlo, qhi); invalid items park on
+    the scratch block."""
     dev = qcounts.device
     qcum = torch.cat([
         torch.zeros((1,), dtype=torch.int64, device=dev),
@@ -164,7 +141,7 @@ def _workitems_blocks(qcounts, rank_off, g_first, q_blk: int,
     prev = torch.where(g_c > 0, tcum[torch.clamp_min(g_c - 1, 0)], 0)
     valid = w < total
     qb = torch.where(valid, b0[g_c] + (w - prev), qb_scratch)
-    gb = torch.where(valid, g_base + g_c, 0)
+    gb = torch.where(valid, g_c, 0)
     return qb.to(torch.int32), gb.to(torch.int32)
 
 
@@ -180,7 +157,6 @@ def packed_scan_plain(
     q_blk: int,
     chunk: int,
     r_chunks: int,
-    q_pad_rank: int,
     metric: str = "sq_euclidean",
     ids_padded=None,  # optional (1, G * r_blk) int32 original row ids
 ):
@@ -190,8 +166,7 @@ def packed_scan_plain(
     set; each chunk merges into it with the carried entries winning
     ties, then the lower column. Returns (res_d, res_i) over the stacked
     rows; ids are padded-corpus positions unless ``ids_padded`` is
-    given. Rows no run writes stay (+inf, -1). ``q_pad_rank`` is
-    accepted for signature parity and unused, as in the kernel."""
+    given. Rows no run writes stay (+inf, -1)."""
     n_rows = q_stack.shape[0]
     dev = q_stack.device
     r_blk = chunk * r_chunks
@@ -385,7 +360,7 @@ def packed_scan_work(qbin_stack, qb, gb, rbin_padded, q_blk: int, r_blk: int,
 
 def packed_scan_tiled_plain(
     q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded, xx_padded,
-    top_k: int, q_blk: int, chunk: int, r_chunks: int, q_pad_rank: int,
+    top_k: int, q_blk: int, chunk: int, r_chunks: int,
     metric: str = "sq_euclidean", ids_padded=None, split: bool = False,
 ):
     """Kernel B's walk in plain torch, for the tests: each unit of
@@ -500,7 +475,7 @@ def check_work_items(qb, gb, n_rows: int, q_blk: int, n_corpus: int,
 
 def cuda_packed_scan(
     q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded, xx_padded,
-    top_k: int, q_blk: int, chunk: int, r_chunks: int, q_pad_rank: int,
+    top_k: int, q_blk: int, chunk: int, r_chunks: int,
     metric: str = "sq_euclidean", ids_padded=None,
 ):
     """Kernel B with ``pallas_packed_scan``'s signature (less
@@ -515,7 +490,7 @@ def cuda_packed_scan(
     if not q_stack.is_cuda:
         return packed_scan_plain(
             q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
-            xx_padded, top_k, q_blk, chunk, r_chunks, q_pad_rank,
+            xx_padded, top_k, q_blk, chunk, r_chunks,
             metric=metric, ids_padded=ids_padded,
         )
     return _launch(q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
@@ -525,7 +500,7 @@ def cuda_packed_scan(
 
 def cuda_packed_scan_walk(
     q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded, xx_padded,
-    top_k: int, q_blk: int, chunk: int, r_chunks: int, q_pad_rank: int,
+    top_k: int, q_blk: int, chunk: int, r_chunks: int,
     metric: str = "sq_euclidean", ids_padded=None, split=None,
 ):
     """Kernel B reporting its walk: (res_d, res_i, walked), walked
@@ -542,7 +517,7 @@ def cuda_packed_scan_walk(
     if not q_stack.is_cuda:
         out = packed_scan_plain(
             q_stack, qbin_stack, qb, gb, corpus_padded, rbin_padded,
-            xx_padded, top_k, q_blk, chunk, r_chunks, q_pad_rank,
+            xx_padded, top_k, q_blk, chunk, r_chunks,
             metric=metric, ids_padded=ids_padded)
         units = packed_scan_units(qbin_stack, qb, gb, rbin_padded, q_blk,
                                   chunk * r_chunks, bool(split))

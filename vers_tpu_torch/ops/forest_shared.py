@@ -31,23 +31,11 @@ import torch
 
 from vers_tpu_torch.core import round_up
 from vers_tpu_torch.ops import rpforest
-from vers_tpu_torch.ops.binned import _fused_core, merge_probe_results
-
-
-def pack_bins(sizes: np.ndarray, r_blk: int) -> np.ndarray:
-    """Greedy pack consecutive whole bins into groups of <= r_blk rows
-    (same rule as `ops/binned.static_groups`, local-bin form). Returns
-    (G+1,) int64 LOCAL bin boundaries; bins larger than r_blk get a
-    group of their own (callers size r_blk >= max_bin)."""
-    first = [0]
-    used = 0
-    for c, s in enumerate(sizes):
-        if used and used + int(s) > r_blk:
-            first.append(c)
-            used = 0
-        used += int(s)
-    first.append(len(sizes))
-    return np.asarray(first, np.int64)
+from vers_tpu_torch.ops.binned import (
+    _fused_core,
+    merge_probe_results,
+    pack_bins,
+)
 
 
 def shared_tree_tables(
@@ -160,8 +148,6 @@ def forest_search_shared(
     q_blk: int,
     r_blk: int,
     chunk: int,
-    w_rank: int,
-    q_pad_rank: int,
     deficit_k: int = 0,
     kernel_ids: bool = True,
     plain: bool = False,
@@ -199,16 +185,12 @@ def forest_search_shared(
         torch.index_select(xx, 0, rows, out=xx_view)
         td, ti = _fused_core(
             queries, probes[:, t], view, rbin_pad[t][None, :],
-            xx_view[None, :], src[t], g_first[t][None, :],
+            xx_view[None, :], src[t], g_first[t],
             num_bins=num_bins, nprobe=n_probes, top_k=top_k,
-            q_blk=q_blk, r_blk=r_blk, chunk=chunk, w_rank=w_rank,
-            q_pad_rank=q_pad_rank, metric="sq_euclidean",
-            probes_given=True, rank_rows=(0,) * n_probes, g_base=(0,),
-            # one group table per tree -> combined pair sort at p > 1
-            # (callers size w_rank for it); trees overlap and a query can
-            # probe one leaf twice: keep dedup
-            dedup=True, combined=n_probes > 1, kernel_ids=kernel_ids,
-            plain=plain,
+            q_blk=q_blk, r_blk=r_blk, chunk=chunk, metric="sq_euclidean",
+            probes_given=True,
+            # trees overlap and a query can probe one leaf twice: keep dedup
+            dedup=True, kernel_ids=kernel_ids, plain=plain,
         )
         bd, bi = merge_probe_results(
             torch.cat([bd, td], dim=1),

@@ -248,7 +248,7 @@ def descend_forest_flat(queries, coeff_flat, const_flat, cbase, splits,
     L levels and all flipped probes in a second.
 
     cbase (T, L) int32, splits/buckets (T, L, SC) int32, offsets (T,)
-    shift each tree's bucket ids into the combined bin space. Probe 0
+    shift each tree's bucket ids into one bin space across trees. Probe 0
     of a tree is the main leaf; probe j flips the split decision with
     the j-th smallest |projection| margin (classic multiprobe — recovers
     the recall the reference's backup-branch rule provides,

@@ -12,6 +12,8 @@ the products as the TPU's settings do (``product_operands``).
 ``topk_values_stream_plain`` (kernel C's key and its
 threshold-and-buffer walk) serve the tests likewise.
 ``approx_scan_topk`` is the flat index's ``engine="approx"``.
+``repeats_earlier`` is the id-dedup mask of the graph beam and the
+binned merge.
 """
 
 from __future__ import annotations
@@ -31,6 +33,16 @@ def topk_smallest(dist: torch.Tensor, k: int):
         return torch.gather(dist, -1, idx), idx
     vals, idx = torch.sort(dist, dim=-1, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def repeats_earlier(ids: torch.Tensor) -> torch.Tensor:
+    """(Q, m) bool: True where the same id stands at a lower column of
+    its row (the JAX package's ``ncol < nrow`` mask), by a stable sort
+    instead of the (Q, m, m) comparison."""
+    s, order = torch.sort(ids, dim=1, stable=True)
+    rep = torch.zeros_like(s, dtype=torch.bool)
+    rep[:, 1:] = s[:, 1:] == s[:, :-1]
+    return torch.zeros_like(rep).scatter_(1, order, rep)
 
 
 PRECISIONS = ("highest", "high", "default")

@@ -240,7 +240,7 @@ class ShardedIVFFlatIndex(Index):
         probes = probes.to(torch.int32)
         for layout in state["layouts"]:
             if layout is not None:  # its padded corpus, before any graph
-                kernel_plan(layout, q_n, nprobe, top_k)
+                kernel_plan(layout, top_k)
 
         def body(s, dev, layout):
             if layout is None:

@@ -18,8 +18,8 @@ different trees must be deduplicated before ranking. Splitting the
 queries keeps the dedup on each shard.
 
 The query count is padded to a multiple of 64 rows a shard, the port's
-query block (``index/lsh.Q_BLK``), and each shard's tiles are planned
-for its own count (``ANNIndex._shared_plan``). A shard on another
+query block (``index/lsh.Q_BLK``), and each shard's scans plan their
+tiles for its own count (``ops/binned._fused_core``). A shard on another
 device than the wrapped index searches a copy of its device state there,
 made by the caller before the shards start.
 """
@@ -131,12 +131,12 @@ class ShardedANNIndex:
         engine = base.config.engine
         if engine not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown engine {engine!r}")
-        # per-shard blocks of whole query tiles: the plan below is built
+        # per-shard blocks of whole query tiles: each shard's scans plan
         # for the PER-SHARD count
         q_pad = -(-q_n // (Q_BLK * n_shards)) * (Q_BLK * n_shards)
         q = torch.nn.functional.pad(q, (0, 0, 0, q_pad - q_n))
         q_local = q_pad // n_shards
-        sh, plan = base._shared_plan(q_local, top_k, n_probes)
+        sh, plan = base._shared_plan(top_k)
         # the replicas, copied here so that no two shards copy one state
         states = [self._state_on(sh, dev) for dev in self.mesh.devices]
 

@@ -23,7 +23,7 @@ The JAX package pads every shard's tables to common shapes (r_blk,
 G_max, num_bins) so that one compiled program serves all shards, and
 keeps a tree-sorted layout for its XLA engine. Without a compiler
 neither is needed: each shard's tiles are planned for its own tables
-(``ANNIndex._shared_plan``), which changes no result (each scan is the
+(``ANNIndex._shared_plan`` and ``ops/binned._fused_core``), which changes no result (each scan is the
 exact top-k of the probed leaves), and the plain engine runs on the same
 layout. The probe depth is the one all shards share: the largest of
 their ``_auto_probes``, as in the JAX package.
@@ -154,7 +154,7 @@ class PartitionedANNIndex(PartitionedIndexBase):
             engine = shard.config.engine
             if engine not in ("auto", "pallas", "xla"):
                 raise ValueError(f"unknown engine {engine!r}")
-            sh, plan = shard._shared_plan(q.shape[0], top_k, n_probes)
+            sh, plan = shard._shared_plan(top_k)
             plain = engine == "xla"
 
             def search(qs):
