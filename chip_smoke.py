@@ -182,6 +182,14 @@ bit-identical; and on the scan-routed build's last upper-layer scan
 (k = 100 over layer 1's built members) and last seed scan (k = 1), the
 same route: tie-aware, distances within 1e-4, a repeat call
 bit-identical, each timed beside its plain version and its bound.
+Kernel F (``rank_merge``, the binned search's cross-probe merge) is held
+on the merges of the sweep's nprobe > 1 searches and of the adaptive
+nprobe=0 (the benchmark's adaptive cell: 16384 queries at the walk's
+depth), captured as they pass, against ``rank_merge_plain`` on the card
+bit for bit, a repeat call bit-identical, timed beside it and beside its
+bound (the probe flags, each live rank's inverse entry and row, the
+result); its launches are counted by phase, and the forest's phase
+launches none (its trees overlap: the dedup merge).
 Kernel E (``beam_step``, the inline beam's step) is held on the captured
 steps as ``hold_beam_step`` says, and its ``ms`` and ``plain_ms`` are a
 step's, with two bounds: from the rows the steps load (the picked
@@ -555,6 +563,62 @@ def captured_route_scan(shard=None):
             yield captured
     finally:
         beam.route_scan = real
+
+
+@contextlib.contextmanager
+def captured_merges():
+    """Record every merge by kernel F (``cuda_binned.cuda_rank_merge``)
+    that searches inside the block make, as its arguments; every call
+    goes through unchanged, eagerly (``graphs.disabled``)."""
+    from vers_tpu_torch import graphs
+    from vers_tpu_torch.ops import binned
+
+    captured = []
+    real = binned.cuda_rank_merge
+
+    def capturing(*args):
+        captured.append(args)
+        return real(*args)
+
+    binned.cuda_rank_merge = capturing
+    try:
+        with graphs.disabled():
+            yield captured
+    finally:
+        binned.cuda_rank_merge = real
+
+
+def hold_rank_merge(torch, args, label):
+    """Kernel F against its plain version on one captured merge, both on
+    the card: ids and distances bit for bit, a repeat call bit-identical;
+    its time beside the plain version's and its bound from these inputs
+    (the probe flags, each live rank's inverse entry and row, the
+    result). Returns the merge's row for the ``kernels`` line."""
+    from vers_tpu_torch.ops import cuda_binned
+    from vers_tpu_torch.utils import roofline
+
+    probes, num_bins, top_k = args[3], args[5], args[6]
+    kf = cuda_binned.cuda_rank_merge(*args)
+    for got in (cuda_binned.cuda_rank_merge(*args),
+                cuda_binned.rank_merge_plain(*args)):
+        assert torch.equal(got[1], kf[1]), label
+        assert torch.equal(got[0].view(torch.int32),
+                           kf[0].view(torch.int32)), label
+    q_n, p = probes.shape
+    live = int((probes < num_bins).sum())
+    short = int((kf[1] < 0).any(dim=1).sum())
+    del kf
+    ms = cuda_ms(torch, lambda: cuda_binned.cuda_rank_merge(*args), reps=20)
+    plain = cuda_ms(torch, lambda: cuda_binned.rank_merge_plain(*args), reps=3)
+    bound = roofline.rank_merge_bound(q_n, p, live, top_k)
+    log(f"kernel F vs plain, {label} (Q={q_n}, p={p} ranks, {live} live "
+        f"(query, rank) pairs, k={top_k}): bit-identical, {short} queries "
+        f"with < {top_k} results; {ms:.4f} ms vs {plain:.3f} ms; bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+        f"{bound['bytes']:.3g} bytes), {bound['bound_ms'] / ms:.1%} of it")
+    return dict(queries=q_n, ranks=p, live_pairs=live, k=top_k,
+                max_abs_err=0.0, ms=ms, plain_ms=plain,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
 def hold_kernel_a(torch, q, corpus, n, k, label, metric="sq_euclidean",
@@ -2152,6 +2216,7 @@ def main():
     # -- the main path, counted --------------------------------------
     cuda_topk.LAUNCHES_BY_ROUTE.clear()
     cuda_binned.LAUNCHES = cuda_binned.LAUNCHES_SPLIT = 0
+    cuda_binned.LAUNCHES_MERGE = 0
 
     flat = vt.FlatIndex(x)
     assert flat.device == dev, flat.device
@@ -2217,10 +2282,13 @@ def main():
 
     operating = None
     scans = {}  # nprobe -> the packed-scan arguments of that search
+    merges = {}  # nprobe -> kernel F's arguments (nprobe > 1)
     for nprobe in (1, 2, 4, 8):
-        with binned.captured_scans() as calls:
+        with binned.captured_scans() as calls, captured_merges() as merged:
             res = ivf.search_batch(qd, TOP_K, nprobe=nprobe)
         scans[nprobe] = calls
+        if nprobe > 1:
+            merges[nprobe] = merged
         # a probed cluster can hold fewer than TOP_K rows (k-means leaves
         # some clusters empty): such slots are (+inf, -1)
         assert res.ids.shape == (N_QUERIES, TOP_K)
@@ -2236,9 +2304,9 @@ def main():
             break
     assert operating is not None, f"recall@10 < {TARGET_RECALL} at nprobe <= 8"
 
-    with binned.captured_scans() as calls:
+    with binned.captured_scans() as calls, captured_merges() as merged:
         res0 = ivf.search_batch(qd, TOP_K, nprobe=0)
-    scans[0] = calls
+    scans[0], merges[0] = calls, merged
     # online retrieval's batch: host queries in, kernel B's split walk
     with binned.captured_scans() as small_scan:
         res_small = ivf.search_batch(q[:SMALL_QUERIES], TOP_K, nprobe=2)
@@ -2302,7 +2370,8 @@ def main():
 
     launches = {"distance_topk": cuda_topk.launches(),
                 "packed_scan": cuda_binned.LAUNCHES,
-                "packed_scan_split": cuda_binned.LAUNCHES_SPLIT}
+                "packed_scan_split": cuda_binned.LAUNCHES_SPLIT,
+                "rank_merge": cuda_binned.LAUNCHES_MERGE}
     main_routes = dict(cuda_topk.LAUNCHES_BY_ROUTE)
     log(f"kernel launches on the main path: {launches}, kernel A by route "
         f"{main_routes}")
@@ -2311,12 +2380,15 @@ def main():
 
     # -- the forest, kernel B's second caller, counted on its own -----
     cuda_binned.LAUNCHES_SPLIT = 0
+    merges_before = cuda_binned.LAUNCHES_MERGE
     forest_rows, forest_scans, forest_launches, forest = forest_phase(
         torch, vt, x, q, qd, truth.ids, dev)
     forest_split = cuda_binned.LAUNCHES_SPLIT
     log(f"kernel B launches in the forest phase: {forest_launches}, "
         f"{forest_split} of them on the split walk")
     assert forest_launches > 0
+    # the trees overlap: the dedup merge, never kernel F
+    assert cuda_binned.LAUNCHES_MERGE == merges_before
     torch.cuda.empty_cache()
 
     # -- HNSW, kernel A's second caller, counted on its own -----------
@@ -2331,6 +2403,7 @@ def main():
     cuda_topk.LAUNCHES_VALUES = 0
     cuda_topk.LAUNCHES_BY_ROUTE.clear()
     cuda_binned.LAUNCHES = cuda_binned.LAUNCHES_SPLIT = 0
+    cuda_binned.LAUNCHES_MERGE = 0
     cuda_bucket.LAUNCHES = 0
     beam_inline.LAUNCHES = beam_inline.LAUNCHES_PLAIN = 0
     parallel_rows, held = parallel_phase(
@@ -2339,6 +2412,7 @@ def main():
     parallel_launches = {"distance_topk": cuda_topk.launches(),
                          "packed_scan": cuda_binned.LAUNCHES,
                          "packed_scan_split": cuda_binned.LAUNCHES_SPLIT,
+                         "rank_merge": cuda_binned.LAUNCHES_MERGE,
                          "topk_values": cuda_topk.LAUNCHES_VALUES,
                          "bucket_scan": cuda_bucket.LAUNCHES,
                          "beam_step": beam_inline.LAUNCHES,
@@ -2349,7 +2423,8 @@ def main():
     assert set(parallel_routes) == {"f32/highest", "bf16/default"}, \
         parallel_routes
     assert all(parallel_launches[k] > 0 for k in
-               ("distance_topk", "packed_scan", "topk_values")), parallel_launches
+               ("distance_topk", "packed_scan", "rank_merge", "topk_values")), \
+        parallel_launches
     assert parallel_launches["bucket_scan"] == 0  # no caller in parallel/
     del forest, hnsw_index, qd2
     torch.cuda.empty_cache()
@@ -2525,6 +2600,14 @@ def main():
         mirror=True)
     assert small_row["walk"] == "split", small_row
     del small_scan, small_args
+    # kernel F on the merges of the sweep's nprobe > 1 and the adaptive
+    # walk (the benchmark's adaptive cell: the walk's depth, 16384 queries)
+    f_rows = {}
+    for nprobe, merged in merges.items():
+        assert len(merged) == 1, (nprobe, len(merged))
+        f_rows[nprobe] = hold_rank_merge(
+            torch, merged[0], f"main-path merge of nprobe={nprobe}")
+    del merges
 
     bound_a = roofline.distance_topk_bound(N_QUERIES, N, DIM, TOP_K)
     by_route = {"flat": main_routes, "hnsw": hnsw_rows["launches_by_route"],
@@ -2609,6 +2692,19 @@ def main():
          "by_forest_scan": forest_scans,
          "forest": forest_rows, "parallel_scans": shard_b,
          "ivf_graphs": ivf_graphs},
+        {"name": "rank_merge", "route": "cuda",
+         "source": "vers_tpu_torch/csrc/rank_merge.cu",
+         "replaces": None,  # the JAX package's merge is plain jnp
+         "launches": launches["rank_merge"] + parallel_launches["rank_merge"],
+         "launches_by_phase": {"ivf": launches["rank_merge"], "forest": 0,
+                               "parallel": parallel_launches["rank_merge"]},
+         "max_abs_err": 0.0,
+         "ms": f_rows[0]["ms"], "plain_ms": f_rows[0]["plain_ms"],
+         "bound_ms": f_rows[0]["bound_ms"], "bound_by": f_rows[0]["bound_by"],
+         "library_ms": None,
+         "shape": f"Q={N_QUERIES} p={f_rows[0]['ranks']} k={TOP_K}: the "
+                  f"adaptive walk's merge",
+         "by_nprobe": f_rows},
         {"name": "topk_values", "route": "cuda",
          "source": "vers_tpu_torch/csrc/topk_values.cu",
          "replaces": "vers_tpu/ops/pallas_topk.py:230",

@@ -4,7 +4,9 @@ version against vers_tpu on identical inputs.
 The JAX packed-scan kernel runs in interpret mode, as in
 tests/test_fused_binned.py, at the same shapes (q_blk=64, r_blk=256,
 chunk=128). Layout and work-item arrays must be equal; scan results are
-compared tie-aware with distances to rtol 1e-4 / atol 1e-5.
+compared tie-aware with distances to rtol 1e-4 / atol 1e-5. The merge
+stage's plain version (``rank_merge_plain``) is held bit for bit to the
+code it replaced and to kernel F's key order.
 """
 
 import jax.numpy as jnp
@@ -316,3 +318,144 @@ def test_fused_core_plans_the_callers_tiles(index, p):
         assert kw["q_blk"] == q_blk
         assert args[0].shape[0] == p * q_pad_rank + q_blk
         assert args[2].shape == args[3].shape == (w_rank,)
+
+
+def _merge_stage_before_kernel_f(res_d, res_i, inv, probes, s2o_padded,
+                                 num_bins, top_k, kernel_ids, dedup):
+    """``_fused_core``'s merge stage as it stood before kernel F, from
+    the inverse pair order on, kept verbatim as the reference of
+    ``rank_merge_plain``."""
+    q_n, p = probes.shape
+    idx_qm = inv.reshape(p, q_n).T.reshape(-1)
+    dd = res_d[idx_qm]
+    pos = res_i[idx_qm]
+    live = (probes < num_bins).reshape(-1)[:, None]
+    dd = torch.where(live, dd, float("inf"))
+    if kernel_ids:
+        ii = torch.where(live & (pos >= 0), pos, -1)
+    else:
+        ii = torch.where(
+            live & (pos >= 0),
+            s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
+        )
+    out = dd.reshape(q_n, p * top_k), ii.reshape(q_n, p * top_k)
+    if p > 1:
+        out = tb.merge_probe_results(*out, top_k, dedup=dedup)
+    return out
+
+
+def _bitwise(got, want):
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+
+
+@pytest.mark.parametrize("index,p", [("ivf", 1), ("ivf", 2), ("ivf", 263),
+                                     ("forest", 1), ("forest", 3)])
+def test_fused_core_merge_unchanged_by_the_move(monkeypatch, index, p):
+    """On the CPU ``_fused_core`` merges with ``rank_merge_plain``, whose
+    results are the merge stage's as it stood before kernel F, bit for
+    bit, on the scans of IVF searches (p 1, 2, and 263 adaptive-style
+    ranks, gated as a suffix and anywhere) and of the forest (1 and 3
+    probes a tree, dedup on)."""
+    from vers_tpu_torch.index.lsh import ANNIndex
+    from vers_tpu_torch.ops import forest_shared
+
+    merges, cores = [], []
+    merge = tb.rank_merge_plain
+
+    def record_merge(*args, **kw):
+        out = merge(*args, **kw)
+        merges.append((args, kw, out))
+        return out
+
+    def recording(core):
+        def run(*args, **kw):
+            out = core(*args, **kw)
+            cores.append(out)
+            return out
+        return run
+
+    monkeypatch.setattr(tb, "rank_merge_plain", record_merge)
+    monkeypatch.setattr(tb, "_fused_core", recording(tb._fused_core))
+    monkeypatch.setattr(forest_shared, "_fused_core",
+                        recording(forest_shared._fused_core))
+    rng = np.random.default_rng(p)
+    q_n = 40
+    q = torch.from_numpy(rng.normal(size=(q_n, 8)).astype(np.float32))
+    if index == "ivf":
+        x, bins, _ = _data(3000, 8, 300, True)
+        layout = tb.make_layout(x, bins, 300)
+        cents = torch.from_numpy(rng.normal(size=(300, 8)).astype(np.float32))
+        for kernel_ids in (True, False):
+            if p < 263:
+                tb.binned_topk_kernel(q, cents, p, layout, top_k=10,
+                                      dedup=False, kernel_ids=kernel_ids)
+                continue
+            probes = tb.adaptive_probes(q, cents, layout["size"], 300, p, 10)
+            scattered = probes.clone()
+            scattered[:, ::3] = 300  # gated ranks that are not a suffix
+            for pr in (probes, scattered):
+                tb.binned_topk_kernel(q, None, p, layout, top_k=10,
+                                      probes=pr, dedup=False,
+                                      kernel_ids=kernel_ids)
+    else:
+        x = rng.normal(size=(3000, 8)).astype(np.float32)
+        idx = ANNIndex.build_index(2, 40, x, np.arange(3000), device="cpu")
+        idx._search_batch_internal(q, 10, probes_per_tree=p)
+    assert len(merges) == len(cores) and len(cores) >= 2
+    for (args, kw, out), core_out in zip(merges, cores):
+        assert kw["dedup"] == (index == "forest")
+        assert args[3].shape[1] == p
+        _bitwise(core_out, out)
+        _bitwise(out, _merge_stage_before_kernel_f(*args, **kw))
+
+
+@pytest.mark.parametrize("suffix", [False, True])
+@pytest.mark.parametrize("kernel_ids", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 32, 100, 128])
+@pytest.mark.parametrize("q_n,p", [(37, 2), (13, 263)])
+def test_rank_merge_plain_is_kernel_f_key_order(q_n, p, k, kernel_ids, suffix):
+    """Kernel F's rule, held to the plain merge on the CPU: each query's
+    answer is its live ranks' finite entries in the order of kernel C's
+    64-bit key (value, -0.0 as +0.0, then the column r*k + j), the first
+    k, padded with (+inf, -1); distances keep their bits, ids come from
+    kernel B's ids or through ``s2o``, -1 where negative."""
+    from vers_tpu_torch.ops.topk import ordered_value_keys
+    from vers_tpu_torch.utils.data import rank_merge_inputs
+
+    res_d, res_i, inv, probes, s2o, num_bins = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+        for a in rank_merge_inputs(q_n, p, k, seed=k + p, suffix=suffix))
+    got = tpb.rank_merge_plain(res_d, res_i, inv, probes, s2o, num_bins, k,
+                               kernel_ids)
+    rows = inv.reshape(p, q_n).T                       # (q, r)
+    d = res_d[rows].reshape(q_n, p * k)
+    pos = res_i[rows].reshape(q_n, p * k)
+    ids = torch.where(pos >= 0, pos if kernel_ids
+                      else s2o[torch.clamp_min(pos, 0).long()], -1)
+    live = (probes < num_bins).repeat_interleave(k, dim=1)
+    keys = ordered_value_keys(d)
+    last = torch.iinfo(torch.int64).max
+    keys = torch.where(live & torch.isfinite(d), keys, last)
+    order = torch.argsort(keys, dim=1, stable=True)[:, :k]
+    kept = torch.gather(live & torch.isfinite(d), 1, order)
+    want_d = torch.where(kept, torch.gather(d, 1, order), float("inf"))
+    want_i = torch.where(kept, torch.gather(ids, 1, order), -1).to(torch.int32)
+    assert not kept[1].any()  # query 1 has no live rank
+    assert kept.all(dim=1).any() and (~kept).any()  # full and short rows
+    _bitwise(got, (want_d, want_i))
+
+
+def test_rank_merge_wrapper_checks_inputs():
+    """``cuda_rank_merge`` takes the plain version for CPU tensors; its
+    checks reject what the kernel does not take."""
+    from vers_tpu_torch.utils.data import rank_merge_inputs
+
+    arrays = rank_merge_inputs(9, 3, 10)
+    res_d, res_i, inv, probes, s2o = map(torch.from_numpy, arrays[:5])
+    args = (res_d, res_i, inv, probes, s2o, arrays[5], 10)
+    before = tpb.LAUNCHES_MERGE
+    _bitwise(tpb.cuda_rank_merge(*args), tpb.rank_merge_plain(*args))
+    assert tpb.LAUNCHES_MERGE == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tpb._check_merge_inputs(res_d, res_i, inv, probes, s2o, 10, False)

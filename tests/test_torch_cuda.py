@@ -17,6 +17,10 @@ tiles, cosine, ids on and off, exact ties, repeat calls bit-identical;
 every shape under each of its two walks, forced, the split walk and
 the run walk bit for bit, each walk's report against its host mirror;
 the two walks also at Q = 1, 64 and 1024 over empty lists),
+kernel F (the cross-probe merge) against its plain version bit for bit
+on adversarial merges (k = 1 to 128, Q off the 8-query block, p = 2 and
+263, gated ranks as a suffix and anywhere, -0.0 beside +0.0) and in IVF
+searches at nprobe 0 and 2, with no launch in the forest's searches,
 and the RP-forest: its build on the card, its search with kernel B
 against the plain engine on both sides of the plan limit, the duplicate
 mask where a query probes one leaf twice, the descent against the CPU's,
@@ -450,6 +454,106 @@ def test_binned_search_gated_ranks(cuda):
     _check(binned.binned_topk_kernel(q, None, 2, layout, probes=mixed, **kw),
            binned.binned_topk_kernel(q, None, 2, layout, probes=mixed,
                                      plain=True, **kw))
+
+
+def _merge_inputs(q_n, p, k, suffix, seed=0):
+    """``rank_merge_inputs`` as CPU tensors, with num_bins."""
+    from vers_tpu_torch.utils.data import rank_merge_inputs
+
+    *arrays, num_bins = rank_merge_inputs(q_n, p, k, seed=seed, suffix=suffix)
+    return [torch.from_numpy(a) for a in arrays], num_bins
+
+
+@pytest.mark.parametrize("kernel_ids", [False, True])
+@pytest.mark.parametrize("k", [1, 10, 32, 100, cuda_topk.MAX_K])
+@pytest.mark.parametrize("q_n,p,suffix", [
+    (37, 2, False), (1, 2, True),      # Q off the 8-query block; one query
+    (70, 263, True), (13, 263, False),  # the adaptive depth: gated suffix,
+])                                       # gated ranks anywhere
+def test_rank_merge_kernel_matches_plain(cuda, kernel_ids, k, q_n, p, suffix):
+    """Kernel F against ``rank_merge_plain`` bit for bit: ties within a
+    row and across ranks, -0.0 beside +0.0, rows with fewer than k
+    finite entries, empty lists, gated ranks whose rows would win if
+    read, a query with every rank live and one with none; a repeat call
+    bit-identical; the probe table a slice of wider rows. The plain
+    merge runs on the CPU (the rule's own order)."""
+    cpu, num_bins = _merge_inputs(q_n, p, k, suffix, seed=k)
+    dev = [t.to(cuda) for t in cpu]
+    # probe rows apart, as the probe stage's slice of a wider sort
+    dev[3] = torch.cat([dev[3], dev[3][:, :3]], dim=1)[:, :p]
+    before = cuda_binned.LAUNCHES_MERGE
+    got = cuda_binned.cuda_rank_merge(*dev, num_bins, k, kernel_ids)
+    torch.cuda.synchronize()
+    assert cuda_binned.LAUNCHES_MERGE == before + 1
+    assert got[0].is_cuda and got[1].dtype == torch.int32
+    want = cuda_binned.rank_merge_plain(*cpu, num_bins, k, kernel_ids)
+    _bitwise((got[0].cpu(), got[1].cpu()), want)
+    again = cuda_binned.cuda_rank_merge(*dev, num_bins, k, kernel_ids)
+    _bitwise(again, got)
+
+
+def test_rank_merge_kernel_rejects_bad_inputs(cuda):
+    (res_d, res_i, inv, probes, s2o), num_bins = _merge_inputs(9, 3, 10, True)
+    args = [t.to(cuda) for t in (res_d, res_i, inv, probes, s2o)]
+    merge = cuda_binned.cuda_rank_merge
+    with pytest.raises(TypeError):
+        merge(args[0], args[1], args[2], args[3].int(), args[4], num_bins, 10)
+    with pytest.raises(ValueError, match="CUDA"):
+        merge(args[0], args[1], inv, *args[3:], num_bins, 10)
+    with pytest.raises(ValueError, match="top_k"):
+        merge(*args, num_bins, cuda_topk.MAX_K + 1)
+    with pytest.raises(ValueError, match="rows"):
+        merge(args[0][:, :5].contiguous(), args[1][:, :5].contiguous(),
+              *args[2:], num_bins, 10)
+    with pytest.raises(ValueError, match="inv"):
+        merge(args[0], args[1], args[2][:-1], *args[3:], num_bins, 10)
+    with pytest.raises(ValueError, match="contiguous"):
+        merge(args[0], args[1], args[2], args[3].T.contiguous().T, args[4],
+              num_bins, 10)
+
+
+def test_ivf_search_merges_on_kernel_f(cuda, monkeypatch):
+    """IVF searches at nprobe 0 (the adaptive depth, several ranks on an
+    index of short and empty lists) and 2 merge with one launch of
+    kernel F each, equal bit for bit to the same searches with the plain
+    merge in its place."""
+    import vers_tpu_torch as vt
+    from vers_tpu_torch import graphs
+
+    x, q = _clustered()
+    ivf = vt.IVFFlatIndex.build_index(400, 2, 10, x, device=cuda)
+    layout = ivf._ensure_layout()
+    assert binned.adaptive_probe_depth(layout["sizes_host"], 10) > 1
+    qd = torch.from_numpy(q).to(cuda)
+    with graphs.disabled():
+        for nprobe in (0, 2):
+            before = cuda_binned.LAUNCHES_MERGE
+            got = ivf.search_batch_device(qd, 10, nprobe)
+            torch.cuda.synchronize()
+            assert cuda_binned.LAUNCHES_MERGE == before + 1
+            with monkeypatch.context() as m:
+                m.setattr(binned, "cuda_rank_merge",
+                          lambda *a: cuda_binned.rank_merge_plain(*a))
+                want = ivf.search_batch_device(qd, 10, nprobe)
+            assert cuda_binned.LAUNCHES_MERGE == before + 1
+            _bitwise(got, want)
+            assert (got[1] >= 0).any()
+        before = cuda_binned.LAUNCHES_MERGE
+        ivf.search_batch_device(qd, 10, 1)  # one rank: no merge
+        assert cuda_binned.LAUNCHES_MERGE == before
+
+
+def test_forest_search_leaves_kernel_f_alone(cuda):
+    """The forest's trees overlap: its scans keep the dedup merge, and
+    kernel F's counter does not move over its searches."""
+    idx, _, q = _forest_on(cuda, 20_000, 48, 40, trees=2)
+    qd = torch.from_numpy(q).to(cuda)
+    before = (cuda_binned.LAUNCHES, cuda_binned.LAUNCHES_MERGE)
+    for probes in (None, 1, 3):
+        idx.search_batch_device(qd, 10, probes)
+    torch.cuda.synchronize()
+    assert cuda_binned.LAUNCHES > before[0]
+    assert cuda_binned.LAUNCHES_MERGE == before[1]
 
 
 def _clustered(seed=3):
@@ -1770,9 +1874,10 @@ def test_graph_replays_count_their_launches(graph_indexes, hnsw_card):
             assert counter() == before + per
     site = ix["ivf"]._graphs.sites()[-1]
     (g,) = site.graphs.values()
-    # 64 queries: the split walk (``cuda_binned.split_walk``)
-    assert [(key, n) for _, key, n in g.launches] == [("LAUNCHES", 1),
-                                                      ("LAUNCHES_SPLIT", 1)]
+    # 64 queries: the split walk (``cuda_binned.split_walk``); three
+    # probe ranks: kernel F merges them
+    assert [(key, n) for _, key, n in g.launches] == [
+        ("LAUNCHES", 1), ("LAUNCHES_SPLIT", 1), ("LAUNCHES_MERGE", 1)]
 
 
 def test_small_graph_search_takes_the_split_walk(graph_indexes):

@@ -192,8 +192,8 @@ def test_mark_launches_nothing_off_the_card_or_off(monkeypatch, on, device):
 def test_snapshot_carries_the_launch_counters():
     launches = trace.snapshot()["launches"]
     assert set(launches) == {"packed_scan", "packed_scan_split",
-                             "distance_topk", "topk_values", "bucket_scan",
-                             "beam_step", "beam_step_plain"}
+                             "rank_merge", "distance_topk", "topk_values",
+                             "bucket_scan", "beam_step", "beam_step_plain"}
 
 
 @pytest.mark.parametrize("nprobe", [1, 2, 0])

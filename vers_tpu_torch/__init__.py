@@ -18,7 +18,10 @@ readers (``native``). Four CUDA kernels, one for each Pallas kernel of
 the distance + top-k scan over an f32 or bf16 corpus at each precision
 setting, also HNSW's layer-1 routing scan, and C, the values top-k),
 ``ops/cuda_binned.py`` (B, the packed binned scan behind IVFFlat and
-the forest) and ``ops/cuda_bucket.py`` (D, the bucket-min scan). The
+the forest) and ``ops/cuda_bucket.py`` (D, the bucket-min scan). Two
+more replace stages the JAX package leaves to XLA: E, the inline HNSW
+beam's step (``ops/beam_inline.py``), and F, the binned search's
+cross-probe merge (``ops/cuda_binned.py``). The
 multi-device layer (``parallel/``: the sharded Flat, IVFFlat, forest and
 HNSW indexes and the partitioned forest and HNSW) drives a mesh of
 devices from one process; its classes load lazily, as in ``vers_tpu``.

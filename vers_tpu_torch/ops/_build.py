@@ -58,6 +58,10 @@ _SIGNATURES = {
     # span, n_super, cosine, stream
     "vers_bucket_scan": [_P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _P],
+    # res_d, res_i, inv, probes, s2o (nullable), out_d, out_i, Q, p,
+    # probes' row stride, k, cap, num_bins, stream
+    "vers_rank_merge": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P],
     # stage (an index of trace.STAGES), stream
     "vers_trace_mark": [_I, _P],
     # beam_d, beam_i, expanded, qp, qn (nullable), adj, inline table,

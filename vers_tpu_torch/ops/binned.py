@@ -25,8 +25,11 @@ from vers_tpu_torch import graphs, trace
 from vers_tpu_torch.core import SHARD_STATE, round_up
 from vers_tpu_torch.ops.cuda_binned import (
     _workitems_blocks,
+    cuda_rank_merge,
     packed_scan,
     padded_group_layout,
+    rank_merge_plain,
+    scans_on_host,
 )
 from vers_tpu_torch.ops.distance import pairwise_distance
 from vers_tpu_torch.ops.topk import repeats_earlier, topk_smallest
@@ -369,7 +372,9 @@ def _fused_core(
     (query, rank) pair into one bin ordering, build work items over the
     one group table ``g_first`` (G+1,), scan, unsort, mask gated ranks
     and merge. Each corpus group is visited once across all ranks.
-    ``plain`` runs the scan's plain version.
+    ``plain`` runs the scan's plain version. The merge is kernel F
+    (``cuda_rank_merge``) where kernel B ran on the card, p > 1 and the
+    ranks are disjoint (``dedup`` false), else ``rank_merge_plain``.
 
     The tile plan follows from the shapes: the p*Q pairs are padded to
     p runs of Q rows rounded up to ``q_blk``, plus one scratch block
@@ -377,9 +382,10 @@ def _fused_core(
     stacked block plus one per group and one more.
 
     With ``trace`` on, the stages probe (unless the probes are given),
-    sort (pairs, work items), scan (kernel B) and merge (unsort, masks,
-    merge) are spans and, on a card, each opens with its marker; the
-    marker ``end`` closes the last."""
+    sort (pairs, work items), scan (kernel B) and merge (the inverse
+    pair order, then kernel F or the plain merge) are spans and, on a
+    card, each opens with its marker; the marker ``end`` closes the
+    last."""
     q_n = queries.shape[0]
     dev = queries.device
     if probes_given:
@@ -418,25 +424,15 @@ def _fused_core(
     with trace.stage("merge", dev):
         inv = torch.empty_like(order)
         inv[order] = torch.arange(pq, device=dev)
-        # q-major inverse gather: output row q*p + r is pair (r, q), so
-        # the (p, q, k) -> (q, p*k) transpose is a reshape
-        idx_qm = inv.reshape(p, q_n).T.reshape(-1)
-        dd = res_d[idx_qm]
-        pos = res_i[idx_qm]
-        live = (probes < num_bins).reshape(-1)[:, None]
-        dd = torch.where(live, dd, float("inf"))
-        if kernel_ids:
-            ii = torch.where(live & (pos >= 0), pos, -1)
+        args = (res_d, res_i, inv, probes, s2o_padded, num_bins, top_k,
+                kernel_ids)
+        # kernel F where kernel B ran and the ranks are disjoint; ranks
+        # that may overlap (the forest's trees) keep the dedup merge
+        if (p > 1 and not dedup and res_d.is_cuda
+                and not scans_on_host(top_k, plain)):
+            out = cuda_rank_merge(*args)
         else:
-            ii = torch.where(
-                live & (pos >= 0),
-                s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
-            )
-        out = dd.reshape(q_n, p * top_k), ii.reshape(q_n, p * top_k)
-        if p > 1:
-            # a single probe needs no merge: the scan already emits each
-            # query's top_k in ascending order with distinct ids
-            out = merge_probe_results(*out, top_k, dedup=dedup)
+            out = rank_merge_plain(*args, dedup=dedup)
     trace.mark("end", dev)
     return out
 

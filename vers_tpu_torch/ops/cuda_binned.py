@@ -31,6 +31,12 @@ and only adds zero columns to every dot product here.
 
 Dispatch, by the input tensor's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor takes the plain version.
+
+Kernel F (``csrc/rank_merge.cu``, ``cuda_rank_merge``) is the search's
+cross-probe merge after kernel B: each query's top k over the rows of
+its live probe ranks, in one launch. Its plain version is
+``rank_merge_plain``, the unsort, gate masks and rank-select merge the
+search ran before it; its launches are counted in ``LAUNCHES_MERGE``.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ import torch
 from vers_tpu_torch import trace
 from vers_tpu_torch.core import count
 from vers_tpu_torch.ops import _build
-from vers_tpu_torch.ops.cuda_topk import MAX_K, _sm_count
+from vers_tpu_torch.ops.cuda_topk import MAX_K, _sm_count, values_buffer_keys
 from vers_tpu_torch.ops.topk import topk_smallest
 
 # Launches of the CUDA kernel (one per successful launch).
@@ -52,7 +58,9 @@ LAUNCHES = 0
 LAUNCHES_SPLIT = 0
 # Scans routed to the plain version because top_k > MAX_K.
 LARGE_K_PLAIN = 0
-# (Both move by ``core.count``: shards launch from several threads at
+# Launches of kernel F, the cross-probe merge.
+LAUNCHES_MERGE = 0
+# (All move by ``core.count``: shards launch from several threads at
 # once.)
 
 
@@ -597,3 +605,104 @@ def packed_scan(*args, plain: bool = False, **kwargs):
     if scans_on_host(top_k, plain):
         return packed_scan_plain(*args, **kwargs)
     return cuda_packed_scan(*args, **kwargs)
+
+
+def rank_merge_plain(res_d, res_i, inv, probes, s2o_padded, num_bins: int,
+                     top_k: int, kernel_ids: bool = False, dedup: bool = False):
+    """Plain version of kernel F: the binned search's merge stage as
+    plain torch ops. Unsort kernel B's rows ``res_d``/``res_i`` (stacked
+    pairs) to (query, rank) order through ``inv`` ((p*Q,) int64: the
+    stacked row of pair (rank r, query q) at r*Q + q), mask the ranks
+    whose ``probes`` ((Q, p) int64) entry is the sentinel ``num_bins``,
+    take the ids as they are (``kernel_ids``) or map padded positions
+    through ``s2o_padded``, and merge the p ranks to each query's top_k
+    (``binned.merge_probe_results``; ``dedup`` drops repeated ids, for
+    ranks that may overlap). At p = 1 the scan's row is the answer.
+    Returns (dists (Q, top_k) f32, ids (Q, top_k) int32)."""
+    from vers_tpu_torch.ops.binned import merge_probe_results
+
+    q_n, p = probes.shape
+    # q-major inverse gather: output row q*p + r is pair (r, q), so
+    # the (p, q, k) -> (q, p*k) transpose is a reshape
+    idx_qm = inv.reshape(p, q_n).T.reshape(-1)
+    dd = res_d[idx_qm]
+    pos = res_i[idx_qm]
+    live = (probes < num_bins).reshape(-1)[:, None]
+    dd = torch.where(live, dd, float("inf"))
+    if kernel_ids:
+        ii = torch.where(live & (pos >= 0), pos, -1)
+    else:
+        ii = torch.where(
+            live & (pos >= 0),
+            s2o_padded[torch.clamp_min(pos, 0).to(torch.int64)], -1,
+        )
+    out = dd.reshape(q_n, p * top_k), ii.reshape(q_n, p * top_k)
+    if p > 1:
+        # a single probe needs no merge: the scan already emits each
+        # query's top_k in ascending order with distinct ids
+        out = merge_probe_results(*out, top_k, dedup=dedup)
+    return out
+
+
+def _check_merge_inputs(res_d, res_i, inv, probes, s2o_padded, top_k,
+                        kernel_ids):
+    dev = res_d.device
+    want = dict(res_d=(res_d, torch.float32), res_i=(res_i, torch.int32),
+                inv=(inv, torch.int64), probes=(probes, torch.int64))
+    if not kernel_ids:
+        want["s2o_padded"] = (s2o_padded, torch.int32)
+    for name, (t, dtype) in want.items():
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}, "
+                             f"got {t.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        # probes may be a slice of wider rows (the probe stage's top-p)
+        rows_apart = name == "probes" and t.ndim == 2 and t.stride(1) == 1 \
+            and t.stride(0) >= t.shape[1]
+        if not (t.is_contiguous() or rows_apart):
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= top_k <= MAX_K:
+        raise ValueError(f"kernel takes 1 <= top_k <= {MAX_K}, got {top_k}")
+    if res_d.ndim != 2 or res_d.shape[1] != top_k or res_i.shape != res_d.shape:
+        raise ValueError(f"res_d and res_i must be (rows, {top_k}), got "
+                         f"{tuple(res_d.shape)} and {tuple(res_i.shape)}")
+    if probes.ndim != 2 or inv.shape != (probes.numel(),):
+        raise ValueError(f"probes must be (Q, p) and inv (p*Q,), got "
+                         f"{tuple(probes.shape)} and {tuple(inv.shape)}")
+    if not kernel_ids and s2o_padded.ndim != 1:
+        raise ValueError("s2o_padded must be one id per padded corpus row")
+    if max(probes.shape[0], probes.stride(0), probes.shape[1] * top_k) >= 2**31:
+        raise ValueError("Q, p*top_k and the probes' row stride must fit the "
+                         "kernel's int32 sizes")
+
+
+def cuda_rank_merge(res_d, res_i, inv, probes, s2o_padded, num_bins: int,
+                    top_k: int, kernel_ids: bool = False):
+    """Kernel F: the merge of ``rank_merge_plain`` for disjoint probe
+    ranks (no dedup), one launch; the same results bit for bit.
+    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    Devices, dtypes, shapes and contiguity are checked here; the values
+    of ``inv`` are not (that needs a device sync) and must name rows of
+    ``res_d``, as the search's pair sort makes them."""
+    if not res_d.is_cuda:
+        return rank_merge_plain(res_d, res_i, inv, probes, s2o_padded,
+                                num_bins, top_k, kernel_ids)
+    _check_merge_inputs(res_d, res_i, inv, probes, s2o_padded, top_k,
+                        kernel_ids)
+    q_n, p = probes.shape
+    dev = res_d.device
+    out_d = torch.empty((q_n, top_k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q_n, top_k), dtype=torch.int32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        rc = lib.vers_rank_merge(
+            res_d.data_ptr(), res_i.data_ptr(), inv.data_ptr(),
+            probes.data_ptr(), None if kernel_ids else s2o_padded.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), q_n, p, probes.stride(0),
+            top_k, values_buffer_keys(top_k), num_bins,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(lib, rc, "vers_rank_merge")
+    count(globals(), "LAUNCHES_MERGE")
+    return out_d, out_i

@@ -197,6 +197,7 @@ def snapshot() -> dict:
         counters = dict(COUNTERS)
         launches = dict(packed_scan=cuda_binned.LAUNCHES,
                         packed_scan_split=cuda_binned.LAUNCHES_SPLIT,
+                        rank_merge=cuda_binned.LAUNCHES_MERGE,
                         distance_topk=dict(cuda_topk.LAUNCHES_BY_ROUTE),
                         topk_values=cuda_topk.LAUNCHES_VALUES,
                         bucket_scan=cuda_bucket.LAUNCHES,

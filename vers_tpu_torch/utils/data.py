@@ -190,6 +190,55 @@ def adversarial_topk_table(kind: str, q_n: int, w: int, seed: int = 0):
     return vals, ids
 
 
+def rank_merge_inputs(q_n: int, p: int, k: int, seed: int = 0,
+                      suffix: bool = False):
+    """Inputs of the binned search's cross-probe merge (kernel F and
+    ``cuda_binned.rank_merge_plain``) that stress its order and gates,
+    as numpy arrays: res_d (rows, k) f32 and res_i (rows, k) int32, the
+    scan's rows over the stacked pairs plus spare rows; inv (p*q_n,)
+    int64, a stacked row for each pair (rank r, query q) at r*q_n + q;
+    probes (q_n, p) int64; s2o (n,) int32, ids of padded positions (-1
+    on padding); num_bins.
+
+    Values come from a few small integers and both zeros (ties within a
+    row and across ranks, -0.0 beside +0.0), in no order, +inf at random
+    with id -1 (rows with fewer than k finite entries), and some live
+    ranks all +inf (empty lists). Gated ranks (probe ``num_bins``) form
+    a suffix of each query's ranks (``suffix``, as the adaptive walk
+    gates) or lie anywhere (as a shard of the sharded IVF gates), and
+    their rows hold finite values that would win if read. Query 0 has
+    every rank live, query 1 none; the others mostly one to three. Ids
+    are padded positions in [0, n); ``s2o`` maps them to row ids."""
+    rng = np.random.default_rng(seed)
+    num_bins, n = 4 * p + 8, 4 * q_n * k + 64
+    rows = p * q_n + 16
+    live_n = np.minimum(rng.geometric(0.6, size=q_n), p)
+    many = rng.random(q_n) < 0.05
+    live_n[many] = rng.integers(1, p + 1, size=int(many.sum()))
+    live_n[0] = p
+    if q_n > 1:
+        live_n[1] = 0
+    live = np.zeros((q_n, p), bool)
+    for q in range(q_n):
+        ranks = (np.arange(live_n[q]) if suffix
+                 else rng.choice(p, size=live_n[q], replace=False))
+        live[q, ranks] = True
+    probes = np.where(live, rng.integers(0, num_bins, size=(q_n, p)),
+                      num_bins).astype(np.int64)
+    inv = rng.permutation(rows)[: p * q_n].astype(np.int64)
+    choices = np.array([-0.0, 0.0, 0.5, 1.0, 2.0, 3.0], np.float32)
+    res_d = choices[rng.integers(0, len(choices), size=(rows, k))]
+    res_d[rng.random((rows, k)) < 0.2] = np.inf
+    res_d[rng.random(rows) < 0.1] = np.inf  # empty lists
+    gated = inv.reshape(p, q_n).T[~live]
+    res_d[gated] = -1.0  # read, they would win
+    res_i = rng.integers(0, n, size=(rows, k)).astype(np.int32)
+    res_i[np.isinf(res_d)] = -1
+    s2o = rng.permutation(n).astype(np.int32)
+    s2o[rng.random(n) < 0.05] = -1
+    return res_d, res_i, inv, probes, s2o, num_bins
+
+
 def read_fvecs(path: str, max_rows: int | None = None) -> np.ndarray:
     """SIFT-style .fvecs reader: each row = i32 dim + dim f32 (LE)."""
     raw = np.fromfile(path, dtype="<i4")

@@ -74,6 +74,15 @@ def topk_values_bound(q_n: int, width: int, s: int) -> dict:
     return bound(0.0, BF16, 4.0 * q_n * width + 12.0 * q_n * s)
 
 
+def rank_merge_bound(q_n: int, p: int, live: int, k: int) -> dict:
+    """Kernel F: selection only; the (Q, p) int64 probe flags read, and
+    for each of the ``live`` (query, rank) pairs its int64 entry of the
+    inverse pair order and its row of k (f32, int32) entries; the (Q, k)
+    result written."""
+    return bound(0.0, BF16, 8.0 * q_n * p + (8.0 + 8.0 * k) * live
+                 + 8.0 * q_n * k)
+
+
 def bucket_scan_bound(q_n: int, n_valid: int, d: int, width: int) -> dict:
     """Kernel D: bf16 q.x for every (query, valid row); the bf16 rows
     and their |x|^2, the f32 queries read once, the (Q, W) table of
