@@ -193,9 +193,9 @@ def test_spans_and_counters(tracing, data, monkeypatch):
     assert counts["route"] == counts["beam"] == counts["rescore"] == 1
     cap = -(-ef // 4)  # the inline beam's step cap: ceil(ef / expand)
     assert 0 < steps[0] <= cap and reads[0] == counts.get("hnsw.flag", 0)
-    assert snap["counters"] == {
-        "beam_steps": steps[0], "beam_flag_reads": reads[0],
-        "beam_stopped_early": int(steps[0] < cap)}
+    assert snap["counters"] == dict(
+        dict.fromkeys(trace.COUNTERS, 0), beam_steps=steps[0],
+        beam_flag_reads=reads[0], beam_stopped_early=int(steps[0] < cap))
     search = next(s for s in snap["recent"] if s.name == "hnsw.search")
     for s in snap["recent"]:
         if s.name in ("route", "beam", "rescore", "hnsw.flag", "hnsw.cache"):

@@ -11,14 +11,20 @@ CPU IVF search yields ``ivf.search`` over the stages ``probe``,
 the adaptive depth), with the upload and the download of a host call
 beside it and a search with tracing off recording nothing; ``kmeans.step``
 counts the Lloyd steps that ran; ``ivf.layout`` and ``layout.padded`` are
-recorded once for each layout built. The graph outcome spans are tested with the stand-in
-graphs of ``tests/test_torch_graphs.py``.
+recorded once for each layout built; a CPU forest search yields
+``lsh.search`` over ``descend``, then ``gather``, the binned stages and
+``fold`` a tree, at one probe, four and the default rule. The graph
+outcome spans are tested with the stand-in graphs of
+``tests/test_torch_graphs.py``.
 
 On the card (``gpu`` marker): a replayed and an eager IVF search with
 tracing on leave five markers a call in the profiler's device records,
 in stage order, none with tracing off, and the same answers bit for
 bit; an HNSW search on the inline route leaves its four (``route``,
-``beam``, ``rescore``, ``beam.end``) the same way. This file imports neither jax nor vers_tpu:
+``beam``, ``rescore``, ``beam.end``) the same way, and a forest search
+its own (``descend``, then ``gather``, the binned search's five and
+``fold`` a tree, then ``forest.end``). This file imports neither jax nor
+vers_tpu:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_trace.py
 """
@@ -263,9 +269,61 @@ def test_ivf_layout_is_recorded_once_a_build(tracing, data):
     assert (counts["ivf.layout"], counts["layout.padded"]) == (2, 2)
 
 
+@pytest.mark.parametrize("probes", [1, 4, None])
+def test_cpu_forest_search_yields_the_stages_in_order(tracing, data, probes):
+    from vers_tpu_torch import ANNIndex
+
+    forest = ANNIndex.build_index(3, 16, data["x"], np.arange(len(data["x"])),
+                                  device="cpu")
+    want = forest.search_batch(data["q"], 5, probes)
+    trace.reset()
+    got = forest.search_batch(data["q"], 5, probes)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    spans = _spans()
+    (search,) = [s for s in spans if s.name == "lsh.search"]
+    assert search.parent is None
+    mine = sorted((s for s in spans if s.call == search.call),
+                  key=lambda s: s.start_ns)
+    # the forest's stages, each tree's binned ones between its gather and
+    # its fold (the probes are given: no probe stage)
+    order = [s.name for s in mine if s.name in STAGES + ["descend", "gather", "fold"]]
+    assert order == ["descend"] + ["gather", "sort", "scan", "merge", "fold"] * 3
+    assert "lsh.layout" not in {s.name for s in mine}  # built by the first call
+    for s in mine:
+        assert search.start_ns <= s.start_ns <= s.end_ns <= search.end_ns
+
+
+def test_forest_build_spans_and_counters(tracing, data):
+    from vers_tpu_torch import ANNIndex
+
+    forest = ANNIndex.build_index(3, 16, data["x"], np.arange(len(data["x"])),
+                                  device="cpu")
+    spans = _spans()
+    (build,) = [s for s in spans if s.name == "lsh.build"]
+    inner = [s.name for s in sorted(spans, key=lambda s: s.start_ns)
+             if s.parent == build.id]
+    assert inner == ["lsh.dedup", "lsh.trees", "lsh.tables"]
+    view = forest.forest_view()
+    levels = sum(int(((t.split >= 0) | (t.bucket >= 0)).any(1).sum())
+                 for t in view.trees)
+    assert trace.snapshot()["counters"] == dict(
+        dict.fromkeys(trace.COUNTERS, 0),
+        forest_leaves=sum(len(t.leaf_sizes) for t in view.trees),
+        forest_levels=levels)
+    forest.search_batch(data["q"], 5, 1)
+    forest.search_batch(data["q"], 5, 1)
+    assert _counts()["lsh.layout"] == 1  # once a layout
+    trace.reset()
+    trace.disable()
+    ANNIndex.build_index(3, 16, data["x"], np.arange(len(data["x"])),
+                         device="cpu").search_batch(data["q"], 5, 1)
+    snap = trace.snapshot()
+    assert snap["spans"] == {} and snap["counters"] == dict.fromkeys(trace.COUNTERS, 0)
+
+
 # -- on the card ---------------------------------------------------------
 
-MARK = re.compile(r"vers::trace::mark<(\d)>")
+MARK = re.compile(r"vers::trace::mark<(\d+)>")
 
 
 @pytest.fixture
@@ -374,3 +432,42 @@ def test_hnsw_markers_on_the_card(cuda, mode):
     assert idx._ensure_device_cache()["inline"] is not None
     for (d_on, i_on), (d_off, i_off) in zip(got[True], got[False]):
         assert torch.equal(d_on, d_off) and torch.equal(i_on, i_off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["replay", "eager"])
+@pytest.mark.parametrize("probes", [1, None])
+def test_forest_markers_on_the_card(cuda, mode, probes):
+    from vers_tpu_torch import ANNIndex
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(20000, 64)).astype(np.float32)
+    q = torch.from_numpy(x[:500] + 0.1 * rng.normal(size=(500, 64)).astype(
+        np.float32)).to(cuda)
+    forest = ANNIndex.build_index(3, 100, x, np.arange(len(x)), device=cuda)
+    eager = graphs.disabled if mode == "eager" else contextlib.nullcontext
+
+    def search():
+        with eager():
+            return forest.search_batch_device(q, 10, probes)
+
+    calls = 3
+    idx = trace.STAGES.index
+    tree = [idx("gather")] + list(range(idx("end") + 1))[1:] + [idx("fold")]
+    want = ([idx("descend")] + tree * 3 + [idx("forest.end")]) * calls
+    got = {}
+    for on in (False, True, False):
+        (trace.enable if on else trace.disable)()
+        try:
+            search(), search()  # the first call, the capture
+            outs, marks = _profiled_marks(search, calls)
+        finally:
+            trace.disable()
+        assert marks == (want if on else [])
+        got.setdefault(on, outs)
+        for d, i in outs:
+            assert torch.equal(d, got[on][0][0]) and torch.equal(i, got[on][0][1])
+    for (d_on, i_on), (d_off, i_off) in zip(got[True], got[False]):
+        assert torch.equal(d_on, d_off) and torch.equal(i_on, i_off)
+    if mode == "replay":
+        assert len(forest._graphs.sites()) == 2  # one with markers, one without

@@ -20,8 +20,8 @@ __global__ void mark() {}
 }  // namespace trace
 }  // namespace vers
 
-// One marker of stage `stage` (0 <= stage < 9: the binned search's five,
-// then the HNSW search's four) on `stream`.
+// One marker of stage `stage` (0 <= stage < 13: the binned search's five,
+// then the HNSW search's four, then the forest search's four) on `stream`.
 extern "C" int vers_trace_mark(int stage, void* stream) {
   namespace tr = vers::trace;
   cudaStream_t st = (cudaStream_t)stream;
@@ -35,6 +35,10 @@ extern "C" int vers_trace_mark(int stage, void* stream) {
     case 6: tr::mark<6><<<1, 1, 0, st>>>(); break;
     case 7: tr::mark<7><<<1, 1, 0, st>>>(); break;
     case 8: tr::mark<8><<<1, 1, 0, st>>>(); break;
+    case 9: tr::mark<9><<<1, 1, 0, st>>>(); break;
+    case 10: tr::mark<10><<<1, 1, 0, st>>>(); break;
+    case 11: tr::mark<11><<<1, 1, 0, st>>>(); break;
+    case 12: tr::mark<12><<<1, 1, 0, st>>>(); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -33,17 +33,27 @@ Documented deviations from the reference:
 
 With no ``device`` an index lives on the first CUDA card
 (``core.resolve_device``); ``device="cpu"`` runs the plain versions.
+
+``forest_view()`` gives read-only views of the trees the batched search
+serves from (hyperplanes, node tables, leaf membership, leaf sizes) and
+the external id of each row, without copying them.
+
+With ``trace`` on: spans ``lsh.search`` (a batched search call),
+``lsh.layout`` (the shared-corpus device state built), ``lsh.build``
+with ``lsh.dedup``, ``lsh.trees`` and ``lsh.tables`` inside it, and the
+counters ``forest_leaves`` and ``forest_levels`` (each build's leaves
+and the levels holding its trees' nodes, known on the host).
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vers_tpu_torch import graphs
+from vers_tpu_torch import graphs, trace
 from vers_tpu_torch.config import LSHConfig
 from vers_tpu_torch.core import (
     as_query_matrix,
@@ -93,6 +103,36 @@ class _Tree:
         self.members: List[List[int]] = [
             m.tolist() for m in np.split(order, np.cumsum(counts)[:-1])
         ] if self.num_buckets else []
+
+
+class TreeView(NamedTuple):
+    """Read-only views of one tree as the batched search serves it. A
+    node is (level, position); position 0 of level 0 is the root. A node
+    with ``split[l, v] = s >= 0`` is inner: its hyperplane is
+    ``coeff[l, s]``, ``const[l, s]``, and a vector x goes to position
+    ``2 s + 1`` of level l + 1 where ``coeff[l, s] . x + const[l, s] >= 0``
+    (above), else to ``2 s``. A node with ``bucket[l, v] = b >= 0`` is
+    leaf b; a node with neither is empty."""
+
+    coeff: np.ndarray        # (L, T, d) f32 hyperplane normals
+    const: np.ndarray        # (L, T) f32 hyperplane constants
+    split: np.ndarray        # (L, S) i32 node -> hyperplane slot, or -1
+    bucket: np.ndarray       # (L, S) i32 node -> leaf, or -1
+    leaf_of_vec: np.ndarray  # (n,) i32 the leaf of each row
+    leaf_sizes: np.ndarray   # (leaves,) i64 rows in each leaf's member list
+
+
+class ForestView(NamedTuple):
+    """``ANNIndex.forest_view()``: the trees and each row's external id."""
+
+    trees: Tuple[TreeView, ...]
+    ids: np.ndarray          # (n,) i64 external id of each row
+
+
+def _read_only(a: np.ndarray) -> np.ndarray:
+    view = a.view()
+    view.flags.writeable = False
+    return view
 
 
 def _from_tables(tables: rpforest.ForestTables, n: int) -> _Tree:
@@ -198,6 +238,18 @@ class ANNIndex(Index):
             ]
         return self._sizes
 
+    def forest_view(self) -> ForestView:
+        """Read-only views (no copies) of the trees the batched search
+        serves from, after any pending rebuild of trees an ``add``
+        overflowed, and the external id of each row. Valid until the
+        next ``add``."""
+        self._rebuild_dirty()
+        trees = tuple(
+            TreeView(*(_read_only(a) for a in (
+                t.coeff, t.const, t.split, t.bucket, t.leaf_of_vec, sizes)))
+            for t, sizes in zip(self._trees, self._leaf_sizes()))
+        return ForestView(trees, _read_only(self._ids))
+
     def _max_bin(self) -> int:
         return max((int(s.max()) for s in self._leaf_sizes() if s.size),
                    default=1)
@@ -211,49 +263,50 @@ class ANNIndex(Index):
         last row is zero: padding slots of a tree's view gather it."""
         if self._shared is not None and self._shared["r_blk"] == r_blk:
             return self._shared
-        dev = self.device
-        corpus_pad = xx = None
-        if self._shared is not None:
-            corpus_pad = self._shared["corpus_pad"]
-            xx = self._shared["xx"]
-        t = shared_tree_tables(
-            [tr.leaf_of_vec for tr in self._trees],
-            [tr.num_buckets for tr in self._trees],
-            r_blk,
-        )
-        if corpus_pad is None:
-            n, d = self._values.shape
-            corpus_pad = torch.zeros((round_up(n + 1, 128), d),
-                                     dtype=torch.float32, device=dev)
-            corpus_pad[:n] = torch.from_numpy(self._values).to(dev)
-            xx = torch.sum(corpus_pad * corpus_pad, dim=1)
-        coeff_flat, const_flat, cbase, splits, buckets = (
-            self._flat_descent_tables()
-        )
+        with trace.span("lsh.layout"):
+            dev = self.device
+            corpus_pad = xx = None
+            if self._shared is not None:
+                corpus_pad = self._shared["corpus_pad"]
+                xx = self._shared["xx"]
+            t = shared_tree_tables(
+                [tr.leaf_of_vec for tr in self._trees],
+                [tr.num_buckets for tr in self._trees],
+                r_blk,
+            )
+            if corpus_pad is None:
+                n, d = self._values.shape
+                corpus_pad = torch.zeros((round_up(n + 1, 128), d),
+                                         dtype=torch.float32, device=dev)
+                corpus_pad[:n] = torch.from_numpy(self._values).to(dev)
+                xx = torch.sum(corpus_pad * corpus_pad, dim=1)
+            coeff_flat, const_flat, cbase, splits, buckets = (
+                self._flat_descent_tables()
+            )
 
-        def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            def put(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        self._shared = dict(
-            r_blk=r_blk,
-            corpus_pad=corpus_pad,
-            xx=xx,
-            coeffs=put(coeff_flat),
-            consts=put(const_flat),
-            cbase=put(cbase),
-            splits=put(splits),
-            buckets=put(buckets),
-            offsets=put(t["offsets"]),
-            sizes_dev=put(t["sizes"].astype(np.int32)),
-            src=put(t["src"]),
-            rbin=put(t["rbin"]),
-            g_first=put(t["g_first"]),
-            g_max=t["g_max"],
-            g_total=t["g_total"],
-            num_bins=t["num_bins"],
-            max_bin=t["max_bin"],
-        )
-        return self._shared
+            self._shared = dict(
+                r_blk=r_blk,
+                corpus_pad=corpus_pad,
+                xx=xx,
+                coeffs=put(coeff_flat),
+                consts=put(const_flat),
+                cbase=put(cbase),
+                splits=put(splits),
+                buckets=put(buckets),
+                offsets=put(t["offsets"]),
+                sizes_dev=put(t["sizes"].astype(np.int32)),
+                src=put(t["src"]),
+                rbin=put(t["rbin"]),
+                g_first=put(t["g_first"]),
+                g_max=t["g_max"],
+                g_total=t["g_total"],
+                num_bins=t["num_bins"],
+                max_bin=t["max_bin"],
+            )
+            return self._shared
 
     # -- build ---------------------------------------------------------
 
@@ -276,30 +329,42 @@ class ANNIndex(Index):
             raise ValueError("max_node_size must be >= 2")
         config = config or LSHConfig(num_trees=num_trees, max_node_size=max_size)
         device = resolve_device(device)
-        t0 = time.perf_counter()
-        vectors = np.asarray(vectors, dtype=np.float32)
-        dedup_vecs, dedup_ids = deduplicate(vectors, np.asarray(vector_ids))
-        n, d = dedup_vecs.shape
-        dedup_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        data = torch.zeros((round_up(max(n, 1), 128), d), dtype=torch.float32,
-                           device=device)
-        data[:n] = torch.from_numpy(dedup_vecs).to(device)
-        max_depth = rpforest.depth_bound(n, max_size)
-        gen = torch.Generator(device=device).manual_seed(config.seed)
-        tables = [
-            rpforest.build_tree(gen, data, n, max_size, max_depth)
-            for _ in range(num_trees)
-        ]
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        device_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        trees = [_from_tables(tb, n) for tb in tables]
-        idx = cls(max_size, trees, dedup_vecs, dedup_ids, config, device=device)
-        idx.build_seconds = dict(
-            dedup_host=dedup_s, trees_device=device_s,
-            tables_host=time.perf_counter() - t0)
+        with trace.span("lsh.build"):
+            t0 = time.perf_counter()
+            with trace.span("lsh.dedup"):
+                vectors = np.asarray(vectors, dtype=np.float32)
+                dedup_vecs, dedup_ids = deduplicate(vectors,
+                                                    np.asarray(vector_ids))
+            n, d = dedup_vecs.shape
+            dedup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with trace.span("lsh.trees"):
+                data = torch.zeros((round_up(max(n, 1), 128), d),
+                                   dtype=torch.float32, device=device)
+                data[:n] = torch.from_numpy(dedup_vecs).to(device)
+                max_depth = rpforest.depth_bound(n, max_size)
+                gen = torch.Generator(device=device).manual_seed(config.seed)
+                tables = [
+                    rpforest.build_tree(gen, data, n, max_size, max_depth)
+                    for _ in range(num_trees)
+                ]
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            device_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with trace.span("lsh.tables"):
+                trees = [_from_tables(tb, n) for tb in tables]
+            idx = cls(max_size, trees, dedup_vecs, dedup_ids, config,
+                      device=device)
+            idx.build_seconds = dict(
+                dedup_host=dedup_s, trees_device=device_s,
+                tables_host=time.perf_counter() - t0)
+            if trace.enabled():
+                trace.count("forest_leaves",
+                            sum(t.num_buckets for t in trees))
+                trace.count("forest_levels", sum(
+                    int(((t.split >= 0) | (t.bucket >= 0)).any(axis=1).sum())
+                    for t in trees))
         return idx
 
     # -- Index API -------------------------------------------------------
@@ -551,47 +616,50 @@ class ANNIndex(Index):
         graph's pool, and the id map another of the same configuration;
         the plain engine (``engine="xla"``) and top_k > 128 read their
         work items on the host and run eagerly."""
-        self._rebuild_dirty()
-        qdev = as_query_matrix(queries, self.device)
-        if probes_per_tree is None:
-            n_probes = self._auto_probes(top_k)
-            deficit_k = top_k if n_probes > 1 else 0
-        else:
-            n_probes = max(1, probes_per_tree)
-            deficit_k = 0
-        engine = self.config.engine
-        if engine not in ("auto", "pallas", "xla"):
-            raise ValueError(f"unknown engine {engine!r}")
-        sh, plan = self._shared_plan(top_k)
-        idmap = self._ids_device() if ids else None
-        if ids and idmap is None:
-            raise ValueError(
-                "external ids exceed int32 range; the device-resident "
-                "path cannot map them — use search_batch()"
-            )
-        plain = engine == "xla"
+        with trace.span("lsh.search"):
+            self._rebuild_dirty()
+            qdev = as_query_matrix(queries, self.device)
+            if probes_per_tree is None:
+                n_probes = self._auto_probes(top_k)
+                deficit_k = top_k if n_probes > 1 else 0
+            else:
+                n_probes = max(1, probes_per_tree)
+                deficit_k = 0
+            engine = self.config.engine
+            if engine not in ("auto", "pallas", "xla"):
+                raise ValueError(f"unknown engine {engine!r}")
+            sh, plan = self._shared_plan(top_k)
+            idmap = self._ids_device() if ids else None
+            if ids and idmap is None:
+                raise ValueError(
+                    "external ids exceed int32 range; the device-resident "
+                    "path cannot map them — use search_batch()"
+                )
+            plain = engine == "xla"
 
-        def search(q):
-            return forest_search_shared(
-                q, sh["coeffs"], sh["consts"], sh["cbase"],
-                sh["splits"], sh["buckets"], sh["offsets"], sh["sizes_dev"],
-                sh["corpus_pad"], sh["xx"], sh["src"], sh["rbin"],
-                sh["g_first"], n_probes=n_probes, num_bins=sh["num_bins"],
-                top_k=top_k, deficit_k=deficit_k, plain=plain, **plan,
-            )
+            def search(q):
+                return forest_search_shared(
+                    q, sh["coeffs"], sh["consts"], sh["cbase"], sh["splits"],
+                    sh["buckets"], sh["offsets"], sh["sizes_dev"],
+                    sh["corpus_pad"], sh["xx"], sh["src"], sh["rbin"],
+                    sh["g_first"], n_probes=n_probes,
+                    num_bins=sh["num_bins"], top_k=top_k,
+                    deficit_k=deficit_k, plain=plain, **plan,
+                )
 
-        def map_ids(dists, internal):
-            return dists, torch.where(
-                internal >= 0,
-                idmap[torch.clamp(internal, 0, idmap.shape[0] - 1).to(
-                    torch.int64)],
-                -1,
-            )
+            def map_ids(dists, internal):
+                return dists, torch.where(
+                    internal >= 0,
+                    idmap[torch.clamp(internal, 0, idmap.shape[0] - 1).to(
+                        torch.int64)],
+                    -1,
+                )
 
-        site = None if scans_on_host(top_k, plain) else self._graphs.site(
-            ("forest", top_k, n_probes, deficit_k), qdev, sh)
-        out = graphs.run(site, "search", search, qdev)
-        return graphs.run(site, "ids", map_ids, *out) if ids else out
+            site = (None if scans_on_host(top_k, plain) else
+                    self._graphs.site(("forest", top_k, n_probes, deficit_k),
+                                      qdev, sh))
+            out = graphs.run(site, "search", search, qdev)
+            return graphs.run(site, "ids", map_ids, *out) if ids else out
 
     # -- single-query parity path (deficit/backup rule) ------------------
 

@@ -19,6 +19,12 @@ and makes every per-tree table an INDEX table:
   merge. Peak memory is corpus + one padded tree view, whatever the
   tree count.
 
+With ``trace`` on, the descent (and the deficit gate), each tree's view
+gather and each tree's fold into the running answer are stages (spans
+and, on a card, markers: ``descend``, ``gather``, ``fold``, and
+``forest.end`` after the last fold); the packed scan's own stages lie
+between a tree's gather and its fold.
+
 The host-side table functions are numpy, as in the JAX package.
 """
 
@@ -29,6 +35,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from vers_tpu_torch import trace
 from vers_tpu_torch.core import round_up
 from vers_tpu_torch.ops import rpforest
 from vers_tpu_torch.ops.binned import (
@@ -160,18 +167,10 @@ def forest_search_shared(
     packed scan, dedup-merge into the running top-k. Padding slots
     (``src < 0``) gather the corpus's zero last row and carry bin -1.
     Returns (dists (Q, k) f32, original rows (Q, k) int32)."""
-    probes = rpforest.descend_forest_flat(
-        queries, coeff_flat, const_flat, cbase, splits, buckets, offsets,
-        n_probes=n_probes,
-    )
-    if deficit_k:
-        probes = _deficit_gate(probes, sizes_dev, num_bins, n_probes,
-                               deficit_k)
     n_trees = splits.shape[0]
     q_n, d = queries.shape
     dev = queries.device
     n_pad = corpus_pad.shape[0]
-    probes = probes.reshape(q_n, n_trees, n_probes)
     # one view buffer for every tree: the trees run one after another on
     # one stream, so a tree's gather overwrites the view before it
     view = torch.empty((src.shape[1], d), dtype=corpus_pad.dtype, device=dev)
@@ -179,10 +178,20 @@ def forest_search_shared(
     bd = torch.full((q_n, top_k), float("inf"), dtype=torch.float32,
                     device=dev)
     bi = torch.full((q_n, top_k), -1, dtype=torch.int32, device=dev)
+    with trace.stage("descend", dev):
+        probes = rpforest.descend_forest_flat(
+            queries, coeff_flat, const_flat, cbase, splits, buckets, offsets,
+            n_probes=n_probes,
+        )
+        if deficit_k:
+            probes = _deficit_gate(probes, sizes_dev, num_bins, n_probes,
+                                   deficit_k)
+        probes = probes.reshape(q_n, n_trees, n_probes)
     for t in range(n_trees):
-        rows = torch.where(src[t] >= 0, src[t], n_pad - 1)
-        torch.index_select(corpus_pad, 0, rows, out=view)
-        torch.index_select(xx, 0, rows, out=xx_view)
+        with trace.stage("gather", dev):
+            rows = torch.where(src[t] >= 0, src[t], n_pad - 1)
+            torch.index_select(corpus_pad, 0, rows, out=view)
+            torch.index_select(xx, 0, rows, out=xx_view)
         td, ti = _fused_core(
             queries, probes[:, t], view, rbin_pad[t][None, :],
             xx_view[None, :], src[t], g_first[t],
@@ -192,9 +201,11 @@ def forest_search_shared(
             # trees overlap and a query can probe one leaf twice: keep dedup
             dedup=True, kernel_ids=kernel_ids, plain=plain,
         )
-        bd, bi = merge_probe_results(
-            torch.cat([bd, td], dim=1),
-            torch.cat([bi, ti.to(torch.int32)], dim=1),
-            top_k,
-        )
+        with trace.stage("fold", dev):
+            bd, bi = merge_probe_results(
+                torch.cat([bd, td], dim=1),
+                torch.cat([bi, ti.to(torch.int32)], dim=1),
+                top_k,
+            )
+    trace.mark("forest.end", dev)
     return bd, bi

@@ -14,7 +14,8 @@ nothing. ``enable()`` / ``disable()`` / ``enabled()`` are its one switch.
 - ``mark(stage, device)``: on, and on a card, one marker kernel on the
   current stream, ``vers::trace::mark<i>`` with ``i`` the stage's index
   in ``STAGES`` (``csrc/trace_mark.cu``): 0-4 the binned search's,
-  5-8 the HNSW search's. A marker launched while a CUDA
+  5-8 the HNSW search's, 9-12 the forest search's. A marker launched
+  while a CUDA
   graph captures is a node of the graph, so replays, which run no
   Python and so record no span, still divide their device work into
   stages: a profiler's device records between a marker and the next
@@ -22,7 +23,8 @@ nothing. ``enable()`` / ``disable()`` / ``enabled()`` are its one switch.
   span of the same name.
 - ``count(key, n)``: on, adds ``n`` to the trace's counter ``key``
   (``COUNTERS``, through ``core.count``): the HNSW beam's steps, its
-  stop-flag reads and the beam loops that stopped before their step cap.
+  stop-flag reads and the beam loops that stopped before their step cap;
+  the forest build's leaves and levels.
 - ``snapshot()``: per span name its count, total and longest time
   (never evicted), the last ``RING`` spans, the trace's counters, and
   the kernels' launch counters (which ``core.count`` moves with tracing
@@ -43,8 +45,12 @@ binned search's stages ``probe``, ``sort``, ``scan``, ``merge``
 ``hnsw.wave`` (``ops/hnsw_build.py``), ``hnsw.flag`` (``ops/beam.py``)
 and the HNSW search's stages ``route``, ``beam``, ``rescore``
 (``ops/beam.py``, ``ops/beam_inline.py``, each also a marker;
-``beam.end`` closes the last). ``TRACING.md`` beside this file says what
-each covers.
+``beam.end`` closes the last); ``lsh.search``, ``lsh.layout``,
+``lsh.build`` with ``lsh.dedup``, ``lsh.trees`` and ``lsh.tables``
+(``index/lsh.py``) and the forest search's stages ``descend``,
+``gather``, ``fold`` (``ops/forest_shared.py``, each also a marker;
+``forest.end`` closes the last). ``TRACING.md`` beside this file says
+what each covers.
 """
 
 from __future__ import annotations
@@ -64,12 +70,16 @@ from vers_tpu_torch.core import count as _add
 # spans kept in the ring of recent ones
 RING = 65_536
 # the device stages of the binned search, in order, a marker of "end"
-# closing the last; then the HNSW search's, "beam.end" closing its last
+# closing the last; then the HNSW search's, "beam.end" closing its last;
+# then the forest search's, "forest.end" closing its last
 STAGES = ("probe", "sort", "scan", "merge", "end",
-          "route", "beam", "rescore", "beam.end")
+          "route", "beam", "rescore", "beam.end",
+          "descend", "gather", "fold", "forest.end")
 # the trace's counters: the HNSW beam loops' steps run, their host reads
-# of the stop flag, and the loops that stopped before their step cap
-COUNTERS = {"beam_steps": 0, "beam_flag_reads": 0, "beam_stopped_early": 0}
+# of the stop flag, and the loops that stopped before their step cap;
+# the leaves the forest builds made and the levels holding their nodes
+COUNTERS = {"beam_steps": 0, "beam_flag_reads": 0, "beam_stopped_early": 0,
+            "forest_leaves": 0, "forest_levels": 0}
 
 _on = False
 _NULL = contextlib.nullcontext()
